@@ -1,0 +1,302 @@
+"""Shared accel helpers: window packing, the plain window test, hit finalize.
+
+Counterpart of ``hare_tpu/accel/common.py``.  ``pack_windows`` is a NumPy copy
+(bit-equal tables; the tests check it).  ``test_windows`` is the plain
+PyTorch statement of the candidate test that K1 (``kernels/csrc/
+grid_shoot.cu``) fuses into its march.  ``finalize_hits`` is K2's wrapper:
+the CUDA kernel for CUDA tensors, its plain version for CPU tensors.
+
+Nearest-hit reductions use one int64 *hit key* per candidate,
+``float_bits(t) << 32 | tri_id``: for the positive t of an accepted hit the
+float bits order like t, so ``amin`` over keys picks the nearest t and, on
+equal t, the lowest triangle id — the JAX tie rule (``common.py:224-242``).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..geom.intersect import kernel_components
+from ..geom.primitives import NO_POLY, HitRecord, Ray
+from ..kernels import build
+from ..mesh.scene import Scene
+
+__all__ = [
+    "NO_HIT_KEY",
+    "WIN",
+    "check_device",
+    "check_kernel",
+    "finalize_hits",
+    "finalize_hits_plain",
+    "hit_key",
+    "key_to_hit",
+    "pack_windows",
+    "test_windows",
+]
+
+# Default triangles per window row (the JAX package's WIN).
+WIN = 16
+# Hit key of "no accepted candidate": above every real key.
+NO_HIT_KEY = (1 << 63) - 1
+KERNELS = ("watertight", "mt")
+
+
+def pack_windows(
+    tri: np.ndarray,
+    tri_poly: np.ndarray,
+    tri_top: np.ndarray,
+    start: np.ndarray,
+    counts: np.ndarray,
+    items: np.ndarray,
+    win: int = WIN,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Pack per-group triangle lists into 128-lane window rows (host side).
+
+    Shared device layout for every accel structure (grid cells, octree and
+    KD-tree leaves): each row holds a WIN-triangle *window* of one group's
+    list, geometry COMPONENT-MAJOR — lane ``c*WIN+k`` is component c
+    (v0x..e2z) of instance k — so the test kernel consumes static WIN-lane
+    slices with no cross-lane reshapes; triangle / polygon / topology ids
+    ride bitcast in lanes 9*WIN:12*WIN.  Row ``n_windows`` is all-null.
+
+    Args:
+      tri: (T, 3, 3) triangle vertices. tri_poly/tri_top: (T,) ids.
+      start/counts: (G,) CSR offsets into ``items`` per group.
+      items: (total,) triangle ids, group-major.
+    Returns:
+      (win_data (NW+1, 12*win) f32, win_start (G,) i64, n_wins (G,) i64)
+    """
+    n_wins_per = -(-counts // win)
+    win_start = np.concatenate([[0], np.cumsum(n_wins_per)]).astype(np.int64)
+    n_windows = int(win_start[-1])
+    win_data = np.zeros((n_windows + 1, 12 * win), np.float32)
+    if n_windows:
+        occ = np.nonzero(counts)[0]
+        win_grp = np.repeat(occ, n_wins_per[occ])
+        win_local = np.arange(n_windows) - win_start[win_grp]
+        lane = np.arange(win)
+        pos = start[win_grp][:, None] + (win_local[:, None] * win + lane)
+        in_range = pos < (start[win_grp] + counts[win_grp])[:, None]
+        pos_c = np.minimum(pos, len(items) - 1)
+        t_ids = np.where(in_range, items[pos_c], -1)
+        safe = np.maximum(t_ids, 0)
+        g = tri[safe]  # (n_windows, win, 3, 3)
+        v0 = g[:, :, 0, :]
+        ops = np.concatenate(
+            [v0, g[:, :, 1, :] - v0, g[:, :, 2, :] - v0], axis=-1
+        )
+        ops = np.where(in_range[:, :, None], ops, 0.0)
+        win_data[:n_windows, 0 : 9 * win] = ops.transpose(0, 2, 1).reshape(
+            n_windows, 9 * win
+        )
+        win_data[:n_windows, 9 * win : 10 * win] = np.where(
+            in_range, t_ids, -1
+        ).astype(np.int32).view(np.float32)
+        win_data[:n_windows, 10 * win : 11 * win] = np.where(
+            in_range, tri_poly[safe], -2
+        ).astype(np.int32).view(np.float32)
+        win_data[:n_windows, 11 * win : 12 * win] = np.where(
+            in_range, tri_top[safe], -1
+        ).astype(np.int32).view(np.float32)
+    win_data[n_windows, 9 * win : 10 * win] = (
+        np.full(win, -1, np.int32).view(np.float32)
+    )
+    win_data[n_windows, 10 * win : 11 * win] = (
+        np.full(win, -2, np.int32).view(np.float32)
+    )
+    win_data[n_windows, 11 * win : 12 * win] = (
+        np.full(win, -1, np.int32).view(np.float32)
+    )
+    return win_data, win_start[:-1], n_wins_per.astype(np.int64)
+
+
+def check_device(*tensors: torch.Tensor) -> str:
+    """The device type the tensors share: ``"cpu"`` (plain versions) or
+    ``"cuda"`` (kernels).  Anything else raises — there is no fallback."""
+    types = {t.device.type for t in tensors}
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"tensors on several devices: {sorted(map(str, devs))}")
+    (kind,) = types
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel or plain version for device type {kind!r}")
+    return kind
+
+
+def check_kernel(kernel: str) -> None:
+    if kernel not in KERNELS:
+        raise ValueError(f"unknown kernel {kernel!r}; expected one of {KERNELS}")
+
+
+def hit_key(t: torch.Tensor, tri: torch.Tensor) -> torch.Tensor:
+    """int64 key ordering hits by (t, tri id); valid for t > 0."""
+    return (t.contiguous().view(torch.int32).to(torch.int64) << 32) | tri.to(
+        torch.int64
+    )
+
+
+def key_to_hit(key: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(best_t f32, best_tri i32) from hit keys; misses -> (inf, -1)."""
+    miss = key == NO_HIT_KEY
+    t = (key >> 32).to(torch.int32).view(torch.float32)
+    tri = (key & 0xFFFFFFFF).to(torch.int32)
+    return (
+        torch.where(miss, float("inf"), t),
+        torch.where(miss, -1, tri),
+    )
+
+
+def test_windows(
+    win_geom: torch.Tensor,
+    win_ids: torch.Tensor,
+    rows: torch.Tensor,
+    o: torch.Tensor,
+    d: torch.Tensor,
+    ex: torch.Tensor,
+    min_t: float,
+    top_index: Optional[int] = None,
+    kernel: str = "watertight",
+) -> torch.Tensor:
+    """Plain candidate test: query q tests the ``win`` triangles of window
+    row ``rows[q]`` against ray ``(o[q], d[q])`` with exclusions ``ex[q]``.
+
+    Acceptance is the JAX rule (``common.py:251-263``): valid, t > min_t,
+    tri id >= 0, poly not in ex (and top == top_index when given).
+    Returns the (Q,) int64 hit key of each query's nearest accepted hit.
+    """
+    g = win_geom[rows]  # (Q, win, 12): v0 | e1 | e2 | 3 zero lanes
+    ids = win_ids[rows]  # (Q, win, 4): tri, poly, top, 0
+    o_cmp = tuple(o[:, c : c + 1] for c in range(3))
+    d_cmp = tuple(d[:, c : c + 1] for c in range(3))
+    valid, t, _, _ = kernel_components(
+        kernel, o_cmp, d_cmp, tuple(g[..., c] for c in range(9))
+    )
+    tid, poly = ids[..., 0], ids[..., 1]
+    acc = (
+        valid
+        & (t > min_t)
+        & (tid >= 0)
+        & (poly != ex[:, 0:1])
+        & (poly != ex[:, 1:2])
+    )
+    if top_index is not None:
+        acc &= ids[..., 2] == top_index
+    key = torch.where(acc, hit_key(t, tid), NO_HIT_KEY)
+    return key.amin(dim=1)
+
+
+def _check_no_grad(scene: Scene, rays: Ray) -> None:
+    for name, x in (("scene.vertices", scene.vertices),
+                    ("rays.origin", rays.origin),
+                    ("rays.direction", rays.direction)):
+        if x.requires_grad:
+            raise NotImplementedError(
+                f"{name} requires grad: the hit-finalize backward (vertex and "
+                "ray gradients) is not ported yet, and a silent zero gradient "
+                "is not allowed"
+            )
+
+
+def finalize_hits_plain(
+    scene: Scene,
+    rays: Ray,
+    best_t: torch.Tensor,
+    best_tri: torch.Tensor,
+    kernel: str = "watertight",
+) -> HitRecord:
+    """Plain version of K2: hit record of the winners, by direct indexing."""
+    hit = torch.isfinite(best_t)
+    tri = torch.clamp(best_tri, min=0)
+    g = scene.tri_geom[tri.long()]
+    meta = scene.tri_meta[tri.long()]
+    o, d = rays.origin, rays.direction
+    _, t, u, v = kernel_components(
+        kernel,
+        tuple(o[:, c] for c in range(3)),
+        tuple(d[:, c] for c in range(3)),
+        tuple(g[:, c] for c in range(9)),
+        unmasked=True,
+    )
+    e1x, e1y, e1z, e2x, e2y, e2z = (g[:, c] for c in range(3, 9))
+    normal = torch.stack(
+        [e1y * e2z - e1z * e2y, e1z * e2x - e1x * e2z, e1x * e2y - e1y * e2x],
+        dim=-1,
+    )
+    t = torch.where(hit, t, 0.0)  # keeps miss lanes finite
+    point = o + t[:, None] * d
+    return HitRecord(
+        hit=hit,
+        t=torch.where(hit, t, float("inf")),
+        u=torch.where(hit, u, 0.0),
+        v=torch.where(hit, v, 0.0),
+        point=torch.where(hit[:, None], point, 0.0),
+        poly_id=torch.where(hit, meta[:, 0], NO_POLY),
+        tri_id=torch.where(hit, tri, NO_POLY),
+        normal=normal,
+        edge_nbr=meta[:, 1:4],
+    )
+
+
+def finalize_hits(
+    scene: Scene,
+    rays: Ray,
+    best_t: torch.Tensor,
+    best_tri: torch.Tensor,
+    kernel: str = "watertight",
+) -> HitRecord:
+    """K2: the hit record of the traversal winners (``best_t`` decides the
+    hit mask; t, u, v are re-solved on the winner's plane, unmasked).
+    ``best_tri`` must hold -1 or a row of ``scene.tri_geom``, as
+    :func:`~.voxel.grid_shoot` returns.
+
+    CUDA tensors launch ``kernels/csrc/finalize_hits.cu``; CPU tensors take
+    :func:`finalize_hits_plain`.  Raises if a gradient would be needed
+    through the hit values — that backward is a later port.
+    """
+    check_kernel(kernel)
+    _check_no_grad(scene, rays)
+    o, d = rays.origin, rays.direction
+    kind = check_device(scene.tri_geom, o, d, best_t, best_tri)
+    if kind == "cpu":
+        return finalize_hits_plain(scene, rays, best_t, best_tri, kernel)
+    n = o.shape[0]
+    t_rows = scene.tri_geom.shape[0]
+    if (o.shape != (n, 3) or d.shape != (n, 3) or best_t.shape != (n,)
+            or best_tri.shape != (n,) or scene.tri_geom.shape != (t_rows, 9)
+            or scene.tri_meta.shape != (t_rows, 8)):
+        raise ValueError("finalize_hits: ray, winner or scene table shapes disagree")
+    f = dict(dtype=torch.float32, device=o.device)
+    i = dict(dtype=torch.int32, device=o.device)
+    out = HitRecord(
+        hit=torch.empty(n, dtype=torch.bool, device=o.device),
+        t=torch.empty(n, **f),
+        u=torch.empty(n, **f),
+        v=torch.empty(n, **f),
+        point=torch.empty(n, 3, **f),
+        poly_id=torch.empty(n, **i),
+        tri_id=torch.empty(n, **i),
+        normal=torch.empty(n, 3, **f),
+        edge_nbr=torch.empty(n, 3, **i),
+    )
+    finalize_hits.launches += 1
+    build.launch(
+        "hare_finalize_hits",
+        _contig(scene.tri_geom, torch.float32), _contig(scene.tri_meta, torch.int32),
+        _contig(best_t, torch.float32), _contig(best_tri, torch.int32),
+        _contig(o, torch.float32), _contig(d, torch.float32), n,
+        int(kernel == "mt"), *out,
+    )
+    return out
+
+
+finalize_hits.launches = 0
+
+
+def _contig(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The tensor as the kernels read it; raises on a wrong dtype."""
+    if x.dtype != dtype:
+        raise TypeError(f"expected {dtype}, got {x.dtype}")
+    return x.contiguous()

@@ -1,0 +1,123 @@
+"""Guards of the PyTorch port: no JAX, no silent fallbacks, no dropped knobs."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import hare_tpu_torch as th  # noqa: E402
+from hare_tpu_torch.accel.common import finalize_hits  # noqa: E402
+from hare_tpu_torch.accel.voxel import grid_shoot  # noqa: E402
+from hare_tpu_torch.kernels import build  # noqa: E402
+from hare_tpu_torch.mesh import shapes  # noqa: E402
+from hare_tpu_torch.trace.bounce import histogram_kernel  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "hare_tpu")  # compared as whole first components
+
+
+def test_import_loads_no_jax():
+    code = (
+        "import sys, hare_tpu_torch\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'hare_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+
+
+def test_no_jax_or_hare_tpu_imports_in_source():
+    files = sorted((ROOT / "hare_tpu_torch").rglob("*.py"))
+    assert len(files) > 10
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text(), str(f))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            for name in names:
+                assert name.split(".")[0] not in FORBIDDEN, f"{f}: imports {name}"
+
+
+@pytest.fixture(scope="module")
+def room():
+    return th.Topology.build(shapes.shoebox(4, 5, 3))
+
+
+@pytest.mark.parametrize("accel, exc", [
+    ("octree", NotImplementedError), ("brute", NotImplementedError),
+    ("kdtree", NotImplementedError), ("kdtree_ropes", NotImplementedError),
+    ("bvh", ValueError),
+])
+def test_unported_accel_raises(room, accel, exc):
+    with pytest.raises(exc, match=accel):
+        th.SpatialPartition(room, accel=accel)
+
+
+@pytest.mark.parametrize("knob", ["cap", "soft", "tier", "cap_s", "march"])
+def test_tpu_knobs_raise(room, knob):
+    with pytest.raises(ValueError, match=knob):
+        th.SpatialPartition(room, accel="grid", domain=4, **{knob: 8})
+
+
+def test_unported_trace_features_raise(room):
+    sp = th.SpatialPartition(room, domain=4)
+    rays = th.Ray.make(torch.full((4, 3), 1.0), torch.tensor([[1.0, 0.0, 0.0]] * 4))
+    a = torch.zeros(room.n_polys)
+    with pytest.raises(NotImplementedError, match="scattering"):
+        th.trace_rays(sp.scene, rays, a, 2, sp.shoot_fn, aux=sp.aux,
+                      scattering=torch.zeros(room.n_polys))
+    with pytest.raises(NotImplementedError, match="remat"):
+        th.trace_rays(sp.scene, rays, a, 2, sp.shoot_fn, aux=sp.aux, remat=True)
+    res = th.trace_rays(sp.scene, rays, a, 2, sp.shoot_fn, aux=sp.aux)
+    with pytest.raises(NotImplementedError, match="soft"):
+        th.energy_histogram(res, 16, soft=True)
+    with pytest.raises(ValueError, match="kernel"):
+        th.SpatialPartition(room, domain=4, kernel="fast")
+
+
+def test_vertex_gradient_request_raises(room):
+    """The finalize backward is not ported: no silent zero gradient."""
+    sp = th.SpatialPartition(room, domain=4)
+    scene = sp.scene._replace(vertices=sp.scene.vertices.clone().requires_grad_())
+    rays = th.Ray.make(torch.full((4, 3), 1.0), torch.tensor([[1.0, 0.0, 0.0]] * 4))
+    with pytest.raises(NotImplementedError, match="vertices"):
+        sp.shoot_fn(scene, rays)
+
+
+def test_wrappers_never_fall_back(room):
+    """A tensor on a device with neither a kernel nor a plain version raises;
+    on a host without CUDA the kernel launchers raise instead of running the
+    plain version."""
+    grid = th.accel.build_voxel_grid(room, domain=4)
+    meta = torch.device("meta")
+    rays = th.Ray.make(torch.zeros(4, 3, device=meta), torch.ones(4, 3, device=meta))
+    meta_grid = grid._replace(cell_meta=grid.cell_meta.to(meta), win_geom=grid.win_geom.to(meta))
+    with pytest.raises(ValueError, match="meta"):
+        grid_shoot(rays, meta_grid)
+    scene = th.build_scene([room])
+    with pytest.raises(ValueError, match="meta"):
+        finalize_hits(scene, rays, torch.zeros(4, device=meta),
+                      torch.zeros(4, dtype=torch.int32, device=meta))
+    e = torch.ones(2, 3, device=meta)
+    res = th.TraceResult(torch.ones(2, 3, dtype=torch.bool, device=meta), e, e, None, None, None)
+    with pytest.raises(ValueError, match="meta"):
+        th.energy_histogram(res, 8)
+    if torch.cuda.is_available():
+        return  # the rest is about hosts without a card
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build.library()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        histogram_kernel(torch.ones(8), torch.zeros(8), torch.ones(8, dtype=torch.bool), 4, 1e-3)
+
+
+def test_kernel_sources_present():
+    """Every C entry point bound in build.py is defined in csrc/."""
+    src = "".join(p.read_text() for p in sorted(build.CSRC.glob("*.cu")))
+    for name in build._SIGNATURES:
+        assert f'extern "C" int {name}(' in src, name
