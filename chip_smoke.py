@@ -15,7 +15,12 @@ per-polygon absorption, on the card.  Phases, one line each:
    time from torch.profiler;
 4. the main path end to end, with its launch counts and invariants;
 5. forward and forward+backward step times, Mrays/s, and where one step's
-   device time goes (idle share of the card).
+   device time goes (idle share of the card);
+6. the four Pallas probe kernels of ``benchmarks/`` (P1 ``column_sum``,
+   P2-P4 ``gather_sum``) through the port's probes
+   (``hare_tpu_torch.benchmarks``) at the JAX probes' shapes: each probe
+   driven once with its launch count, each kernel against its plain
+   version, time per call and on the device, ns per gathered row and GB/s.
 
 Any failed check raises: there is no fallback.  The second-to-last line is
 the per-kernel JSON record, the last ``{"ok": true, "device": ...}``.
@@ -49,15 +54,9 @@ def cuda_time(fn, reps):
     """Mean milliseconds per call of ``fn()`` over ``reps`` calls, by CUDA
     events, after one warm-up call.  Where the host enqueues slower than the
     card runs, this is the host's time per call."""
-    fn()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+    from hare_tpu_torch.benchmarks.pallas_probe import seconds_per_call
+
+    return seconds_per_call(fn, "cuda", reps) * 1e3
 
 
 def device_kernels(fn, reps=1):
@@ -82,6 +81,118 @@ def device_kernels(fn, reps=1):
 def kernel_ms(times, tag):
     """Device ms of the kernels whose name contains ``tag``."""
     return sum(us for name, us in times.items() if tag in name) / 1e3
+
+
+def gather_phase(label, tab, idx, iters, out_dtype, call_ms):
+    """Hold ``gather_sum`` against its plain version on one probe's inputs,
+    time both, print one line; returns the probe's measurements."""
+    from hare_tpu_torch.benchmarks import pallas_probe as pp
+
+    k = pp.gather_sum(tab, idx, iters, out_dtype)
+    p = pp.gather_sum_plain(tab, idx, iters, out_dtype)
+    if tab.dtype == torch.int32:  # int32 sums that wrap, or small integers in f32
+        check(torch.equal(k, p), f"{label}: gather_sum differs from its plain version")
+    else:
+        check(pp.sums_agree(k, p, pp.gather_sum_plain(tab.abs(), idx, iters)),
+              f"{label}: gather_sum differs from its plain version beyond the f32 bound")
+    err = float((k.double() - p.double()).abs().max())
+    dev_ms = kernel_ms(device_kernels(lambda: pp.gather_sum(tab, idx, iters, out_dtype), 10),
+                       "gather_rows")
+    def plain():
+        return pp.gather_sum_plain(tab, idx, iters, out_dtype)
+
+    plain_ms = cuda_time(plain, 5)
+    plain_dev_ms = sum(device_kernels(plain, 3).values()) / 1e3
+    rows = idx.shape[0] * iters
+    gbs = rows * tab.shape[1] * tab.element_size() / (dev_ms * 1e-3) / 1e9
+    ns_dev = dev_ms * 1e6 / rows
+    print(f"phase 6 {label} {tuple(tab.shape)} {str(tab.dtype)[6:]}, {idx.shape[0]} rows x "
+          f"{iters}: max |diff| {err:.3e}; kernel {call_ms:.4f} ms per call ({dev_ms:.4f} ms "
+          f"on the device: {ns_dev:.4f} ns per gathered row, {gbs:.1f} GB/s of rows), "
+          f"plain {plain_ms:.4f} ms ({plain_dev_ms:.4f} ms on the device)")
+    return dict(ms=call_ms, device_ms=dev_ms, plain_ms=plain_ms, plain_device_ms=plain_dev_ms,
+                max_abs_err=err, ns_per_row=ns_dev, gbs=gbs)
+
+
+def probe_phase(dev):
+    """Phase 6: P1-P4 at the JAX probes' shapes; returns their four records."""
+    from hare_tpu_torch.benchmarks import pallas_probe as pp
+    from hare_tpu_torch.benchmarks import r4_dyngather_probe as r4
+
+    def on_card(arrays):
+        return [torch.from_numpy(a).to(dev) for a in arrays]
+
+    # P1: the probe's sweep, counted; then each table against the plain sum.
+    pp.column_sum.launches = 0
+    for mb in pp.VMEM_SWEEP_MB:
+        check(pp.probe_vmem(mb, dev) is True, f"probe_vmem({mb}) failed")
+    p1_launches = pp.column_sum.launches
+    check(p1_launches > 0, "probe_vmem launched no column_sum kernel")
+    by_mb = {}
+    for mb in pp.VMEM_SWEEP_MB:
+        x = torch.from_numpy(pp.vmem_table(mb)).to(dev)
+        check(torch.equal(pp.column_sum(x), pp.column_sum_plain(x)),
+              f"P1 column_sum differs at {mb} MB (sums of ones are exact)")
+        ms = cuda_time(lambda: pp.column_sum(x), 50)
+        dev_ms = kernel_ms(device_kernels(lambda: pp.column_sum(x), 10), "column_sum")
+        plain_ms = cuda_time(lambda: pp.column_sum_plain(x), 50)
+        plain_dev_ms = sum(device_kernels(lambda: pp.column_sum_plain(x), 10).values()) / 1e3
+        gbs = x.numel() * 4 / (dev_ms * 1e-3) / 1e9
+        by_mb[mb] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                         plain_device_ms=plain_dev_ms, gbs=gbs)
+        print(f"phase 6 P1 column_sum {mb} MB ({x.shape[0]} x 192 f32): kernel {ms:.4f} ms "
+              f"per call ({dev_ms:.4f} ms on the device, {gbs:.1f} GB/s), plain "
+              f"{plain_ms:.4f} ms ({plain_dev_ms:.4f} ms on the device)")
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(x.shape, generator=g, device=dev)
+    k, p = pp.column_sum(x), pp.column_sum_plain(x)
+    check(pp.sums_agree(k, p, pp.column_sum_plain(x.abs())),
+          "P1 column_sum differs on a normal table beyond the f32 bound")
+    p1_err = float((k - p).abs().max())
+    print(f"phase 6 P1 launches {p1_launches}; normal {tuple(x.shape)} table: max |diff| "
+          f"{p1_err:.3e}")
+    big = by_mb[pp.VMEM_SWEEP_MB[-1]]
+    records = [dict(name="column_sum", route="cuda",
+                    source="hare_tpu_torch/kernels/csrc/gather_probe.cu",
+                    replaces="benchmarks/pallas_probe.py:29", launches=p1_launches,
+                    max_abs_err=p1_err, ms=big["ms"], plain_ms=big["plain_ms"],
+                    device_ms=big["device_ms"], plain_device_ms=big["plain_device_ms"],
+                    gbs_by_mb={m: r["gbs"] for m, r in by_mb.items()})]
+
+    # P2 and P3: each probe driven once, counted, then checked and timed.
+    for name, probe, inputs, replaces in (
+        ("gather_sum_f32", pp.probe_gather, pp.gather_inputs, "benchmarks/pallas_probe.py:58"),
+        ("gather_sum_i32", pp.probe_meta_gather, pp.meta_gather_inputs,
+         "benchmarks/pallas_probe.py:96"),
+    ):
+        pp.gather_sum.launches = 0
+        call_ms, _ = probe(device=dev)
+        launches = pp.gather_sum.launches
+        check(launches > 0, f"{probe.__name__} launched no gather_sum kernel")
+        tab, idx = on_card(inputs())
+        r = gather_phase(f"{'P2' if name.endswith('f32') else 'P3'} {probe.__name__}",
+                         tab, idx, 50, None, call_ms)
+        records.append(dict(name=name, route="cuda",
+                            source="hare_tpu_torch/kernels/csrc/gather_probe.cu",
+                            replaces=replaces, launches=launches, **r))
+
+    # P4: the r4 probe's three calls, counted together.
+    pp.gather_sum.launches = 0
+    call_ms = [r4.probe(*call, device=dev)[0] for call in r4.CALLS]
+    launches = pp.gather_sum.launches
+    check(launches > 0, "the r4 probe launched no gather_sum kernel")
+    calls = []
+    for (A, B, dtype, iters, label), ms in zip(r4.CALLS, call_ms):
+        tab, idx = on_card(r4.probe_inputs(A, B, dtype))
+        calls.append(dict(label=label, **gather_phase(
+            "P4 r4 probe", tab, idx.reshape(-1), iters, torch.float32, ms)))
+    records.append(dict(
+        name="gather_sum_r4", route="cuda", source="hare_tpu_torch/kernels/csrc/gather_probe.cu",
+        replaces="benchmarks/r4_dyngather_probe.py:57", launches=launches,
+        max_abs_err=max(c["max_abs_err"] for c in calls),
+        **{k: sum(c[k] for c in calls)
+           for k in ("ms", "device_ms", "plain_ms", "plain_device_ms")}, calls=calls))
+    return records
 
 
 def check(cond, what):
@@ -300,6 +411,9 @@ def main():
           f"(idle share {1 - busy / fb_ms:.3f}); K1 {parts['K1']:.4f} ms, K2 "
           f"{parts['K2']:.4f} ms, K3 {parts['K3']:.4f} ms, other kernels "
           f"{busy - sum(parts.values()):.4f} ms")
+
+    # ---- phase 6: the Pallas probe kernels.
+    records += probe_phase(dev)
 
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,10 +1,12 @@
 """Build the port's CUDA kernels with nvcc and bind them with ctypes.
 
 All ``csrc/*.cu`` files compile into ONE shared library with a plain C
-interface::
+interface.  Each source compiles in its own nvcc process, all started
+together, and one more links the objects::
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o hare_tpu_torch/_build/libhare_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -c -o <obj> csrc/<source>.cu      # one per source
+    nvcc -shared -o hare_tpu_torch/_build/libhare_kernels_<hash>.so <objs>
 
 The build runs at first use (a few seconds), and again whenever the hash of
 the sources and flags changes.  Nothing here runs at import time, so the
@@ -30,18 +32,21 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
 # Every C entry point: argument types in order; each returns a cudaError_t.
 _SIGNATURES = {
     "hare_grid_shoot": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     "hare_finalize_hits": [_P, _P, _P, _P, _P, _P, _I, _I] + [_P] * 9 + [_P],
-    "hare_energy_histogram": [
-        _P, _P, _P, ctypes.c_longlong, _I, ctypes.c_float, _P, _P,
-    ],
+    "hare_energy_histogram": [_P, _P, _P, _LL, _I, ctypes.c_float, _P, _P],
+    "hare_column_sum": [_P, _LL, _I, _I, _P, _P, _P],
+    "hare_gather_sum_f32": [_P, _LL, _I, _P, _I, _I, _P, _P],
+    "hare_gather_sum_i32": [_P, _LL, _I, _P, _I, _I, _P, _P],
+    "hare_gather_sum_i32_f32": [_P, _LL, _I, _P, _I, _I, _P, _P],
 }
 
 _lock = threading.Lock()
@@ -72,18 +77,27 @@ def _build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp] + [
-        str(s) for s in sorted(CSRC.glob("*.cu"))
-    ]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs, procs = [], []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = os.path.join(tmpdir, src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        # Wait for every compile before raising, so none outlives the build.
+        done = [(cmd, proc.communicate()[1], proc.returncode) for cmd, proc in procs]
+        for cmd, err, rc in done:
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{err}")
+        tmp = os.path.join(tmpdir, "lib.so")
+        cmd = [nvcc, "-shared", "-o", tmp, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}")
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     return out
 
 

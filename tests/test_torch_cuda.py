@@ -14,6 +14,7 @@ torch = pytest.importorskip("torch")
 import hare_tpu_torch as th  # noqa: E402
 from hare_tpu_torch.accel.common import finalize_hits, finalize_hits_plain  # noqa: E402
 from hare_tpu_torch.accel.voxel import build_voxel_grid, grid_shoot, grid_shoot_plain  # noqa: E402
+from hare_tpu_torch.benchmarks import pallas_probe as probes  # noqa: E402
 from hare_tpu_torch.mesh import shapes  # noqa: E402
 from hare_tpu_torch.trace.bounce import histogram_kernel, histogram_plain  # noqa: E402
 
@@ -121,3 +122,53 @@ def test_trace_on_card_matches_cpu(dev):
     assert torch.equal(c[0], k[0]) and torch.equal(c[1], k[1])
     for a, b in zip(c[2:], k[2:]):
         torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("rows, cols", [(100, 192), (200_000, 192), (3000, 8)])
+def test_column_sum_matches_plain(dev, rows, cols):
+    """P1, one band and many bands of rows (each thread several rows)."""
+    x = torch.from_numpy(np.random.default_rng(8).normal(size=(rows, cols)).astype(np.float32)).to(dev)
+    before = probes.column_sum.launches
+    out = probes.column_sum(x)
+    assert probes.column_sum.launches == before + 1
+    assert probes.sums_agree(out, probes.column_sum_plain(x), probes.column_sum_plain(x.abs()))
+    ones = torch.ones(rows, cols, device=dev)
+    assert torch.equal(probes.column_sum(ones), probes.column_sum_plain(ones))
+
+
+# (table rows, width, table dtype, sum dtype, indices, iters): two shapes for
+# each probe, the second with iters > rows (the wrap).
+GATHERS = [
+    ("p2", 23793, 192, np.float32, torch.float32, 1024, 50),
+    ("p2_wrap", 7, 192, np.float32, torch.float32, 300, 20),
+    ("p3", 110592, 2, np.int32, torch.int32, 32768, 50),
+    ("p3_wrap", 13, 2, np.int32, torch.int32, 1000, 40),
+    ("p4_meta", 110592, 2, np.int32, torch.float32, 4096, 32),
+    ("p4_win", 4096, 384, np.float32, torch.float32, 4096, 8),
+    ("p4_ctx_wrap", 5, 8, np.float32, torch.float32, 777, 12),
+    ("odd_width", 300, 33, np.float32, torch.float32, 500, 6),
+    ("i32_wide", 500, 64, np.int32, torch.int32, 300, 7),
+]
+
+
+@pytest.mark.parametrize("case", GATHERS, ids=[g[0] for g in GATHERS])
+def test_gather_sum_matches_plain(dev, case):
+    _, n, width, dtype, out_dtype, n_idx, iters = case
+    rng = np.random.default_rng(9)
+    if dtype == np.int32:  # full range where the sums wrap, else exact in float32
+        hi = 2**31 if out_dtype == torch.int32 else 1000
+        tab = rng.integers(-hi, hi, size=(n, width)).astype(np.int32)
+    else:
+        tab = rng.normal(size=(n, width)).astype(np.float32)
+    tab = torch.from_numpy(tab).to(dev)
+    idx = torch.from_numpy(rng.integers(-n, n, size=n_idx).astype(np.int32)).to(dev)
+    before = probes.gather_sum.launches
+    out = probes.gather_sum(tab, idx, iters, out_dtype)
+    assert probes.gather_sum.launches == before + 1
+    plain = probes.gather_sum_plain(tab, idx, iters, out_dtype)
+    assert out.dtype == plain.dtype == out_dtype
+    if out_dtype == torch.int32:  # int32 sums that wrap: exact
+        assert torch.equal(out, plain)
+    else:
+        absolute = probes.gather_sum_plain(tab.abs(), idx, iters, torch.float32)
+        assert probes.sums_agree(out, plain, absolute)

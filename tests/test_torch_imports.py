@@ -12,6 +12,7 @@ torch = pytest.importorskip("torch")
 import hare_tpu_torch as th  # noqa: E402
 from hare_tpu_torch.accel.common import finalize_hits  # noqa: E402
 from hare_tpu_torch.accel.voxel import grid_shoot  # noqa: E402
+from hare_tpu_torch.benchmarks import pallas_probe  # noqa: E402
 from hare_tpu_torch.kernels import build  # noqa: E402
 from hare_tpu_torch.mesh import shapes  # noqa: E402
 from hare_tpu_torch.trace.bounce import histogram_kernel  # noqa: E402
@@ -23,6 +24,17 @@ FORBIDDEN = ("jax", "hare_tpu")  # compared as whole first components
 def test_import_loads_no_jax():
     code = (
         "import sys, hare_tpu_torch\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'hare_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+
+
+def test_benchmarks_load_no_jax():
+    code = (
+        "import sys, hare_tpu_torch\n"
+        "assert 'hare_tpu_torch.benchmarks' not in sys.modules\n"
+        "import hare_tpu_torch.benchmarks.pallas_probe, hare_tpu_torch.benchmarks.r4_dyngather_probe\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'hare_tpu')]\n"
         "assert not bad, bad\n"
     )
@@ -114,6 +126,24 @@ def test_wrappers_never_fall_back(room):
         build.library()
     with pytest.raises(RuntimeError, match="CUDA"):
         histogram_kernel(torch.ones(8), torch.zeros(8), torch.ones(8, dtype=torch.bool), 4, 1e-3)
+
+
+def test_probe_wrappers_never_fall_back():
+    """The probe kernels' wrappers raise on a device with neither a kernel
+    nor a plain version, and, without a card, on the way to the kernel."""
+    meta = torch.device("meta")
+    with pytest.raises(ValueError, match="meta"):
+        pallas_probe.column_sum(torch.ones(64, 192, device=meta))
+    idx = torch.zeros(8, dtype=torch.int32, device=meta)
+    for dtype in (torch.float32, torch.int32):
+        with pytest.raises(ValueError, match="meta"):
+            pallas_probe.gather_sum(torch.ones(16, 2, dtype=dtype, device=meta), idx, 3)
+    with pytest.raises(ValueError, match="several devices"):
+        pallas_probe.gather_sum(torch.ones(16, 2), idx, 3)
+    if torch.cuda.is_available():
+        return  # the rest is about hosts without a card
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pallas_probe.probe_meta_gather(16, 8, 2, device="cpu")
 
 
 def test_kernel_sources_present():
