@@ -21,6 +21,17 @@ per-polygon absorption, on the card.  Phases, one line each:
    (``hare_tpu_torch.benchmarks``) at the JAX probes' shapes: each probe
    driven once with its launch count, each kernel against its plain
    version, time per call and on the device, ns per gathered row and GB/s.
+7. the other backends: the host builds of the octree, KD tree and rope
+   tree; B1 ``brute_shoot``, B2 ``tree_shoot`` and B3 ``ropes_shoot``
+   against their plain versions at each path's full width (B2 on the bench
+   scene and on config 3's hall) and B1 against the float64 oracle; K1, B2
+   and B3 against B1 on the bench scene's first bounce; the main path
+   through ``octree``, ``kdtree`` and ``kdtree_ropes`` on the bench scene,
+   ``octree`` on the reference's eval config 3 (concert hall, 1M rays,
+   fwd+bwd) and ``brute`` on eval config 1 (shoebox, 10k rays, fwd), each
+   counted, checked and held against the plain versions on the CPU for a
+   sub-batch; their shoot times, pops or steps per ray, step times,
+   Mrays/s and idle shares; stack against ropes.
 
 Any failed check raises: there is no fallback.  The second-to-last line is
 the per-kernel JSON record, the last ``{"ok": true, "device": ...}``.
@@ -48,6 +59,9 @@ HIST_REL_TOL = 1e-5
 # tests hold against the JAX package.  Summed energies and gradients over
 # thousands of lanes, in another order.
 REF_RAYS, REF_RTOL = 2048, 1e-4
+# B1 against the float64 oracle: tests/test_brute.py's tolerance on t and
+# the hit point.
+ORACLE_ATOL = 1e-3
 
 
 def cuda_time(fn, reps):
@@ -57,6 +71,18 @@ def cuda_time(fn, reps):
     from hare_tpu_torch.benchmarks.pallas_probe import seconds_per_call
 
     return seconds_per_call(fn, "cuda", reps) * 1e3
+
+
+def timed_once(fn):
+    """``fn()``'s result and its milliseconds by CUDA events: one call, for
+    a plain version too slow to repeat."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def device_kernels(fn, reps=1):
@@ -198,6 +224,308 @@ def probe_phase(dev):
 def check(cond, what):
     if not cond:
         raise AssertionError(what)
+
+
+def host_time(fn, reps=10):
+    """Mean wall milliseconds per call of ``fn()`` after one warm-up call,
+    the card synchronised before and after."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / reps * 1e3
+
+
+def nearest_agree(label, k, p):
+    """Two nearest-hit answers ``(best_t, best_tri)`` on the same rays: the
+    same hit mask, ``|dt| <= ATOL + RTOL t``, and tri ids equal except at
+    equal-t ties, at most ``MAX_TIE_SHARE`` of the rays.  Returns (max |dt|,
+    tie flips)."""
+    (tk, ik), (tp, ip) = k[:2], p[:2]
+    hit = torch.isfinite(tp)
+    check(torch.equal(torch.isfinite(tk), hit), f"{label}: the hit masks differ")
+    dt = (tk - tp).abs()[hit]
+    err = float(dt.max()) if bool(hit.any()) else 0.0
+    check(bool((dt <= ATOL + RTOL * tp[hit].abs()).all()), f"{label}: t differs by {err}")
+    flips = int(((ik != ip) & hit).sum())
+    check(flips <= MAX_TIE_SHARE * tp.numel(), f"{label}: {flips} tri_id mismatches")
+    return err, flips
+
+
+def drive(th, sp, rays, absorption, n_bins, counters, backward, closed):
+    """One main path through the facade: trace_rays -> energy_histogram
+    [-> backward()], with every counter in ``counters`` set to 0 just before
+    and read just after.  Checks the launches, the histogram total against
+    the summed bounce energies, every hit in a closed room, and the
+    absorption gradient.  Returns (result, histogram, launches, gradient)."""
+    for fn in counters:
+        fn.launches = 0
+    a = absorption.clone().requires_grad_(backward)
+    with torch.set_grad_enabled(backward):
+        res = th.trace_rays(sp.scene, rays, a, N_BOUNCES, sp.shoot_fn, aux=sp.aux)
+        hist = th.energy_histogram(res, n_bins, BIN_DT)
+        if backward:
+            hist.sum().backward()
+    torch.cuda.synchronize()
+    launches = [fn.launches for fn in counters]
+    check(all(n > 0 for n in launches), f"a kernel was not launched: {launches}")
+    check(hist.shape == (n_bins,) and bool(torch.isfinite(hist).all()), "histogram not finite")
+    check(bool(torch.isfinite(res.energy).all()) and bool(torch.isfinite(res.time).all()),
+          "bounce energies or times not finite")
+    if closed:
+        check(bool(res.hit.all()), "a ray missed on some bounce of a closed room")
+    e_sum, total = float(res.energy.detach().sum()), float(hist.detach().sum())
+    check(math.isclose(total, e_sum, rel_tol=1e-5),
+          f"histogram total {total} != summed bounce energies {e_sum}")
+    g = a.grad
+    if backward:
+        check(bool(torch.isfinite(g).all()) and bool((g <= 0).all()) and float(g.sum()) < 0,
+              "absorption gradient not finite and non-positive with a negative sum")
+    return res, hist.detach(), launches, g
+
+
+def cpu_reference(th, sp, rays, absorption, n_bins):
+    """The first REF_RAYS rays through the same facade on the card and,
+    with the scene and structure moved to the CPU, through the plain
+    versions: the same per-bounce hits and polygons, energies, histogram and
+    gradient within REF_RTOL."""
+    cpu = torch.device("cpu")
+    sub = th.Ray(*(x[:REF_RAYS] for x in rays))
+    out = []
+    for where in (rays.origin.device, cpu):
+        scene = to_device(sp.scene, where)
+        aux = None if sp.aux is None else to_device(sp.aux, where)
+        a = absorption.to(where).clone().requires_grad_()
+        r = th.trace_rays(scene, to_device(sub, where), a, N_BOUNCES, sp.shoot_fn, aux=aux)
+        h = th.energy_histogram(r, n_bins, BIN_DT)
+        h.sum().backward()
+        out.append([x.detach().cpu() for x in (r.hit, r.poly_id, r.energy, h, a.grad)])
+    k, c = out
+    check(torch.equal(c[0], k[0]) and torch.equal(c[1], k[1]),
+          "per-bounce hits or polygons differ from the CPU reference")
+    for what, x, y in zip(("energy", "histogram", "gradient"), k[2:], c[2:]):
+        check(torch.allclose(x, y, rtol=REF_RTOL, atol=REF_RTOL * float(y.abs().max())),
+              f"{what} differs from the CPU reference")
+
+
+def config_rays(th, origin, n, dev):
+    """``benchmarks/configs.py``'s rays: n uniform directions (seed 0) from
+    one source point."""
+    d = th.uniform_sphere(n, torch.Generator().manual_seed(0), device=dev)
+    return th.Ray.make(torch.tensor(origin, device=dev).expand(n, 3).contiguous(), d)
+
+
+def backends_phase(dev, top, grid_sp, rays, absorption, grid_hist):
+    """Phase 7: the brute, octree, KD-tree and rope backends (B1-B3) on the
+    bench scene and on the reference's eval configs 1 and 3.  Returns the
+    three kernels' records."""
+    import hare_tpu_torch as th
+    from hare_tpu_torch.accel import brute, common, ropes, tree, voxel
+    from hare_tpu_torch.mesh import shapes
+    from hare_tpu_torch.oracle import oracle_shoot
+
+    # ---- 7.1 host builds through the facade (the scene's own build apart).
+    t0 = time.perf_counter()
+    th.build_scene([top], device=dev)
+    torch.cuda.synchronize()
+    scene_s = time.perf_counter() - t0
+    sps = {}
+    for accel in ("octree", "kdtree", "kdtree_ropes"):
+        t0 = time.perf_counter()
+        sps[accel] = th.SpatialPartition(top, accel=accel, device=dev)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        st = sps[accel].struct
+        print(f"phase 7 host build {accel}: {s - scene_s:.2f} s ({s:.2f} s with the scene): "
+              f"{st.n_nodes} nodes, {st.win_geom.shape[0]} window rows, max_depth "
+              f"{st.max_depth}")
+    octree, kdtree, kdropes = (sps[a].struct for a in ("octree", "kdtree", "kdtree_ropes"))
+    scene = grid_sp.scene
+
+    # ---- 7.2 each kernel against its plain version, on the card.
+    walks = (  # (label, kernel, plain version, structure, device kernel name)
+        ("B2 tree_shoot octree", tree.tree_shoot, tree.tree_shoot_plain, octree,
+         "tree_shoot_kernel"),
+        ("B2 tree_shoot kdtree", tree.tree_shoot, tree.tree_shoot_plain, kdtree,
+         "tree_shoot_kernel"),
+        ("B3 ropes_shoot", ropes.ropes_shoot, ropes.ropes_shoot_plain, kdropes,
+         "ropes_shoot_kernel"),
+    )
+    walk_out, walk_rec = {}, {}
+    for label, fn, plain, st, tag in walks:
+        k = fn(rays, st, with_stats=True)
+        err, flips = nearest_agree(label, k, plain(rays, st))
+        walk_out[label] = k
+        ms = cuda_time(lambda: fn(rays, st), 10)
+        dev_ms = kernel_ms(device_kernels(lambda: fn(rays, st), 10), tag)
+        plain_ms = cuda_time(lambda: plain(rays, st), 1)
+        steps = k[2].float()
+        walk_rec[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, device_ms=dev_ms)
+        print(f"phase 7 {label}: tri_id mismatches {flips} (equal-t ties), max |dt| {err:.3e}; "
+              f"kernel {ms:.4f} ms per call ({dev_ms:.4f} ms on the device), plain "
+              f"{plain_ms:.4f} ms; {'steps' if 'ropes' in label else 'pops'} per ray mean "
+              f"{float(steps.mean()):.2f}, max {int(steps.max())}")
+
+    # B1 on config 1 at full size (the bench scene's full width is in 7.3).
+    room = th.Topology.build(shapes.shoebox(4, 5, 3))
+    room_sc = room.scene(device=dev)
+    c1_rays = config_rays(th, (2.0, 2.5, 1.5), 10_000, dev)
+    b1_err, flips = nearest_agree("B1 config 1", brute.brute_shoot(room_sc, c1_rays),
+                                  brute.brute_shoot_plain(room_sc, c1_rays))
+    print(f"phase 7 B1 brute_shoot config 1 ({c1_rays.origin.shape[0]} rays, "
+          f"{room_sc.tri_geom.shape[0]} triangle rows with padding): tri_id mismatches "
+          f"{flips}, max |dt| {b1_err:.3e}")
+    # B1 against the float64 oracle on 1,000 config-1 rays (tests/test_brute.py).
+    o_np, d_np = (x[:1000].double().cpu().numpy() for x in (c1_rays.origin, c1_rays.direction))
+    refs = [oracle_shoot(room, o_np[i], d_np[i]) for i in range(1000)]
+    sub1 = th.Ray(*(x[:1000] for x in c1_rays))
+    for kernel in ("mt", "watertight"):
+        hr = brute.shoot_brute(room_sc, sub1, kernel)
+        hit, t, pt, poly = (x.cpu().numpy() for x in (hr.hit, hr.t, hr.point, hr.poly_id))
+        for i, ref in enumerate(refs):
+            check((ref is not None) == bool(hit[i]), f"B1 {kernel}: ray {i} hit differs from the oracle")
+            if ref is not None:
+                check(abs(float(t[i]) - ref["t"]) < ORACLE_ATOL and
+                      float(abs(pt[i] - ref["point"]).max()) < ORACLE_ATOL and
+                      int(poly[i]) == ref["poly_id"], f"B1 {kernel}: ray {i} differs from the oracle")
+    print(f"phase 7 B1 brute_shoot against the float64 oracle: 1000 config-1 rays, mt and "
+          f"watertight, t and point within {ORACLE_ATOL}, same polygons")
+
+    # ---- 7.3 every traversal against B1, the referee, on the bench scene.
+    b1 = brute.brute_shoot(scene, rays)
+    b1_ms = cuda_time(lambda: brute.brute_shoot(scene, rays), 3)
+    b1_dev_ms = kernel_ms(device_kernels(lambda: brute.brute_shoot(scene, rays), 2),
+                          "brute_shoot_kernel")
+    b1_plain, b1_plain_ms = timed_once(lambda: brute.brute_shoot_plain(scene, rays))
+    err, flips = nearest_agree("B1 bench scene", b1, b1_plain)
+    b1_err = max(b1_err, err)
+    print(f"phase 7 B1 brute_shoot bench scene ({N_RAYS} rays x {top.n_tris} tris = "
+          f"{N_RAYS * top.n_tris / 1e9:.2f}e9 tests): tri_id mismatches {flips}, max |dt| "
+          f"{err:.3e}; {b1_ms:.3f} ms per call ({b1_dev_ms:.3f} ms on the device, "
+          f"{N_RAYS * top.n_tris / b1_dev_ms / 1e6:.1f} G tests/s); plain {b1_plain_ms:.3f} ms")
+    versus = [("K1 grid_shoot", voxel.grid_shoot(rays, grid_sp.struct))]
+    versus += [(label, walk_out[label]) for label, *_ in walks]
+    print("phase 7 against B1 on the first bounce: " + "; ".join(
+        "{}: tie flips {}, max |dt| {:.3e}".format(label, *nearest_agree(f"{label} vs B1", k, b1)[::-1])
+        for label, k in versus))
+
+    # ---- 7.4 each backend's main path, counted, and 7.5 its times.
+    rec_launch = {"brute": 0, "tree": 0, "ropes": 0}
+    walk_fn = {"octree": tree.tree_shoot, "kdtree": tree.tree_shoot,
+               "kdtree_ropes": ropes.ropes_shoot}
+    tags = {"octree": "tree_shoot_kernel", "kdtree": "tree_shoot_kernel",
+            "kdtree_ropes": "ropes_shoot_kernel", "brute": "brute_shoot_kernel"}
+    per_shoot = {}
+    fb_mrays = {}
+    for accel, sp in sps.items():
+        counters = (walk_fn[accel], common.finalize_hits, th.energy_histogram)
+        _, hist, launches, g = drive(th, sp, rays, absorption, N_BINS, counters, True, True)
+        rec_launch["ropes" if accel == "kdtree_ropes" else "tree"] += launches[0]
+        # An equal-t tie resolved another way sends that ray down another
+        # path: its (at most N_BOUNCES) energies land in other bins.  With
+        # uniform absorption the totals are equal; the bins may differ by
+        # twice the energy of MAX_TIE_SHARE of the rays.
+        l1 = float((hist - grid_hist).abs().sum())
+        check(math.isclose(float(hist.sum()), float(grid_hist.sum()), rel_tol=1e-5) and
+              l1 <= 2 * MAX_TIE_SHARE * float(grid_hist.sum()),
+              f"{accel}: histogram differs from the grid path's by {l1}")
+        cpu_reference(th, sp, rays, absorption, N_BINS)
+
+        def fwd(sp=sp):
+            with torch.no_grad():
+                r = th.trace_rays(sp.scene, rays, absorption, N_BOUNCES, sp.shoot_fn, aux=sp.aux)
+                th.energy_histogram(r, N_BINS, BIN_DT)
+
+        def fwd_bwd(sp=sp):
+            a = absorption.clone().requires_grad_()
+            r = th.trace_rays(sp.scene, rays, a, N_BOUNCES, sp.shoot_fn, aux=sp.aux)
+            th.energy_histogram(r, N_BINS, BIN_DT).sum().backward()
+
+        fwd_ms, fb_ms = host_time(fwd, 5), host_time(fwd_bwd, 5)
+        first = kernel_ms(device_kernels(lambda: walk_fn[accel](rays, sp.struct), 5), tags[accel])
+        mean = kernel_ms(device_kernels(fwd, 2), tags[accel]) / N_BOUNCES
+        busy = sum(device_kernels(fwd_bwd, 3).values()) / 1e3
+        per_shoot[accel] = (first, mean)
+        fb_mrays[accel] = N_RAYS * N_BOUNCES / fb_ms / 1e3
+        print(f"phase 7 {accel} main path: launches {launches}; all {N_RAYS} rays hit on "
+              f"{N_BOUNCES} bounces; histogram within {l1:.3f} (L1) of the grid path's; "
+              f"grad sum {float(g.sum()):.4f}; {REF_RAYS}-ray CPU reference agrees")
+        print(f"phase 7 {accel} metric: shoot {first:.4f} ms on the device (bounce 1), "
+              f"{mean:.4f} ms (mean of {N_BOUNCES}); fwd {fwd_ms:.3f} ms, fwd+bwd {fb_ms:.3f} ms; "
+              f"{fb_mrays[accel]:.4f} Mrays/s fwd+bwd; idle share {1 - busy / fb_ms:.3f}")
+
+    print(f"phase 7 stack vs ropes (bench scene, same SAH KD tree): B2 stack {per_shoot['kdtree'][0]:.4f} "
+          f"ms, B3 ropes {per_shoot['kdtree_ropes'][0]:.4f} ms per first-bounce shoot on the device "
+          f"(ropes / stack {per_shoot['kdtree_ropes'][0] / per_shoot['kdtree'][0]:.2f}); mean of "
+          f"{N_BOUNCES} bounces {per_shoot['kdtree'][1]:.4f} vs {per_shoot['kdtree_ropes'][1]:.4f} "
+          f"ms; fwd+bwd {fb_mrays['kdtree']:.4f} vs {fb_mrays['kdtree_ropes']:.4f} Mrays/s")
+
+    # Config 3: concert hall, octree, 1M rays, fwd+bwd w.r.t. absorption.
+    hall = th.Topology.build(shapes.concert_hall())
+    sp3 = th.SpatialPartition(hall, accel="octree", device=dev)
+    r3 = config_rays(th, (15.0, 24.0, 8.0), 1_000_000, dev)
+    a3 = torch.full((hall.n_polys,), ABSORPTION, device=dev)
+    # B2 against its plain version on the path's own first-bounce rays: the
+    # hall's coplanar stage, balcony and wall faces are where ties happen.
+    k3 = tree.tree_shoot(r3, sp3.struct)
+    p3, p3_ms = timed_once(lambda: tree.tree_shoot_plain(r3, sp3.struct))
+    c3_err, c3_flips = nearest_agree("B2 tree_shoot config 3", k3, p3)
+    oct_r = walk_rec["B2 tree_shoot octree"]
+    oct_r["max_abs_err"] = max(oct_r["max_abs_err"], c3_err)
+    print(f"phase 7 B2 tree_shoot config 3 (concert hall octree, max_depth "
+          f"{sp3.struct.max_depth}, 1M rays): tri_id mismatches {c3_flips} (equal-t ties), "
+          f"max |dt| {c3_err:.3e}; plain {p3_ms:.3f} ms")
+    counters = (tree.tree_shoot, common.finalize_hits, th.energy_histogram)
+    res3, _, launches, g3 = drive(th, sp3, r3, a3, N_BINS, counters, True, False)
+    rec_launch["tree"] += launches[0]
+    cpu_reference(th, sp3, r3, a3, N_BINS)
+
+    def fwd_bwd3():
+        a = a3.clone().requires_grad_()
+        r = th.trace_rays(sp3.scene, r3, a, N_BOUNCES, sp3.shoot_fn, aux=sp3.aux)
+        th.energy_histogram(r, N_BINS, BIN_DT).sum().backward()
+
+    fb3 = host_time(fwd_bwd3, 3)
+    print(f"phase 7 config 3 (concert hall {hall.n_tris} tris, octree, 1M rays, "
+          f"{N_BOUNCES} bounces, fwd+bwd): launches {launches}; hit share "
+          f"{float(res3.hit.float().mean()):.4f}; grad sum {float(g3.sum()):.4f}; "
+          f"{REF_RAYS}-ray CPU reference agrees; {fb3:.3f} ms, "
+          f"{1e6 * N_BOUNCES / fb3 / 1e3:.4f} Mrays/s fwd+bwd")
+
+    # Config 1: shoebox, brute, 10k rays, 256 bins, forward.
+    sp1 = th.SpatialPartition(room, accel="brute", device=dev)
+    a1 = torch.full((room.n_polys,), ABSORPTION, device=dev)
+    counters = (brute.brute_shoot, common.finalize_hits, th.energy_histogram)
+    _, _, launches, _ = drive(th, sp1, c1_rays, a1, 256, counters, False, True)
+    rec_launch["brute"] += launches[0]
+    cpu_reference(th, sp1, c1_rays, a1, 256)
+
+    def fwd1():
+        with torch.no_grad():
+            r = th.trace_rays(sp1.scene, c1_rays, a1, N_BOUNCES, sp1.shoot_fn)
+            th.energy_histogram(r, 256, BIN_DT)
+
+    f1 = host_time(fwd1, 10)
+    print(f"phase 7 config 1 (shoebox 12 tris, brute, 10k rays, {N_BOUNCES} bounces, fwd): "
+          f"launches {launches}; all rays hit; {f1:.3f} ms, "
+          f"{1e4 * N_BOUNCES / f1 / 1e3:.4f} Mrays/s fwd; {REF_RAYS}-ray CPU reference agrees")
+
+    src = "hare_tpu_torch/kernels/csrc/"
+    oct_r, kd_r, rp_r = (walk_rec[label] for label, *_ in walks)
+    return [
+        dict(name="brute_shoot", route="cuda", source=src + "brute_shoot.cu",
+             replaces="hare_tpu/accel/brute.py:63", launches=rec_launch["brute"],
+             max_abs_err=b1_err, ms=b1_ms, plain_ms=b1_plain_ms, device_ms=b1_dev_ms),
+        dict(name="tree_shoot", route="cuda", source=src + "tree_shoot.cu",
+             replaces="hare_tpu/accel/tree.py:249", launches=rec_launch["tree"],
+             max_abs_err=max(oct_r["max_abs_err"], kd_r["max_abs_err"]), ms=oct_r["ms"],
+             plain_ms=oct_r["plain_ms"], device_ms=oct_r["device_ms"],
+             kdtree=kd_r),
+        dict(name="ropes_shoot", route="cuda", source=src + "ropes_shoot.cu",
+             replaces="hare_tpu/accel/ropes.py:272", launches=rec_launch["ropes"], **rp_r),
+    ]
 
 
 def to_device(nt, device):
@@ -386,15 +714,6 @@ def main():
         _, h = step(a_)
         h.sum().backward()
 
-    def host_time(fn, reps=10):
-        fn()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t) / reps * 1e3
-
     fwd_ms, fb_ms = host_time(fwd), host_time(fwd_bwd)
     rays_total = N_RAYS * N_BOUNCES
     print(f"phase 5 metric on {name}: fwd {fwd_ms:.3f} ms, fwd+bwd {fb_ms:.3f} ms; "
@@ -414,6 +733,9 @@ def main():
 
     # ---- phase 6: the Pallas probe kernels.
     records += probe_phase(dev)
+
+    # ---- phase 7: the brute, octree, KD-tree and rope backends.
+    records += backends_phase(dev, top, sp, rays, absorption, hist.detach())
 
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

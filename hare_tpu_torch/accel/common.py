@@ -29,11 +29,14 @@ __all__ = [
     "WIN",
     "check_device",
     "check_kernel",
+    "check_rays",
     "finalize_hits",
     "finalize_hits_plain",
     "hit_key",
     "key_to_hit",
     "pack_windows",
+    "repack_windows",
+    "test_runs",
     "test_windows",
 ]
 
@@ -113,6 +116,29 @@ def pack_windows(
     return win_data, win_start[:-1], n_wins_per.astype(np.int64)
 
 
+def repack_windows(win_data: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Repack component-major window rows (lane ``c*win + k``, as
+    :func:`pack_windows` and the JAX package make them) tri-major, the layout
+    one GPU thread reads per candidate:
+
+      - ``win_geom`` (R, win, 12) f32: per triangle slot v0 | e1 | e2 and
+        three zero lanes, so a slot is three aligned float4 loads;
+      - ``win_ids`` (R, win, 4) i32: triangle, polygon, topology id and a
+        zero lane — split from the f32 lanes with ``.view(np.int32)``, so no
+        id ever passes through float arithmetic.
+
+    Same rows, same triangles in the same order, same ids."""
+    win_data = np.ascontiguousarray(win_data, np.float32)
+    rows, win = win_data.shape[0], win_data.shape[1] // 12
+    geom = np.zeros((rows, win, 12), np.float32)
+    geom[..., :9] = win_data[:, : 9 * win].reshape(rows, 9, win).transpose(0, 2, 1)
+    ids = np.zeros((rows, win, 4), np.int32)
+    ids[..., :3] = (
+        win_data.view(np.int32)[:, 9 * win :].reshape(rows, 3, win).transpose(0, 2, 1)
+    )
+    return geom, ids
+
+
 def check_device(*tensors: torch.Tensor) -> str:
     """The device type the tensors share: ``"cpu"`` (plain versions) or
     ``"cuda"`` (kernels).  Anything else raises — there is no fallback."""
@@ -129,6 +155,22 @@ def check_device(*tensors: torch.Tensor) -> str:
 def check_kernel(kernel: str) -> None:
     if kernel not in KERNELS:
         raise ValueError(f"unknown kernel {kernel!r}; expected one of {KERNELS}")
+
+
+def check_rays(rays: Ray) -> None:
+    """The ray batch as every traversal kernel reads it: (N, 3) f32 origins
+    and directions, (N, 2) int32 exclusions."""
+    o, d, ex = rays.origin, rays.direction, rays.exclude_poly
+    n = o.shape[0]
+    if o.shape != (n, 3) or d.shape != (n, 3) or ex.shape != (n, 2):
+        raise ValueError(
+            f"rays must be (N, 3), (N, 3), (N, 2); got {tuple(o.shape)}, "
+            f"{tuple(d.shape)}, {tuple(ex.shape)}"
+        )
+    if o.dtype != torch.float32 or d.dtype != torch.float32:
+        raise TypeError("ray origin and direction must be float32")
+    if ex.dtype != torch.int32:
+        raise TypeError("rays.exclude_poly must be int32")
 
 
 def hit_key(t: torch.Tensor, tri: torch.Tensor) -> torch.Tensor:
@@ -186,6 +228,39 @@ def test_windows(
         acc &= ids[..., 2] == top_index
     key = torch.where(acc, hit_key(t, tid), NO_HIT_KEY)
     return key.amin(dim=1)
+
+
+def test_runs(
+    win_geom: torch.Tensor,
+    win_ids: torch.Tensor,
+    start: torch.Tensor,
+    count: torch.Tensor,
+    o: torch.Tensor,
+    d: torch.Tensor,
+    ex: torch.Tensor,
+    min_t: float,
+    top_index: Optional[int] = None,
+    kernel: str = "watertight",
+) -> torch.Tensor:
+    """Plain window-run test: query q tests the ``count[q]`` window rows from
+    row ``start[q]`` (a grid cell's or a tree leaf's run) with
+    :func:`test_windows`.  Returns the (Q,) int64 hit key of each query's
+    nearest accepted hit, ``NO_HIT_KEY`` where none — the plain statement of
+    ``hare::test_run`` in ``kernels/csrc/windows.cuh``."""
+    n = count.shape[0]
+    out = torch.full((n,), NO_HIT_KEY, dtype=torch.int64, device=count.device)
+    count = count.to(torch.int64)
+    q = torch.repeat_interleave(torch.arange(n, device=count.device), count)
+    if q.numel() == 0:
+        return out
+    first = torch.repeat_interleave(torch.cumsum(count, 0) - count, count)
+    rows = torch.repeat_interleave(start.to(torch.int64), count) + (
+        torch.arange(q.numel(), device=count.device) - first
+    )
+    keys = test_windows(
+        win_geom, win_ids, rows, o[q], d[q], ex[q], min_t, top_index, kernel
+    )
+    return out.scatter_reduce_(0, q, keys, reduce="amin")
 
 
 def _check_no_grad(scene: Scene, rays: Ray) -> None:

@@ -4,16 +4,11 @@ Counterpart of ``hare_tpu/accel/voxel.py``.  The build (``_fill``,
 ``_refine_fill``, ``_chebyshev_distance``, ``build_grid_tables``) is a NumPy
 copy of the JAX builder and makes bit-equal tables; ``VoxelGrid.from_numpy``
 then repacks the TPU's component-major window rows into the tri-major
-layout one GPU thread reads per candidate:
-
-  - ``win_geom`` (R, win, 12) f32: per triangle slot v0 | e1 | e2 and three
-    zero lanes, so a slot is three aligned float4 loads;
-  - ``win_ids`` (R, win, 4) i32: triangle, polygon, topology id and a zero
-    lane — split from the f32 lanes with ``.view(np.int32)``, so no id ever
-    passes through float arithmetic.
-
-Same rows, same triangles in the same order, same ids; the last row is the
-all-null row.  ``cell_meta`` is unchanged: ``[win_start, n_wins << 8 | dist]``.
+layout one GPU thread reads per candidate (``common.repack_windows``:
+``win_geom`` (R, win, 12) f32 v0 | e1 | e2, ``win_ids`` (R, win, 4) i32
+tri | poly | top).  Same rows, same triangles in the same order, same ids;
+the last row is the all-null row.  ``cell_meta`` is unchanged:
+``[win_start, n_wins << 8 | dist]``.
 
 Traversal: :func:`grid_shoot` is K1 (``kernels/csrc/grid_shoot.cu``, one
 thread per ray, march and test fused, early exit) for CUDA tensors, and
@@ -42,10 +37,12 @@ from .common import (
     NO_HIT_KEY,
     check_device,
     check_kernel,
+    check_rays,
     finalize_hits,
     key_to_hit,
     pack_windows,
-    test_windows,
+    repack_windows,
+    test_runs,
 )
 
 __all__ = [
@@ -336,14 +333,7 @@ class VoxelGrid(NamedTuple):
     ) -> "VoxelGrid":
         """From the JAX ``VoxelGrid`` tables (as NumPy): repack the
         component-major ``win_data`` (lane ``c*win + k``) tri-major."""
-        win_data = np.ascontiguousarray(win_data, np.float32)
-        rows, win = win_data.shape[0], win_data.shape[1] // 12
-        geom = np.zeros((rows, win, 12), np.float32)
-        geom[..., :9] = win_data[:, : 9 * win].reshape(rows, 9, win).transpose(0, 2, 1)
-        ids = np.zeros((rows, win, 4), np.int32)
-        ids[..., :3] = (
-            win_data.view(np.int32)[:, 9 * win :].reshape(rows, 3, win).transpose(0, 2, 1)
-        )
+        geom, ids = repack_windows(win_data)
         gmin = np.asarray(grid_min, np.float32)
         vox = np.asarray(voxel_size, np.float32)
         gmax = gmin + vox * np.asarray(dims, np.float32)
@@ -385,20 +375,6 @@ def build_voxel_grid(
     return VoxelGrid.from_numpy(**tables, device=device)
 
 
-def _check_rays(rays: Ray) -> None:
-    o, d, ex = rays.origin, rays.direction, rays.exclude_poly
-    n = o.shape[0]
-    if o.shape != (n, 3) or d.shape != (n, 3) or ex.shape != (n, 2):
-        raise ValueError(
-            f"rays must be (N, 3), (N, 3), (N, 2); got {tuple(o.shape)}, "
-            f"{tuple(d.shape)}, {tuple(ex.shape)}"
-        )
-    if o.dtype != torch.float32 or d.dtype != torch.float32:
-        raise TypeError("ray origin and direction must be float32")
-    if ex.dtype != torch.int32:
-        raise TypeError("rays.exclude_poly must be int32")
-
-
 def grid_shoot(
     rays: Ray,
     grid: VoxelGrid,
@@ -413,7 +389,7 @@ def grid_shoot(
     :func:`grid_shoot_plain`.
     """
     check_kernel(kernel)
-    _check_rays(rays)
+    check_rays(rays)
     o, d, ex = rays.origin, rays.direction, rays.exclude_poly
     kind = check_device(o, d, ex, grid.cell_meta, grid.win_geom)
     if kind == "cpu":
@@ -450,14 +426,14 @@ def grid_shoot_plain(
     """Plain version of K1: a vectorised lockstep DDA march.
 
     Every step gathers the active rays' cell meta, tests the window rows of
-    the occupied cells through :func:`~.common.test_windows`, folds the hit
+    the occupied cells through :func:`~.common.test_runs`, folds the hit
     keys into each ray's best with ``scatter_reduce(amin)``, then advances
     every active ray (masked DDA step, or distance-field jump) and drops the
     rays that left the grid or whose next cell starts beyond their best hit.
     The loop is bounded by ``nx + ny + nz + 3`` steps, as K1 is.
     """
     check_kernel(kernel)
-    _check_rays(rays)
+    check_rays(rays)
     o, d, ex = rays.origin, rays.direction, rays.exclude_poly
     dev, n = o.device, o.shape[0]
     hp = torch.tensor(grid.host_params, dtype=torch.float32, device=dev)
@@ -503,17 +479,11 @@ def grid_shoot_plain(
         # ---- test the window rows of the occupied cells.
         occ = torch.nonzero(n_wins > 0).squeeze(1)
         if occ.numel():
-            cnt = n_wins[occ]
-            q = torch.repeat_interleave(occ, cnt)
-            first = torch.repeat_interleave(torch.cumsum(cnt, 0) - cnt, cnt)
-            rows = torch.repeat_interleave(meta[occ, 0].to(torch.int64), cnt) + (
-                torch.arange(q.numel(), device=dev) - first
+            keys = test_runs(
+                grid.win_geom, grid.win_ids, meta[occ, 0], n_wins[occ],
+                o[occ], d[occ], ex[occ], min_t, top_index, kernel,
             )
-            keys = test_windows(
-                grid.win_geom, grid.win_ids, rows, o[q], d[q], ex[q], min_t,
-                top_index, kernel,
-            )
-            best_key.scatter_reduce_(0, idx[q], keys, reduce="amin")
+            best_key.scatter_reduce_(0, idx[occ], keys, reduce="amin")
         best_t, _ = key_to_hit(best_key[idx])
 
         # ---- advance: masked DDA step or distance-field jump (:641-676).

@@ -1,9 +1,11 @@
 """Turn the JAX package's tables, given as NumPy, into the port's tensors.
 
-The tests build a scene and a grid once with ``hare_tpu``, pass the arrays
-through ``np.asarray``, and hand them to both packages — so a parity test
-compares traversal and tracing on identical tables.  This module imports
-neither JAX nor the JAX package: it takes plain NumPy arrays.
+The tests build a scene and an accel structure (grid, tree, rope tree) once
+with ``hare_tpu``, pass the arrays through ``np.asarray``, and hand them to
+both packages — so a parity test compares traversal and tracing on
+identical tables.  This module imports
+neither JAX nor the JAX package: it takes plain NumPy arrays, or (trees and
+rope trees) the JAX tables themselves, read through ``np.asarray``.
 """
 
 from __future__ import annotations
@@ -13,10 +15,12 @@ from typing import Mapping, Tuple
 import numpy as np
 import torch
 
+from .accel.ropes import KDRopes
+from .accel.tree import TreeTables
 from .accel.voxel import VoxelGrid
 from .mesh.scene import Scene
 
-__all__ = ["grid_from_numpy", "scene_from_numpy"]
+__all__ = ["grid_from_numpy", "ropes_from_numpy", "scene_from_numpy", "tree_from_numpy"]
 
 
 def scene_from_numpy(d: Mapping[str, np.ndarray], device=None) -> Scene:
@@ -58,3 +62,23 @@ def grid_from_numpy(
         np.asarray(d["grid_min"]), np.asarray(d["voxel_size"]),
         dims, char_step, max_cell_wins, n_tris, device=device,
     )
+
+
+def _tables(t) -> Tuple[np.ndarray, ...]:
+    """The four arrays that the JAX ``TreeTables`` and ``KDRopes`` share."""
+    return tuple(np.asarray(getattr(t, f)) for f in ("node_rows", "win_data", "root_min", "root_max"))
+
+
+def tree_from_numpy(t, device=None) -> TreeTables:
+    """The port's ``TreeTables`` (child rows repacked) from a JAX
+    ``TreeTables``, or any object with its fields: the arrays ``node_rows``,
+    ``win_data``, ``root_min``, ``root_max`` (JAX or NumPy) and the statics
+    ``branch`` and ``max_depth``.  The JAX field names live here only."""
+    return TreeTables.from_numpy(*_tables(t), t.branch, t.max_depth, device=device)
+
+
+def ropes_from_numpy(t, device=None) -> KDRopes:
+    """The port's ``KDRopes`` (typed node rows) from a JAX ``KDRopes``, or
+    any object with its fields: the arrays of :func:`tree_from_numpy` and
+    the statics ``max_depth`` and ``char_step``."""
+    return KDRopes.from_numpy(*_tables(t), t.max_depth, t.char_step, device=device)

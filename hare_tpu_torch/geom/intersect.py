@@ -12,7 +12,14 @@ from typing import Tuple
 
 import torch
 
-__all__ = ["DET_EPS", "MIN_T", "kernel_components", "ray_aabb"]
+__all__ = [
+    "DET_EPS",
+    "MIN_T",
+    "kernel_components",
+    "ray_aabb",
+    "ray_triangle_mt",
+    "ray_triangle_watertight",
+]
 
 # Determinant cutoff: Hare_Geometry_Polygons.cs:406,417 (0.000001).
 DET_EPS = 1e-6
@@ -115,6 +122,32 @@ def kernel_components(kernel, o_cmp, d_cmp, tri_cmp, unmasked=False):
     inv_det = torch.where(ok, 1.0 / torch.where(ok, det, 1.0), 0.0)
     t = torch.where(ok, t_s * inv_det, inf)
     return valid, t, u_s * inv_det, v_s * inv_det
+
+
+def _split(vec):
+    return tuple(vec[..., c] for c in range(3))
+
+
+def ray_triangle_mt(origin, direction, v0, v1, v2):
+    """Two-sided Möller–Trumbore on (..., 3) vectors — thin wrapper over
+    :func:`kernel_components`.  Returns ``(valid, t, u, v)``; t is +inf where
+    invalid.  ``valid`` holds neither ``t > MIN_T`` nor the exclusions: those
+    are the traversal's acceptance policy."""
+    e1, e2 = v1 - v0, v2 - v0
+    return kernel_components(
+        "mt", _split(origin), _split(direction), _split(v0) + _split(e1) + _split(e2)
+    )
+
+
+def ray_triangle_watertight(origin, direction, v0, v1, v2):
+    """Watertight ray/triangle (Woop, Benthin & Wald 2013), two-sided, on
+    (..., 3) vectors — thin wrapper over :func:`kernel_components`, with the
+    contract of :func:`ray_triangle_mt`."""
+    e1, e2 = v1 - v0, v2 - v0
+    return kernel_components(
+        "watertight", _split(origin), _split(direction),
+        _split(v0) + _split(e1) + _split(e2),
+    )
 
 
 def ray_aabb(

@@ -38,11 +38,15 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_F = ctypes.c_float
 # Every C entry point: argument types in order; each returns a cudaError_t.
 _SIGNATURES = {
     "hare_grid_shoot": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+    "hare_brute_shoot": [_P, _P, _P, _I, _P, _P, _I, _F, _I, _I, _P, _P, _P],
+    "hare_tree_shoot": [_P, _P, _P, _I, _P, _P, _P, _P, _F, _P, _P, _P, _P, _P, _P],
+    "hare_ropes_shoot": [_P, _P, _P, _I] + [_P] * 7 + [_P, _P, _P, _P, _P, _P, _P],
     "hare_finalize_hits": [_P, _P, _P, _P, _P, _P, _I, _I] + [_P] * 9 + [_P],
-    "hare_energy_histogram": [_P, _P, _P, _LL, _I, ctypes.c_float, _P, _P],
+    "hare_energy_histogram": [_P, _P, _P, _LL, _I, _F, _P, _P],
     "hare_column_sum": [_P, _LL, _I, _I, _P, _P, _P],
     "hare_gather_sum_f32": [_P, _LL, _I, _P, _I, _I, _P, _P],
     "hare_gather_sum_i32": [_P, _LL, _I, _P, _I, _I, _P, _P],

@@ -2,7 +2,8 @@
 //
 // Replaces the XLA loops of hare_tpu/accel/voxel.py shoot_grid (:414-867: grid
 // entry, the lockstep collect/p1_step DDA march, the resume rounds) and
-// hare_tpu/accel/common.py test_windows/_test_windows (:125-274).  On the TPU
+// hare_tpu/accel/common.py test_windows/_test_windows (:125-274), the latter
+// through the window-run test of windows.cuh that B2 and B3 share.  On the TPU
 // the march and the window test were split (collect-then-test) because an
 // in-loop gather restaged its whole table each step; on Hopper each thread
 // loads its own rows, so the march and the test are fused and a ray stops as
@@ -25,7 +26,7 @@
 // nearest t wins, equal t goes to the lowest triangle id.
 #include <limits>
 
-#include "intersect.cuh"
+#include "windows.cuh"
 
 namespace {
 
@@ -101,6 +102,7 @@ grid_shoot_kernel(const float* __restrict__ o, const float* __restrict__ d,
   }
   const float min_delta = fminf(fminf(t_delta[0], t_delta[1]), t_delta[2]);
   const hare::RayC ray = hare::ray_setup(oc[0], oc[1], oc[2], dc[0], dc[1], dc[2]);
+  const hare::RunFilter filter{ex0, ex1, g.top_index, g.min_t};
 
   // A DDA step advances at least one axis and a jump lands beyond the
   // current cell, so a ray visits at most nx + ny + nz - 2 cells.
@@ -111,23 +113,7 @@ grid_shoot_kernel(const float* __restrict__ o, const float* __restrict__ d,
     const int dist = meta.y & 0xFF;
 
     // ---- test every triangle slot of the cell's window rows.
-    const int slot_end = (meta.x + n_wins) * g.win;
-    for (int slot = meta.x * g.win; slot < slot_end; ++slot) {
-      const int4 id = __ldg(&win_ids[slot]);  // (tri, poly, top, -)
-      if (id.x < 0 || id.y == ex0 || id.y == ex1 ||
-          (g.top_index >= 0 && id.z != g.top_index))
-        continue;
-      const float4 a = __ldg(&win_geom[3 * slot]);
-      const float4 b = __ldg(&win_geom[3 * slot + 1]);
-      const float4 c = __ldg(&win_geom[3 * slot + 2]);
-      const hare::Tri tri{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x};
-      float t, u, v;
-      if (hare::tri_test<MT, false>(ray, tri, t, u, v) && t > g.min_t &&
-          (t < best_t || (t == best_t && id.x < best_tri))) {
-        best_t = t;
-        best_tri = id.x;
-      }
-    }
+    hare::test_run<MT>(ray, win_geom, win_ids, meta.x, n_wins, g.win, filter, best_t, best_tri);
 
     // ---- advance: masked DDA step, or distance-field jump (voxel.py:641-676).
     const float t_exit = fminf(fminf(t_max[0], t_max[1]), t_max[2]);

@@ -62,19 +62,31 @@ def room():
 
 
 @pytest.mark.parametrize("accel, exc", [
-    ("octree", NotImplementedError), ("brute", NotImplementedError),
-    ("kdtree", NotImplementedError), ("kdtree_ropes", NotImplementedError),
+    ("octree", None), ("brute", None), ("kdtree", None), ("kdtree_ropes", None),
     ("bvh", ValueError),
 ])
 def test_unported_accel_raises(room, accel, exc):
-    with pytest.raises(exc, match=accel):
-        th.SpatialPartition(room, accel=accel)
+    """Every backend of the JAX package is ported: each builds on the room
+    and shoots one ray straight up to the ceiling; an unknown name raises."""
+    if exc is not None:
+        with pytest.raises(exc, match=accel):
+            th.SpatialPartition(room, accel=accel)
+        return
+    sp = th.SpatialPartition(room, accel=accel)
+    hr = sp.shoot(th.Ray.make(torch.tensor([[2.0, 2.5, 1.0]]), torch.tensor([[0.0, 0.0, 1.0]])))
+    assert bool(hr.hit[0]) and abs(float(hr.t[0]) - 2.0) < 1e-5
 
 
-@pytest.mark.parametrize("knob", ["cap", "soft", "tier", "cap_s", "march"])
-def test_tpu_knobs_raise(room, knob):
+KNOBS = ["cap", "soft", "tier", "cap_s", "march"]
+
+
+@pytest.mark.parametrize("knob, accel", [pytest.param(k, "grid", id=k) for k in KNOBS] + [
+    pytest.param(k, a, id=f"{a}-{k}")
+    for a in ("brute", "octree", "kdtree", "kdtree_ropes") for k in KNOBS
+])
+def test_tpu_knobs_raise(room, knob, accel):
     with pytest.raises(ValueError, match=knob):
-        th.SpatialPartition(room, accel="grid", domain=4, **{knob: 8})
+        th.SpatialPartition(room, accel=accel, **{knob: 8})
 
 
 def test_unported_trace_features_raise(room):
