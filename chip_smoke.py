@@ -11,8 +11,15 @@ per-polygon absorption, on the card.  Phases, one line each:
 1. the card (``nvidia-smi`` name and power limit) and the kernel build time;
 2. the host build of the scene and grid;
 3. each CUDA kernel against its plain PyTorch version at the main path's
-   shapes: time per call from CUDA events, and the kernel's own device
-   time from torch.profiler;
+   shapes: time per call from CUDA events, the kernel's own device time
+   from torch.profiler, and its bound (``hare_tpu_torch.benchmarks.
+   bounds``: the least time the card could take for the same work).  K1
+   runs on the rays of each of the 3 bounces of one trace, against its
+   plain version and against B1 (bit-equal on the first bounce; on the
+   rays where the two differ later, the float64 oracle must side with K1
+   at least as often as with B1), with the cells and triangle slots its
+   march visits (``voxel.grid_work``), its bound and its share of it, and
+   the wrapper's host cost per call;
 4. the main path end to end, with its launch counts and invariants;
 5. forward and forward+backward step times, Mrays/s, and where one step's
    device time goes (idle share of the card);
@@ -24,7 +31,7 @@ per-polygon absorption, on the card.  Phases, one line each:
 7. the other backends: the host builds of the octree, KD tree and rope
    tree; B1 ``brute_shoot``, B2 ``tree_shoot`` and B3 ``ropes_shoot``
    against their plain versions at each path's full width (B2 on the bench
-   scene and on config 3's hall) and B1 against the float64 oracle; K1, B2
+   scene and on config 3's hall) and B1 against the float64 oracle; B2
    and B3 against B1 on the bench scene's first bounce; the main path
    through ``octree``, ``kdtree`` and ``kdtree_ropes`` on the bench scene,
    ``octree`` on the reference's eval config 3 (concert hall, 1M rays,
@@ -87,31 +94,42 @@ def timed_once(fn):
 
 def device_kernels(fn, reps=1):
     """Run ``fn()`` ``reps`` times under torch.profiler, after one warm-up
-    call; returns {kernel name: device microseconds per call}."""
-    from torch.profiler import ProfilerActivity, profile
+    call; returns {kernel name: (device microseconds, launches)} summed over
+    the calls the profiler recorded."""
+    from hare_tpu_torch.benchmarks.bench_scene import profile_kernels
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us() / reps
-    check(bool(out), "the profiler recorded no device time")
-    return out
+    return profile_kernels(fn, reps)
 
 
-def kernel_ms(times, tag):
-    """Device ms of the kernels whose name contains ``tag``."""
-    return sum(us for name, us in times.items() if tag in name) / 1e3
+def launch_ms(times, tag, per_call=1):
+    """Device ms of one call of the kernels whose name contains ``tag``,
+    ``per_call`` launches a call: a mean over the launches recorded, so a
+    call the profiler dropped does not bias it."""
+    us = sum(t for name, (t, _) in times.items() if tag in name)
+    n = sum(k for name, (_, k) in times.items() if tag in name)
+    check(n > 0, f"the profiler recorded no launch of {tag}")
+    return us / n * per_call / 1e3
+
+
+def step_ms(times, tag, per_step=1):
+    """Device ms of one step: all recorded kernel time over the steps
+    recorded, counted as the launches of ``tag`` (``per_step`` a step);
+    and the same for the kernels named ``*tag*``."""
+    steps = sum(k for name, (_, k) in times.items() if tag in name) / per_step
+    check(steps > 0, f"the profiler recorded no launch of {tag}")
+    return sum(t for t, _ in times.values()) / steps / 1e3, {
+        name: t / steps / 1e3 for name, (t, _) in times.items()}
+
+
+def kernel_ms(per_name_ms, tag):
+    """Sum of the ms of the kernels whose name contains ``tag``."""
+    return sum(ms for name, ms in per_name_ms.items() if tag in name)
 
 
 def gather_phase(label, tab, idx, iters, out_dtype, call_ms):
     """Hold ``gather_sum`` against its plain version on one probe's inputs,
     time both, print one line; returns the probe's measurements."""
+    from hare_tpu_torch.benchmarks import bounds
     from hare_tpu_torch.benchmarks import pallas_probe as pp
 
     k = pp.gather_sum(tab, idx, iters, out_dtype)
@@ -122,26 +140,31 @@ def gather_phase(label, tab, idx, iters, out_dtype, call_ms):
         check(pp.sums_agree(k, p, pp.gather_sum_plain(tab.abs(), idx, iters)),
               f"{label}: gather_sum differs from its plain version beyond the f32 bound")
     err = float((k.double() - p.double()).abs().max())
-    dev_ms = kernel_ms(device_kernels(lambda: pp.gather_sum(tab, idx, iters, out_dtype), 10),
+    dev_ms = launch_ms(device_kernels(lambda: pp.gather_sum(tab, idx, iters, out_dtype), 10),
                        "gather_rows")
     def plain():
         return pp.gather_sum_plain(tab, idx, iters, out_dtype)
 
     plain_ms = cuda_time(plain, 5)
-    plain_dev_ms = sum(device_kernels(plain, 3).values()) / 1e3
+    plain_dev_ms = sum(t for t, _ in device_kernels(plain, 3).values()) / 3 / 1e3
+    b = bounds.gather_sum_bound(tab, idx, iters, k.dtype)
     rows = idx.shape[0] * iters
     gbs = rows * tab.shape[1] * tab.element_size() / (dev_ms * 1e-3) / 1e9
     ns_dev = dev_ms * 1e6 / rows
     print(f"phase 6 {label} {tuple(tab.shape)} {str(tab.dtype)[6:]}, {idx.shape[0]} rows x "
           f"{iters}: max |diff| {err:.3e}; kernel {call_ms:.4f} ms per call ({dev_ms:.4f} ms "
           f"on the device: {ns_dev:.4f} ns per gathered row, {gbs:.1f} GB/s of rows), "
-          f"plain {plain_ms:.4f} ms ({plain_dev_ms:.4f} ms on the device)")
+          f"plain {plain_ms:.4f} ms ({plain_dev_ms:.4f} ms on the device); bound "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']}: {b['bytes'] / 1e6:.2f} MB of distinct rows, "
+          f"indices and sums), {b['bound_ms'] / dev_ms:.1%} of it")
     return dict(ms=call_ms, device_ms=dev_ms, plain_ms=plain_ms, plain_device_ms=plain_dev_ms,
-                max_abs_err=err, ns_per_row=ns_dev, gbs=gbs)
+                max_abs_err=err, ns_per_row=ns_dev, gbs=gbs, bound_ms=b["bound_ms"],
+                bound_by=b["bound_by"], library_ms=None)
 
 
 def probe_phase(dev):
     """Phase 6: P1-P4 at the JAX probes' shapes; returns their four records."""
+    from hare_tpu_torch.benchmarks import bounds
     from hare_tpu_torch.benchmarks import pallas_probe as pp
     from hare_tpu_torch.benchmarks import r4_dyngather_probe as r4
 
@@ -160,15 +183,26 @@ def probe_phase(dev):
         check(torch.equal(pp.column_sum(x), pp.column_sum_plain(x)),
               f"P1 column_sum differs at {mb} MB (sums of ones are exact)")
         ms = cuda_time(lambda: pp.column_sum(x), 50)
-        dev_ms = kernel_ms(device_kernels(lambda: pp.column_sum(x), 10), "column_sum")
+        # Two launches a call: the bands' partial sums, then their fold.
+        dev_ms = launch_ms(device_kernels(lambda: pp.column_sum(x), 10), "column_sum", 2)
         plain_ms = cuda_time(lambda: pp.column_sum_plain(x), 50)
-        plain_dev_ms = sum(device_kernels(lambda: pp.column_sum_plain(x), 10).values()) / 1e3
+        plain_dev_ms = sum(t for t, _ in device_kernels(
+            lambda: pp.column_sum_plain(x), 10).values()) / 10 / 1e3
+        # The one PyTorch call that computes P1's function: the yardstick.
+        library_ms = cuda_time(lambda: torch.sum(x, 0), 50)
+        library_dev_ms = sum(t for t, _ in device_kernels(
+            lambda: torch.sum(x, 0), 10).values()) / 10 / 1e3
+        b = bounds.column_sum_bound(*x.shape)
         gbs = x.numel() * 4 / (dev_ms * 1e-3) / 1e9
         by_mb[mb] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                         plain_device_ms=plain_dev_ms, gbs=gbs)
+                         plain_device_ms=plain_dev_ms, gbs=gbs, library_ms=library_ms,
+                         library_device_ms=library_dev_ms, bound_ms=b["bound_ms"],
+                         bound_by=b["bound_by"])
         print(f"phase 6 P1 column_sum {mb} MB ({x.shape[0]} x 192 f32): kernel {ms:.4f} ms "
               f"per call ({dev_ms:.4f} ms on the device, {gbs:.1f} GB/s), plain "
-              f"{plain_ms:.4f} ms ({plain_dev_ms:.4f} ms on the device)")
+              f"{plain_ms:.4f} ms ({plain_dev_ms:.4f} ms on the device), torch.sum(x, 0) "
+              f"{library_ms:.4f} ms ({library_dev_ms:.4f} ms on the device); bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}), {b['bound_ms'] / dev_ms:.1%} of it")
     g = torch.Generator(device=dev).manual_seed(0)
     x = torch.randn(x.shape, generator=g, device=dev)
     k, p = pp.column_sum(x), pp.column_sum_plain(x)
@@ -182,7 +216,10 @@ def probe_phase(dev):
                     source="hare_tpu_torch/kernels/csrc/gather_probe.cu",
                     replaces="benchmarks/pallas_probe.py:29", launches=p1_launches,
                     max_abs_err=p1_err, ms=big["ms"], plain_ms=big["plain_ms"],
-                    device_ms=big["device_ms"], plain_device_ms=big["plain_device_ms"],
+                    bound_ms=big["bound_ms"], bound_by=big["bound_by"],
+                    library_ms=big["library_ms"], device_ms=big["device_ms"],
+                    plain_device_ms=big["plain_device_ms"],
+                    library_device_ms=big["library_device_ms"],
                     gbs_by_mb={m: r["gbs"] for m, r in by_mb.items()})]
 
     # P2 and P3: each probe driven once, counted, then checked and timed.
@@ -217,7 +254,9 @@ def probe_phase(dev):
         replaces="benchmarks/r4_dyngather_probe.py:57", launches=launches,
         max_abs_err=max(c["max_abs_err"] for c in calls),
         **{k: sum(c[k] for c in calls)
-           for k in ("ms", "device_ms", "plain_ms", "plain_device_ms")}, calls=calls))
+           for k in ("ms", "device_ms", "plain_ms", "plain_device_ms", "bound_ms")},
+        bound_by=max(calls, key=lambda c: c["bound_ms"])["bound_by"], library_ms=None,
+        calls=calls))
     return records
 
 
@@ -252,6 +291,48 @@ def nearest_agree(label, k, p):
     flips = int(((ik != ip) & hit).sum())
     check(flips <= MAX_TIE_SHARE * tp.numel(), f"{label}: {flips} tri_id mismatches")
     return err, flips
+
+
+def referee_agree(label, k, b1):
+    """K1 against B1, whose triangle table rounds the edges otherwise: the
+    same hit mask, and at most ``MAX_TIE_SHARE`` of the rays with another
+    triangle or a t beyond ``ATOL + RTOL t``.  Returns (max |dt|, tri_id
+    flips, rays beyond the t tolerance, the indices of the rays that
+    differ)."""
+    (tk, ik), (tb, ib) = k[:2], b1[:2]
+    hit = torch.isfinite(tb)
+    check(torch.equal(torch.isfinite(tk), hit), f"{label}: the hit masks differ")
+    dt = torch.where(hit, (tk - tb).abs(), 0.0)
+    flips = (ik != ib) & hit
+    off = dt > ATOL + RTOL * torch.where(hit, tb.abs(), 0.0)
+    differ = torch.nonzero(flips | off).squeeze(1)
+    check(differ.numel() <= MAX_TIE_SHARE * tb.numel(), f"{label}: {differ.numel()} rays differ")
+    return float(dt.max()), int(flips.sum()), int(off.sum()), differ.tolist()
+
+
+def oracle_side(label, top, rays, k, b1, differ):
+    """The float64 oracle on the rays where K1 and B1 differ: K1 must match
+    it (a hit at t within ``ORACLE_ATOL``) on at least as many of them as B1
+    does.  Returns {"rays", "k1_match", "b1_match", "k1_nearer",
+    "b1_nearer", "detail": [(ray, t K1, t B1, t f64)]}."""
+    from hare_tpu_torch.oracle import oracle_shoot
+
+    o, d = (x.double().cpu().numpy() for x in (rays.origin, rays.direction))
+    ex = rays.exclude_poly.cpu().numpy()
+    tk, tb = k[0].cpu(), b1[0].cpu()
+    out = dict(rays=len(differ), k1_match=0, b1_match=0, k1_nearer=0, b1_nearer=0, detail=[])
+    for i in differ:
+        ref = oracle_shoot(top, o[i], d[i], (int(ex[i, 0]), int(ex[i, 1])))
+        t64 = float("inf") if ref is None else ref["t"]
+        ek, eb = abs(float(tk[i]) - t64), abs(float(tb[i]) - t64)
+        out["k1_match"] += int(ek <= ORACLE_ATOL)
+        out["b1_match"] += int(eb <= ORACLE_ATOL)
+        out["k1_nearer"] += int(ek < eb)
+        out["b1_nearer"] += int(eb < ek)
+        out["detail"].append((i, float(tk[i]), float(tb[i]), t64))
+    check(out["k1_match"] >= out["b1_match"],
+          f"{label}: the float64 oracle sides with B1 over K1 on {out['detail']}")
+    return out
 
 
 def drive(th, sp, rays, absorption, n_bins, counters, backward, closed):
@@ -322,7 +403,8 @@ def backends_phase(dev, top, grid_sp, rays, absorption, grid_hist):
     bench scene and on the reference's eval configs 1 and 3.  Returns the
     three kernels' records."""
     import hare_tpu_torch as th
-    from hare_tpu_torch.accel import brute, common, ropes, tree, voxel
+    from hare_tpu_torch.accel import brute, common, ropes, tree
+    from hare_tpu_torch.benchmarks import bounds
     from hare_tpu_torch.mesh import shapes
     from hare_tpu_torch.oracle import oracle_shoot
 
@@ -345,28 +427,37 @@ def backends_phase(dev, top, grid_sp, rays, absorption, grid_hist):
     scene = grid_sp.scene
 
     # ---- 7.2 each kernel against its plain version, on the card.
-    walks = (  # (label, kernel, plain version, structure, device kernel name)
+    walks = (  # (label, kernel, plain version, structure, device kernel name, ops a visit)
         ("B2 tree_shoot octree", tree.tree_shoot, tree.tree_shoot_plain, octree,
-         "tree_shoot_kernel"),
+         "tree_shoot_kernel", octree.branch * bounds.SLAB_OPS),
         ("B2 tree_shoot kdtree", tree.tree_shoot, tree.tree_shoot_plain, kdtree,
-         "tree_shoot_kernel"),
+         "tree_shoot_kernel", kdtree.branch * bounds.SLAB_OPS),
         ("B3 ropes_shoot", ropes.ropes_shoot, ropes.ropes_shoot_plain, kdropes,
-         "ropes_shoot_kernel"),
+         "ropes_shoot_kernel", bounds.EXIT_OPS),
     )
     walk_out, walk_rec = {}, {}
-    for label, fn, plain, st, tag in walks:
+    for label, fn, plain, st, tag, visit_ops in walks:
         k = fn(rays, st, with_stats=True)
-        err, flips = nearest_agree(label, k, plain(rays, st))
+        # The plain walk's work (the leaves' runs it tests, its pops or
+        # steps) is what the bound is counted from.
+        with common.tally_runs() as runs:
+            p = plain(rays, st, with_stats=True)
+        err, flips = nearest_agree(label, k, p)
+        slots, slots_touched = bounds.runs_work(runs, st.win_ids)
+        b = bounds.walk_bound(N_RAYS, slots, slots_touched, int(p[2].sum()), visit_ops)
         walk_out[label] = k
         ms = cuda_time(lambda: fn(rays, st), 10)
-        dev_ms = kernel_ms(device_kernels(lambda: fn(rays, st), 10), tag)
+        dev_ms = launch_ms(device_kernels(lambda: fn(rays, st), 10), tag)
         plain_ms = cuda_time(lambda: plain(rays, st), 1)
         steps = k[2].float()
-        walk_rec[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, device_ms=dev_ms)
+        walk_rec[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b["bound_ms"],
+                               bound_by=b["bound_by"], library_ms=None, device_ms=dev_ms)
         print(f"phase 7 {label}: tri_id mismatches {flips} (equal-t ties), max |dt| {err:.3e}; "
               f"kernel {ms:.4f} ms per call ({dev_ms:.4f} ms on the device), plain "
               f"{plain_ms:.4f} ms; {'steps' if 'ropes' in label else 'pops'} per ray mean "
-              f"{float(steps.mean()):.2f}, max {int(steps.max())}")
+              f"{float(steps.mean()):.2f}, max {int(steps.max())}; plain walk's work {slots} "
+              f"triangle slots ({slots / N_RAYS:.1f} a ray) of {slots_touched} distinct: bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}), {b['bound_ms'] / dev_ms:.1%} of it")
 
     # B1 on config 1 at full size (the bench scene's full width is in 7.3).
     room = th.Topology.build(shapes.shoebox(4, 5, 3))
@@ -396,20 +487,21 @@ def backends_phase(dev, top, grid_sp, rays, absorption, grid_hist):
     # ---- 7.3 every traversal against B1, the referee, on the bench scene.
     b1 = brute.brute_shoot(scene, rays)
     b1_ms = cuda_time(lambda: brute.brute_shoot(scene, rays), 3)
-    b1_dev_ms = kernel_ms(device_kernels(lambda: brute.brute_shoot(scene, rays), 2),
+    b1_dev_ms = launch_ms(device_kernels(lambda: brute.brute_shoot(scene, rays), 2),
                           "brute_shoot_kernel")
     b1_plain, b1_plain_ms = timed_once(lambda: brute.brute_shoot_plain(scene, rays))
     err, flips = nearest_agree("B1 bench scene", b1, b1_plain)
     b1_err = max(b1_err, err)
+    b1_bound = bounds.brute_shoot_bound(N_RAYS, top.n_tris)
     print(f"phase 7 B1 brute_shoot bench scene ({N_RAYS} rays x {top.n_tris} tris = "
           f"{N_RAYS * top.n_tris / 1e9:.2f}e9 tests): tri_id mismatches {flips}, max |dt| "
           f"{err:.3e}; {b1_ms:.3f} ms per call ({b1_dev_ms:.3f} ms on the device, "
-          f"{N_RAYS * top.n_tris / b1_dev_ms / 1e6:.1f} G tests/s); plain {b1_plain_ms:.3f} ms")
-    versus = [("K1 grid_shoot", voxel.grid_shoot(rays, grid_sp.struct))]
-    versus += [(label, walk_out[label]) for label, *_ in walks]
+          f"{N_RAYS * top.n_tris / b1_dev_ms / 1e6:.1f} G tests/s); plain {b1_plain_ms:.3f} ms; "
+          f"bound {b1_bound['bound_ms']:.4f} ms ({b1_bound['bound_by']}), "
+          f"{b1_bound['bound_ms'] / b1_dev_ms:.1%} of it")
     print("phase 7 against B1 on the first bounce: " + "; ".join(
         "{}: tie flips {}, max |dt| {:.3e}".format(label, *nearest_agree(f"{label} vs B1", k, b1)[::-1])
-        for label, k in versus))
+        for label, k in ((label, walk_out[label]) for label, *_ in walks)))
 
     # ---- 7.4 each backend's main path, counted, and 7.5 its times.
     rec_launch = {"brute": 0, "tree": 0, "ropes": 0}
@@ -444,9 +536,9 @@ def backends_phase(dev, top, grid_sp, rays, absorption, grid_hist):
             th.energy_histogram(r, N_BINS, BIN_DT).sum().backward()
 
         fwd_ms, fb_ms = host_time(fwd, 5), host_time(fwd_bwd, 5)
-        first = kernel_ms(device_kernels(lambda: walk_fn[accel](rays, sp.struct), 5), tags[accel])
-        mean = kernel_ms(device_kernels(fwd, 2), tags[accel]) / N_BOUNCES
-        busy = sum(device_kernels(fwd_bwd, 3).values()) / 1e3
+        first = launch_ms(device_kernels(lambda: walk_fn[accel](rays, sp.struct), 5), tags[accel])
+        mean = launch_ms(device_kernels(fwd, 2), tags[accel])
+        busy, _ = step_ms(device_kernels(fwd_bwd, 3), "histogram_kernel")
         per_shoot[accel] = (first, mean)
         fb_mrays[accel] = N_RAYS * N_BOUNCES / fb_ms / 1e3
         print(f"phase 7 {accel} main path: launches {launches}; all {N_RAYS} rays hit on "
@@ -517,11 +609,13 @@ def backends_phase(dev, top, grid_sp, rays, absorption, grid_hist):
     return [
         dict(name="brute_shoot", route="cuda", source=src + "brute_shoot.cu",
              replaces="hare_tpu/accel/brute.py:63", launches=rec_launch["brute"],
-             max_abs_err=b1_err, ms=b1_ms, plain_ms=b1_plain_ms, device_ms=b1_dev_ms),
+             max_abs_err=b1_err, ms=b1_ms, plain_ms=b1_plain_ms, bound_ms=b1_bound["bound_ms"],
+             bound_by=b1_bound["bound_by"], library_ms=None, device_ms=b1_dev_ms),
         dict(name="tree_shoot", route="cuda", source=src + "tree_shoot.cu",
              replaces="hare_tpu/accel/tree.py:249", launches=rec_launch["tree"],
-             max_abs_err=max(oct_r["max_abs_err"], kd_r["max_abs_err"]), ms=oct_r["ms"],
-             plain_ms=oct_r["plain_ms"], device_ms=oct_r["device_ms"],
+             max_abs_err=max(oct_r["max_abs_err"], kd_r["max_abs_err"]),
+             **{k: oct_r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                      "device_ms")},
              kdtree=kd_r),
         dict(name="ropes_shoot", route="cuda", source=src + "ropes_shoot.cu",
              replaces="hare_tpu/accel/ropes.py:272", launches=rec_launch["ropes"], **rp_r),
@@ -538,9 +632,9 @@ def main():
         raise RuntimeError("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
 
     import hare_tpu_torch as th
-    from hare_tpu_torch.accel import common, voxel
+    from hare_tpu_torch.accel import brute, common, voxel
+    from hare_tpu_torch.benchmarks import bench_scene, bounds
     from hare_tpu_torch.kernels import build
-    from hare_tpu_torch.mesh import shapes
     from hare_tpu_torch.trace import bounce
 
     dev = torch.device("cuda")
@@ -560,11 +654,7 @@ def main():
 
     # ---- phase 2: the bench scene, host build.
     t0 = time.perf_counter()
-    faces = shapes.shoebox(20.0, 20.0, 20.0) + shapes.icosphere(
-        6, radius=6.0, center=(10.0, 10.0, 10.0)
-    )
-    top = th.Topology.build(faces)
-    sp = th.SpatialPartition(top, accel="grid", domain=48, device=dev)
+    top, sp, rays, absorption = bench_scene.bench_setup(dev)
     torch.cuda.synchronize()
     host_s = time.perf_counter() - t0
     check(top.n_tris == 81932, f"bench scene has {top.n_tris} triangles, not 81,932")
@@ -572,39 +662,70 @@ def main():
     print(f"phase 2 scene: {top.n_tris} tris, {top.n_polys} polys, grid {grid.dims}, "
           f"{grid.win_geom.shape[0]} window rows; host build {host_s:.2f} s")
 
-    gen = torch.Generator().manual_seed(0)
-    d = th.uniform_sphere(N_RAYS, gen, device=dev)
-    o = torch.tensor([10.0, 10.0, 10.0], device=dev) + 6.5 * d
-    rays = th.Ray.make(o, d)
-    absorption = torch.full((top.n_polys,), ABSORPTION, device=dev)
-
     # ---- phase 3: each kernel against its plain version, main-path shapes.
     records = []
-    # K1 on the first bounce's rays.
-    bt_k, btri_k = voxel.grid_shoot(rays, grid)
-    bt_p, btri_p = voxel.grid_shoot_plain(rays, grid)
-    hit = torch.isfinite(bt_p)
-    check(torch.equal(torch.isfinite(bt_k), hit), "K1 hit mask differs from its plain version")
-    check(bool(hit.all()), "K1: a first-bounce ray missed in the closed room")
-    dt = (bt_k - bt_p).abs()
-    k1_err = float(dt.max())
-    flips = btri_k != btri_p
-    n_flips = int(flips.sum())
-    check(bool((dt <= ATOL + RTOL * bt_p.abs()).all()), f"K1 t differs by {k1_err}")
-    check(n_flips <= MAX_TIE_SHARE * N_RAYS, f"K1: {n_flips} tri_id mismatches")
-    ms = cuda_time(lambda: voxel.grid_shoot(rays, grid), 20)
-    dev_ms = kernel_ms(device_kernels(lambda: voxel.grid_shoot(rays, grid), 10),
-                       "grid_shoot_kernel")
-    plain_ms = cuda_time(lambda: voxel.grid_shoot_plain(rays, grid), 3)
-    print(f"phase 3 K1 grid_shoot: tri_id mismatches {n_flips} (equal-t ties), "
-          f"max |dt| {k1_err:.3e}; kernel {ms:.4f} ms per call ({dev_ms:.4f} ms on "
-          f"the device), plain {plain_ms:.4f} ms")
-    records.append(dict(name="grid_shoot", route="cuda",
-                        source="hare_tpu_torch/kernels/csrc/grid_shoot.cu",
-                        replaces="hare_tpu/accel/voxel.py:414", max_abs_err=k1_err,
-                        ms=ms, plain_ms=plain_ms, device_ms=dev_ms))
+    # K1 on the rays of each bounce of one trace: against its plain version
+    # and against B1, timed, and beside its bound from the plain march's work.
+    per_bounce = []
+    for b, r in enumerate(bench_scene.bounce_rays(sp, rays, absorption), 1):
+        k, p = voxel.grid_shoot(r, grid), voxel.grid_shoot_plain(r, grid)
+        plain_ms = cuda_time(lambda: voxel.grid_shoot_plain(r, grid), 1)
+        err, flips = nearest_agree(f"K1 bounce {b}", k, p)
+        check(bool(torch.isfinite(k[0]).all()), f"K1: a bounce-{b} ray missed in the closed room")
+        # B1 reads scene.tri_geom, whose edges are differences of f32
+        # corners; K1's window rows hold f64 differences rounded once.  The
+        # walls' corners are exact in both, so the first bounce agrees to
+        # the bit; the sphere's edges differ in their last bits, which a
+        # grazing ray turns into a larger dt, so on later bounces the
+        # float64 oracle decides the rays where the two differ.
+        b1 = brute.brute_shoot(sp.scene, r)
+        b1_err, b1_flips, b1_off, differ = referee_agree(f"K1 vs B1 bounce {b}", k, b1)
+        if b == 1:
+            check(b1_err == 0.0 and b1_flips == 0, "K1 differs from B1 on the first bounce")
+        side = oracle_side(f"K1 vs B1 bounce {b}", top, r, k, b1, differ)
+        ms = cuda_time(lambda: voxel.grid_shoot(r, grid), 20)
+        dev_ms = launch_ms(device_kernels(lambda: voxel.grid_shoot(r, grid), 10),
+                           "grid_shoot_kernel")
+        work = voxel.grid_work(r, grid)
+        bnd = bounds.grid_shoot_bound(work)
+        cells, slots = work.cells.double(), work.slots.double()
+        per_bounce.append(dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, max_abs_err=err,
+                               tie_flips=flips, b1_max_abs_dt=b1_err, b1_flips=b1_flips,
+                               b1_beyond_tol=b1_off, oracle=side,
+                               bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"],
+                               slots_per_ray=float(slots.mean()),
+                               cells_per_ray=float(cells.mean())))
+        print(f"phase 3 K1 grid_shoot bounce {b}: against its plain version tri_id mismatches "
+              f"{flips} (equal-t ties), max |dt| {err:.3e}; against B1 tri_id flips {b1_flips}, "
+              f"max |dt| {b1_err:.3e}, rays beyond |dt| <= {ATOL} + {RTOL} t {b1_off}; on those "
+              f"{side['rays']} rays the float64 oracle matches K1 on {side['k1_match']} and B1 on "
+              f"{side['b1_match']} (t within {ORACLE_ATOL}), K1 nearer on {side['k1_nearer']}, "
+              f"B1 on {side['b1_nearer']} {side['detail']}; kernel {ms:.4f} ms per call ({dev_ms:.4f} ms on the "
+              f"device), plain {plain_ms:.3f} ms; a ray visits {float(cells.mean()):.2f} cells "
+              f"(max {int(cells.max())}) and tests {float(slots.mean()):.1f} triangle slots "
+              f"(max {int(slots.max())}); {work.cells_touched} cells and {work.slots_touched} "
+              f"non-null window slots touched; bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}: "
+              f"{bnd['ops'] / 1e9:.3f} GFLOP, {bnd['bytes'] / 1e6:.2f} MB), "
+              f"{bnd['bound_ms'] / dev_ms:.1%} of it")
+    k1 = {key: sum(x[key] for x in per_bounce) / len(per_bounce)
+          for key in ("ms", "device_ms", "plain_ms", "bound_ms")}
+    # The wrapper's host cost: a 1-ray batch, whose kernel is shorter than
+    # its launch.
+    one = th.Ray(*(x[:1] for x in rays))
+    k1["host_us"] = host_time(lambda: voxel.grid_shoot(one, grid), 200) * 1e3
+    print(f"phase 3 K1 grid_shoot mean of {len(per_bounce)} bounces: {k1['ms']:.4f} ms per call "
+          f"({k1['device_ms']:.4f} ms on the device), bound {k1['bound_ms']:.4f} ms, "
+          f"{k1['bound_ms'] / k1['device_ms']:.1%} of it; wrapper host cost "
+          f"{k1['host_us']:.2f} us per call (1-ray batch)")
+    records.append(dict(
+        name="grid_shoot", route="cuda", source="hare_tpu_torch/kernels/csrc/grid_shoot.cu",
+        replaces="hare_tpu/accel/voxel.py:414",
+        max_abs_err=max(x["max_abs_err"] for x in per_bounce), **k1,
+        bound_by=max(per_bounce, key=lambda x: x["bound_ms"])["bound_by"], library_ms=None,
+        bounces=per_bounce))
 
-    # K2 on K1's winners.
+    # K2 on K1's winners of the first bounce.
+    bt_k, btri_k = voxel.grid_shoot(rays, grid)
     hk = common.finalize_hits(sp.scene, rays, bt_k, btri_k)
     hp = common.finalize_hits_plain(sp.scene, rays, bt_k, btri_k)
     for f in ("hit", "poly_id", "tri_id", "edge_nbr"):
@@ -615,17 +736,20 @@ def main():
         errs[f] = float((a - b).abs().max())
         check(torch.allclose(a, b, rtol=RTOL, atol=ATOL), f"K2 {f} differs by {errs[f]}")
     ms = cuda_time(lambda: common.finalize_hits(sp.scene, rays, bt_k, btri_k), 50)
-    dev_ms = kernel_ms(device_kernels(
+    dev_ms = launch_ms(device_kernels(
         lambda: common.finalize_hits(sp.scene, rays, bt_k, btri_k), 10), "finalize_kernel")
     plain_ms = cuda_time(lambda: common.finalize_hits_plain(sp.scene, rays, bt_k, btri_k), 20)
+    bnd = bounds.finalize_hits_bound(btri_k)
     print("phase 3 K2 finalize_hits: max |diff| " +
           ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) +
           f"; kernel {ms:.4f} ms per call ({dev_ms:.4f} ms on the device), "
-          f"plain {plain_ms:.4f} ms")
+          f"plain {plain_ms:.4f} ms; bound {bnd['bound_ms']:.5f} ms ({bnd['bound_by']}: "
+          f"{bnd['bytes'] / 1e6:.2f} MB), {bnd['bound_ms'] / dev_ms:.1%} of it")
     records.append(dict(name="finalize_hits", route="cuda",
                         source="hare_tpu_torch/kernels/csrc/finalize_hits.cu",
                         replaces="hare_tpu/accel/common.py:437",
                         max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms,
+                        bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"], library_ms=None,
                         device_ms=dev_ms))
 
     # K3 on a real 3-bounce trace record.
@@ -640,16 +764,19 @@ def main():
         return bounce.histogram_kernel(res.energy, res.time, res.hit, N_BINS, BIN_DT)
 
     ms = cuda_time(k3, 100)
-    dev_ms = kernel_ms(device_kernels(k3, 10), "histogram_kernel")
+    dev_ms = launch_ms(device_kernels(k3, 10), "histogram_kernel")
     plain_ms = cuda_time(
         lambda: bounce.histogram_plain(res.energy, res.time, res.hit, N_BINS, BIN_DT), 100)
+    bnd = bounds.histogram_bound(res.hit, N_BINS)
     print(f"phase 3 K3 energy_histogram: max |diff| / total {k3_err / total:.3e}; "
           f"kernel {ms:.4f} ms per call ({dev_ms:.4f} ms on the device), "
-          f"plain {plain_ms:.4f} ms")
+          f"plain {plain_ms:.4f} ms; bound {bnd['bound_ms']:.5f} ms ({bnd['bound_by']}: "
+          f"{bnd['bytes'] / 1e6:.2f} MB), {bnd['bound_ms'] / dev_ms:.1%} of it")
     records.append(dict(name="energy_histogram", route="cuda",
                         source="hare_tpu_torch/kernels/csrc/energy_histogram.cu",
                         replaces="hare_tpu/trace/bounce.py:294", max_abs_err=k3_err,
-                        ms=ms, plain_ms=plain_ms, device_ms=dev_ms))
+                        ms=ms, plain_ms=plain_ms, bound_ms=bnd["bound_ms"],
+                        bound_by=bnd["bound_by"], library_ms=None, device_ms=dev_ms))
 
     # ---- phase 4: the main path end to end, counted.
     counters = (voxel.grid_shoot, common.finalize_hits, th.energy_histogram)
@@ -722,9 +849,8 @@ def main():
           f"(82k-tri scene, grid DDA, 3-bounce, {N_RAYS} rays)")
 
     # Where one fwd+bwd step's device time goes, and how idle the card is.
-    times = device_kernels(fwd_bwd, 3)
-    busy = sum(times.values()) / 1e3
-    parts = {k: kernel_ms(times, tag) for k, tag in (
+    busy, per_name = step_ms(device_kernels(fwd_bwd, 3), "histogram_kernel")
+    parts = {k: kernel_ms(per_name, tag) for k, tag in (
         ("K1", "grid_shoot_kernel"), ("K2", "finalize_kernel"), ("K3", "histogram_kernel"))}
     print(f"phase 5 device time per fwd+bwd step: busy {busy:.4f} ms of {fb_ms:.3f} ms "
           f"(idle share {1 - busy / fb_ms:.3f}); K1 {parts['K1']:.4f} ms, K2 "

@@ -1,7 +1,10 @@
 """hare_tpu_torch — the PyTorch/CUDA port of hare_tpu.
 
 Same module layout and names as ``hare_tpu``; plain functions on torch
-tensors with an explicit device.  On CUDA tensors the main path runs
+tensors.  Every entry point that places tensors (``build_scene``,
+``SpatialPartition``, the structure builders, ``convert``,
+``uniform_sphere``) puts them on ``"cuda"`` unless the caller passes
+another ``device``; with no card such a call raises.  On CUDA tensors the main path runs
 hand-written kernels (``kernels/csrc``): the traversal of the chosen
 backend (K1 ``grid_shoot``, B1 ``brute_shoot``, B2 ``tree_shoot`` for the
 octree and KD-tree, B3 ``ropes_shoot``), K2 ``finalize_hits`` and K3

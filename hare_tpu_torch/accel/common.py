@@ -14,7 +14,8 @@ equal t, the lowest triangle id — the JAX tie rule (``common.py:224-242``).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from contextlib import contextmanager
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,6 +37,7 @@ __all__ = [
     "key_to_hit",
     "pack_windows",
     "repack_windows",
+    "tally_runs",
     "test_runs",
     "test_windows",
 ]
@@ -45,6 +47,8 @@ WIN = 16
 # Hit key of "no accepted candidate": above every real key.
 NO_HIT_KEY = (1 << 63) - 1
 KERNELS = ("watertight", "mt")
+# The list :func:`tally_runs` collects into, or None.
+_tally: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = None
 
 
 def pack_windows(
@@ -247,6 +251,8 @@ def test_runs(
     :func:`test_windows`.  Returns the (Q,) int64 hit key of each query's
     nearest accepted hit, ``NO_HIT_KEY`` where none — the plain statement of
     ``hare::test_run`` in ``kernels/csrc/windows.cuh``."""
+    if _tally is not None:
+        _tally.append((start.to(torch.int64), count.to(torch.int64)))
     n = count.shape[0]
     out = torch.full((n,), NO_HIT_KEY, dtype=torch.int64, device=count.device)
     count = count.to(torch.int64)
@@ -261,6 +267,20 @@ def test_runs(
         win_geom, win_ids, rows, o[q], d[q], ex[q], min_t, top_index, kernel
     )
     return out.scatter_reduce_(0, q, keys, reduce="amin")
+
+
+@contextmanager
+def tally_runs() -> Iterator[List[Tuple[torch.Tensor, torch.Tensor]]]:
+    """Collect the runs that every :func:`test_runs` call is handed inside
+    the block, as ``(start, count)`` pairs of int64 tensors: the triangle
+    work of a plain traversal, from which ``benchmarks/bounds.py`` computes
+    the kernel's bound."""
+    global _tally
+    outer, _tally = _tally, []
+    try:
+        yield _tally
+    finally:
+        _tally = outer
 
 
 def _check_no_grad(scene: Scene, rays: Ray) -> None:

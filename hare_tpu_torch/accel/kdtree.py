@@ -173,7 +173,7 @@ def build_kdtree(
     pad: float = 1e-3,
     levels: int = 1,
     split: str = "sah",
-    device=None,
+    device="cuda",
 ) -> KDTree:
     """Build the KD-tree on the host (:func:`build_kdtree_tables`) and put
     it on ``device``."""

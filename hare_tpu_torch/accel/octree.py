@@ -119,7 +119,7 @@ def build_octree(
     max_depth: Optional[int] = None,
     max_tris_per_node: int = 16,
     pad: float = 1e-3,
-    device=None,
+    device="cuda",
 ) -> Octree:
     """Build the octree on the host (:func:`build_octree_tables`) and put it
     on ``device``."""

@@ -45,8 +45,9 @@ class SpatialPartition:
     (``domain``/``avg_polys``/... for the grid, ``max_depth``/
     ``max_tris_per_node``/... for the trees; brute takes ``tri_tile``, the
     plain version's tile).  kernel: ``"watertight"`` (default) or ``"mt"``.
-    device: where the scene and structure live; CUDA devices run the
-    kernels, the CPU runs their plain versions.
+    device: where the scene and structure live, ``"cuda"`` unless the
+    caller asks for another; CUDA devices run the kernels, the CPU runs
+    their plain versions.
     """
 
     def __init__(
@@ -59,7 +60,7 @@ class SpatialPartition:
         soft: Optional[int] = None,
         tier: Optional[int] = None,
         cap_s: Optional[int] = None,
-        device=None,
+        device="cuda",
         **params,
     ):
         if accel not in _BACKENDS:

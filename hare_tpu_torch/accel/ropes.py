@@ -271,7 +271,7 @@ class KDRopes(NamedTuple):
     @classmethod
     def from_numpy(
         cls, node_rows, win_data, root_min, root_max, max_depth, char_step,
-        device=None, **_,
+        device="cuda", **_,
     ) -> "KDRopes":
         """From the JAX ``KDRopes`` fields (as NumPy): split the 32-lane
         rows into typed arrays and repack the window rows.  The remaining
@@ -319,7 +319,7 @@ def build_kdtree_ropes(
     pad: float = 1e-3,
     win: Optional[int] = None,
     split: str = "sah",
-    device=None,
+    device="cuda",
 ) -> KDRopes:
     """Build the rope tree on the host (:func:`build_kdtree_ropes_tables`)
     and put it on ``device``."""

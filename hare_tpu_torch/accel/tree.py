@@ -225,7 +225,7 @@ class TreeTables(NamedTuple):
     @classmethod
     def from_numpy(
         cls, node_rows, win_data, root_min, root_max, branch, max_depth,
-        device=None, **_,
+        device="cuda", **_,
     ) -> "TreeTables":
         """From the JAX ``TreeTables`` fields (as NumPy): repack the
         component-major child rows and window rows.  The remaining keyword

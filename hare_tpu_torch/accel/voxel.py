@@ -11,9 +11,10 @@ the last row is the all-null row.  ``cell_meta`` is unchanged:
 ``[win_start, n_wins << 8 | dist]``.
 
 Traversal: :func:`grid_shoot` is K1 (``kernels/csrc/grid_shoot.cu``, one
-thread per ray, march and test fused, early exit) for CUDA tensors, and
-:func:`grid_shoot_plain` — a vectorised lockstep march over the active rays
-— for CPU tensors.  Both return the nearest accepted hit over every
+ray per group of lanes, march and test fused, early exit) for CUDA tensors,
+and :func:`grid_shoot_plain` — a vectorised lockstep march over the active
+rays — for CPU tensors; :func:`grid_work` replays that march and counts the
+cells and triangle slots it visits.  Both return the nearest accepted hit over every
 triangle of every cell the ray crosses, ties to the lowest triangle id:
 the answer of the JAX collect-then-test rounds, without its candidate
 buffers, resume rounds or straggler tiers.
@@ -22,7 +23,7 @@ buffers, resume rounds or straggler tiers.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional, Sequence, Tuple, Union
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -50,7 +51,9 @@ __all__ = [
     "build_grid_tables",
     "build_voxel_grid",
     "grid_shoot",
+    "grid_shoot_args",
     "grid_shoot_plain",
+    "grid_work",
     "shoot_grid",
 ]
 
@@ -329,7 +332,7 @@ class VoxelGrid(NamedTuple):
     @classmethod
     def from_numpy(
         cls, cell_meta, win_data, grid_min, voxel_size, dims, char_step,
-        max_cell_wins, n_tris, device=None,
+        max_cell_wins, n_tris, device="cuda",
     ) -> "VoxelGrid":
         """From the JAX ``VoxelGrid`` tables (as NumPy): repack the
         component-major ``win_data`` (lane ``c*win + k``) tri-major."""
@@ -364,7 +367,7 @@ def build_voxel_grid(
     avg_polys: float = 10.0,
     pad: float = 1e-3,
     win: Optional[int] = None,
-    device=None,
+    device="cuda",
 ) -> VoxelGrid:
     """Build the grid on the host (:func:`build_grid_tables`) and put it on
     ``device``."""
@@ -397,6 +400,45 @@ def grid_shoot(
     n = o.shape[0]
     best_t = torch.empty(n, dtype=torch.float32, device=o.device)
     best_tri = torch.empty(n, dtype=torch.int32, device=o.device)
+    args = grid_shoot_args(rays, grid, best_t, best_tri, kernel, min_t, top_index)
+    grid_shoot.launches += 1
+    build.launch("hare_grid_shoot", *args, _ray_counter(o.device))
+    return best_t, best_tri
+
+
+grid_shoot.launches = 0
+_RAY_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _ray_counter(device: torch.device) -> torch.Tensor:
+    """K1's ray counter on ``device`` for the current stream: two zeroed
+    ints, made once per (device, stream) and left at zero by every launch
+    (``grid_shoot.cu``); launches on one stream run in turn, so they can
+    share it."""
+    # The raw stream handle, without the Stream object that
+    # torch.cuda.current_stream builds: that costs several microseconds of
+    # host time a call, on a path the host already bounds.
+    key = (device.index, torch._C._cuda_getCurrentRawStream(device.index))
+    counter = _RAY_COUNTERS.get(key)
+    if counter is None:
+        counter = _RAY_COUNTERS[key] = torch.zeros(2, dtype=torch.int32, device=device)
+    return counter
+
+
+def grid_shoot_args(
+    rays: Ray,
+    grid: VoxelGrid,
+    best_t: torch.Tensor,
+    best_tri: torch.Tensor,
+    kernel: str = "watertight",
+    min_t: float = MIN_T,
+    top_index: Optional[int] = None,
+) -> tuple:
+    """The arguments of the C entry point ``hare_grid_shoot`` up to the
+    outputs ``best_t`` and ``best_tri`` (tensors as tensors, for
+    :func:`~..kernels.build.launch`); the ray counter (:func:`_ray_counter`)
+    and the stream follow."""
+    o, d, ex = rays.origin, rays.direction, rays.exclude_poly
     fparams = (ctypes.c_float * 14)(
         *grid.host_params, ENTRY_EPS * grid.char_step, min_t
     )
@@ -404,16 +446,18 @@ def grid_shoot(
         *grid.dims, grid.win_geom.shape[1],
         -1 if top_index is None else int(top_index), int(kernel == "mt"),
     )
-    grid_shoot.launches += 1
-    build.launch(
-        "hare_grid_shoot", o.contiguous(), d.contiguous(), ex.contiguous(), n,
-        grid.cell_meta, grid.win_geom, grid.win_ids, fparams, iparams,
-        best_t, best_tri,
-    )
-    return best_t, best_tri
+    return (o.contiguous(), d.contiguous(), ex.contiguous(), o.shape[0],
+            grid.cell_meta, grid.win_geom, grid.win_ids, fparams, iparams,
+            best_t, best_tri)
 
 
-grid_shoot.launches = 0
+class GridWork(NamedTuple):
+    """What K1's march does on a batch of rays (:func:`grid_work`)."""
+
+    cells: torch.Tensor  # (N,) i64 cells each ray visits
+    slots: torch.Tensor  # (N,) i64 non-null window slots each ray tests
+    cells_touched: int  # distinct cells visited by any ray
+    slots_touched: int  # distinct non-null slots tested by any ray
 
 
 def grid_shoot_plain(
@@ -432,6 +476,28 @@ def grid_shoot_plain(
     rays that left the grid or whose next cell starts beyond their best hit.
     The loop is bounded by ``nx + ny + nz + 3`` steps, as K1 is.
     """
+    return _grid_march(rays, grid, kernel, min_t, top_index, False)[:2]
+
+
+def grid_work(
+    rays: Ray,
+    grid: VoxelGrid,
+    kernel: str = "watertight",
+    min_t: float = MIN_T,
+    top_index: Optional[int] = None,
+) -> GridWork:
+    """The march of :func:`grid_shoot_plain`, replayed with counts: per ray
+    the cells it visits (empty and jumped-from cells included) and the
+    non-null window slots it tests (the triangle tests K1 must make; the
+    null padding of a cell's last row is not counted), and the distinct
+    cells and non-null window slots touched by the batch — what K1's bound
+    is computed from (``benchmarks/bounds.py``)."""
+    _, _, work = _grid_march(rays, grid, kernel, min_t, top_index, True)
+    return work
+
+
+def _grid_march(rays, grid, kernel, min_t, top_index, count):
+    """(best_t, best_tri, GridWork or None): the plain march of K1."""
     check_kernel(kernel)
     check_rays(rays)
     o, d, ex = rays.origin, rays.direction, rays.exclude_poly
@@ -441,6 +507,14 @@ def grid_shoot_plain(
     dims = torch.tensor(grid.dims, dtype=torch.int32, device=dev)
     _, ny, nz = grid.dims
     inf = float("inf")
+    if count:
+        # Non-null slots of rows [0, r) and the rows a run starts and ends at.
+        live = (grid.win_ids[..., 0] >= 0).sum(dim=1)
+        live_before = torch.cat([live.new_zeros(1), torch.cumsum(live, 0)])
+        cells = torch.zeros(n, dtype=torch.int64, device=dev)
+        slots = torch.zeros(n, dtype=torch.int64, device=dev)
+        cell_seen = torch.zeros(grid.n_cells, dtype=torch.bool, device=dev)
+        row_edge = torch.zeros(grid.win_ids.shape[0] + 1, dtype=torch.int64, device=dev)
 
     # ---- grid entry (voxel.py:494-503).
     inside = ((o >= gmin) & (o <= gmax)).all(dim=-1)
@@ -472,12 +546,21 @@ def grid_shoot_plain(
     for _ in range(sum(grid.dims) + 3):
         if idx.numel() == 0:
             break
-        meta = grid.cell_meta[((cell[:, 0] * ny + cell[:, 1]) * nz + cell[:, 2]).long()]
+        lin = ((cell[:, 0] * ny + cell[:, 1]) * nz + cell[:, 2]).long()
+        meta = grid.cell_meta[lin]
         n_wins = (meta[:, 1].to(torch.int64) & 0xFFFFFFFF) >> 8  # logical shift
         dist = meta[:, 1] & 0xFF
 
         # ---- test the window rows of the occupied cells.
         occ = torch.nonzero(n_wins > 0).squeeze(1)
+        if count:
+            cells[idx] += 1
+            cell_seen[lin] = True
+            first = meta[occ, 0].to(torch.int64)
+            last = first + n_wins[occ]
+            slots[idx[occ]] += live_before[last] - live_before[first]
+            row_edge.index_add_(0, first, torch.ones_like(first))
+            row_edge.index_add_(0, last, -torch.ones_like(last))
         if occ.numel():
             keys = test_runs(
                 grid.win_geom, grid.win_ids, meta[occ, 0], n_wins[occ],
@@ -504,7 +587,12 @@ def grid_shoot_plain(
             a[keep] for a in (idx, o, d, ex, zero_d, inv_sd, step, t_delta, min_delta)
         )
         cell, t_max, t_enter = new_cell[keep], t_max[keep], t_enter[keep]
-    return key_to_hit(best_key)
+    best_t, best_tri = key_to_hit(best_key)
+    work = None
+    if count:
+        covered = torch.cumsum(row_edge, 0)[:-1] > 0
+        work = GridWork(cells, slots, int(cell_seen.sum()), int(live[covered].sum()))
+    return best_t, best_tri, work
 
 
 def shoot_grid(

@@ -8,5 +8,10 @@ hand-written kernels of ``kernels/csrc/gather_probe.cu``::
     python -m hare_tpu_torch.benchmarks.pallas_probe
     python -m hare_tpu_torch.benchmarks.r4_dyngather_probe
 
+:mod:`.bench_scene` (the bench scene, each bounce's rays, profiler
+times) and :mod:`.bounds` (each kernel's bound) serve ``chip_smoke.py``;
+:mod:`.k1_sweep` times K1's design candidates, and :mod:`.k1_host` its
+wrapper's host cost, in this checkout or another.
+
 ``import hare_tpu_torch`` does not import this package.
 """

@@ -23,7 +23,7 @@ from .mesh.scene import Scene
 __all__ = ["grid_from_numpy", "ropes_from_numpy", "scene_from_numpy", "tree_from_numpy"]
 
 
-def scene_from_numpy(d: Mapping[str, np.ndarray], device=None) -> Scene:
+def scene_from_numpy(d: Mapping[str, np.ndarray], device="cuda") -> Scene:
     """The port's ``Scene`` from the JAX ``Scene`` fields (as NumPy).
 
     The JAX ``tri_geom`` (T, 16) keeps int32 ids bitcast in f32 lanes
@@ -52,7 +52,7 @@ def grid_from_numpy(
     char_step: float,
     max_cell_wins: int,
     n_tris: int,
-    device=None,
+    device="cuda",
 ) -> VoxelGrid:
     """The port's ``VoxelGrid`` from the JAX ``VoxelGrid`` arrays
     (``cell_meta``, ``win_data``, ``grid_min``, ``voxel_size``, as NumPy)
@@ -69,7 +69,7 @@ def _tables(t) -> Tuple[np.ndarray, ...]:
     return tuple(np.asarray(getattr(t, f)) for f in ("node_rows", "win_data", "root_min", "root_max"))
 
 
-def tree_from_numpy(t, device=None) -> TreeTables:
+def tree_from_numpy(t, device="cuda") -> TreeTables:
     """The port's ``TreeTables`` (child rows repacked) from a JAX
     ``TreeTables``, or any object with its fields: the arrays ``node_rows``,
     ``win_data``, ``root_min``, ``root_max`` (JAX or NumPy) and the statics
@@ -77,7 +77,7 @@ def tree_from_numpy(t, device=None) -> TreeTables:
     return TreeTables.from_numpy(*_tables(t), t.branch, t.max_depth, device=device)
 
 
-def ropes_from_numpy(t, device=None) -> KDRopes:
+def ropes_from_numpy(t, device="cuda") -> KDRopes:
     """The port's ``KDRopes`` (typed node rows) from a JAX ``KDRopes``, or
     any object with its fields: the arrays of :func:`tree_from_numpy` and
     the statics ``max_depth`` and ``char_step``."""

@@ -41,7 +41,7 @@ _LL = ctypes.c_longlong
 _F = ctypes.c_float
 # Every C entry point: argument types in order; each returns a cudaError_t.
 _SIGNATURES = {
-    "hare_grid_shoot": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+    "hare_grid_shoot": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "hare_brute_shoot": [_P, _P, _P, _I, _P, _P, _I, _F, _I, _I, _P, _P, _P],
     "hare_tree_shoot": [_P, _P, _P, _I, _P, _P, _P, _P, _F, _P, _P, _P, _P, _P, _P],
     "hare_ropes_shoot": [_P, _P, _P, _I] + [_P] * 7 + [_P, _P, _P, _P, _P, _P, _P],

@@ -353,7 +353,7 @@ class Topology:
         return len(self.planes)
 
     # ----------------------------------------------------------- device scene
-    def scene(self, device=None, pad_to: int = 128) -> Scene:
+    def scene(self, device="cuda", pad_to: int = 128) -> Scene:
         """Emit the padded device :class:`Scene` on ``device``."""
         return build_scene([self], pad_to=pad_to, device=device)
 
@@ -363,7 +363,7 @@ def _ceil_to(n: int, m: int) -> int:
 
 
 def build_scene(
-    topologies: Sequence[Topology], pad_to: int = 128, device=None
+    topologies: Sequence[Topology], pad_to: int = 128, device="cuda"
 ) -> Scene:
     """Pack one or more topologies into a single padded device Scene.
 

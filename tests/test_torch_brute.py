@@ -27,6 +27,10 @@ from hare_tpu_torch.geom import intersect  # noqa: E402
 from hare_tpu_torch.mesh import shapes  # noqa: E402
 from hare_tpu_torch.oracle import oracle_shoot, oracle_trace  # noqa: E402
 
+# The port's entry points place tensors on "cuda" unless told otherwise;
+# these tests run the plain versions on the CPU.
+CPU = "cpu"
+
 # The oracle's tolerances (tests/test_brute.py:19-40): an f32 shoot against
 # an f64 scan.
 ORACLE_T_ATOL = ORACLE_POINT_ATOL = 1e-3
@@ -54,7 +58,7 @@ def t_rays(o, d, ex=None):
 
 def check_against_oracle(top, o, d, exclude=None, kernel="mt"):
     """tests/test_brute.py::check_against_oracle on the port."""
-    hr = shoot_brute(top.scene(), t_rays(o, d, exclude), kernel=kernel)
+    hr = shoot_brute(top.scene(device=CPU), t_rays(o, d, exclude), kernel=kernel)
     hit = hr.hit.numpy()
     for i in range(len(o)):
         exc = (-1, -1) if exclude is None else tuple(exclude[i])
@@ -133,7 +137,7 @@ def test_vector_wrappers_match_jax(rng, which):
 
 def _jax_and_port_scene(faces_fn):
     jsc = jh.Topology.build(faces_fn(jshapes)).scene()
-    return jsc, scene_from_numpy({k: np.asarray(v) for k, v in jsc._asdict().items()})
+    return jsc, scene_from_numpy({k: np.asarray(v) for k, v in jsc._asdict().items()}, device=CPU)
 
 
 @pytest.mark.parametrize("name", ["shoebox", "soup", "hall"])
@@ -171,14 +175,14 @@ def test_exclusion():
     d = np.array([[0, 0, 1.0]] * 2)
     ceil = [p for p in range(12) if np.allclose(top.poly_normal[p], [0, 0, -1])]
     ex = [[-1, -1], [ceil[0], ceil[1]]]
-    hr = shoot_brute(top.scene(), t_rays(o, d, ex))
+    hr = shoot_brute(top.scene(device=CPU), t_rays(o, d, ex))
     assert bool(hr.hit[0]) and int(hr.poly_id[0]) in ceil
     assert not bool(hr.hit[1])
 
 
 def test_tiling_invariance(rng):
     """The plain version's answer does not depend on its triangle tile."""
-    sc = th.Topology.build(shapes.random_soup(200, seed=7)).scene()
+    sc = th.Topology.build(shapes.random_soup(200, seed=7)).scene(device=CPU)
     o = rng.uniform(0, 10, (64, 3))
     d = rng.normal(0, 1, (64, 3))
     rays = t_rays(o, d / np.linalg.norm(d, axis=1, keepdims=True))
@@ -191,7 +195,7 @@ def test_hit_invariants(rng):
     """Hit point on the triangle's plane, t = |x - o|, u, v barycentric."""
     top = th.Topology.build(shapes.shoebox())
     o, d = random_rays(rng, 300)
-    hr = shoot_brute(top.scene(), t_rays(o, d))
+    hr = shoot_brute(top.scene(device=CPU), t_rays(o, d))
     hit = hr.hit.numpy()
     assert hit.all()
     pt, t = hr.point.numpy()[hit], hr.t.numpy()[hit]
@@ -207,7 +211,7 @@ def test_multi_topology_top_index(rng):
     """top_index restricts the query to one topology (Spatial_Partition.cs:32)."""
     t1 = th.Topology.build(shapes.shoebox())
     t2 = th.Topology.build(shapes.icosphere(1, radius=0.8, center=(2.0, 2.5, 1.5)))
-    sc = th.build_scene([t1, t2])
+    sc = th.build_scene([t1, t2], device=CPU)
     d = rng.normal(0, 1, (8, 3))
     rays = t_rays(np.tile([[2.0, 2.5, 1.5]], (8, 1)), d / np.linalg.norm(d, axis=1, keepdims=True))
     all_hit, only_room = shoot_brute(sc, rays), shoot_brute(sc, rays, top_index=0)

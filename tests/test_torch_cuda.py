@@ -20,6 +20,7 @@ from hare_tpu_torch.accel.ropes import build_kdtree_ropes, ropes_shoot, ropes_sh
 from hare_tpu_torch.accel.tree import tree_shoot, tree_shoot_plain  # noqa: E402
 from hare_tpu_torch.accel.voxel import build_voxel_grid, grid_shoot, grid_shoot_plain  # noqa: E402
 from hare_tpu_torch.benchmarks import pallas_probe as probes  # noqa: E402
+from hare_tpu_torch.benchmarks.bench_scene import bounce_rays  # noqa: E402
 from hare_tpu_torch.geom.intersect import ray_triangle_mt, ray_triangle_watertight  # noqa: E402
 from hare_tpu_torch.mesh import shapes  # noqa: E402
 from hare_tpu_torch.trace.bounce import histogram_kernel, histogram_plain  # noqa: E402
@@ -53,6 +54,19 @@ def assert_same_nearest(kernel_out, plain_out, tie_share=1e-3):
     torch.testing.assert_close(tk[hit], tp[hit], rtol=RTOL, atol=ATOL)
     flips = (ik != ip) & hit
     assert int(flips.sum()) <= max(1, int(hit.numel() * tie_share))  # equal-t ties only
+
+
+def assert_agrees_with_referee(kernel_out, referee_out, share=1e-3, ties=False):
+    """At most ``share`` of the rays with another hit mask, a t beyond RTOL /
+    ATOL or (unless ``ties``) another triangle.  Returns the mask of the
+    rays that agree."""
+    (tk, ik), (tb, ib) = kernel_out, referee_out
+    hit_k, hit_b = torch.isfinite(tk), torch.isfinite(tb)
+    off = (hit_k != hit_b) | (hit_b & ((tk - tb).abs() > ATOL + RTOL * tb.abs()))
+    if not ties:
+        off |= hit_b & (ik != ib)
+    assert int(off.sum()) <= max(1, int(tb.numel() * share))
+    return ~off
 
 
 def assert_ties_genuine(sc, rays, kernel_out, plain_out, kernel):
@@ -98,6 +112,142 @@ def test_grid_shoot_matches_plain(dev, name, faces, kw, box, kernel):
     k, p = grid_shoot(rays, grid, kernel), grid_shoot_plain(rays, grid, kernel)
     assert_same_nearest(k, p, TIE_SHARE.get(name, 1e-3))
     assert_ties_genuine(top.scene(device=dev), rays, k, p, kernel)
+
+
+# Origins inside the closed scenes, so that most rays reflect on every bounce.
+INSIDE = {"shoebox": (0.2, 2.8), "icosphere": (-0.5, 0.5)}
+# Reflected rays in the hall end on its coincident floor and stage bottom
+# far more often than rays from anywhere: on an H100 up to 17% of them tie
+# there, each a genuine equal-t tie (assert_ties_genuine).  And 5 of 4,096
+# start on such a pair and meet its other face at t ~ 0 in one version only.
+REFLECTED_TIE_SHARE = {"hall": 0.25}
+OFF_SHARE = 2e-3
+
+
+@pytest.mark.parametrize("kernel", ["watertight", "mt"])
+@pytest.mark.parametrize("name, faces, kw, box", SCENES, ids=[s[0] for s in SCENES])
+def test_grid_shoot_reflected_rays(dev, name, faces, kw, box, kernel):
+    """K1 on the rays of bounces 2 and 3 of a trace (reflected rays, with
+    their exclusions) against its plain version and against B1."""
+    top = th.Topology.build(faces())
+    sp = th.SpatialPartition(top, kernel=kernel, device=dev, **kw)
+    box = INSIDE.get(name, box)
+    rays = rays_of(np.random.default_rng(5), box[0], box[1], 4096, dev)
+    a = torch.full((top.n_polys,), 0.3, device=dev)
+    share = REFLECTED_TIE_SHARE.get(name, 1e-3)
+    for r in bounce_rays(sp, rays, a)[1:]:
+        # The rays that hit on the bounce before (their polygon excluded);
+        # the others left the scene and are no longer traced.
+        r = th.Ray(*(x[r.exclude_poly[:, 0] >= 0] for x in r))
+        assert r.origin.shape[0] > 500
+        k = grid_shoot(r, sp.struct, kernel)
+        p = grid_shoot_plain(r, sp.struct, kernel)
+        # A ray that starts where two faces coincide (the hall's stage on
+        # its floor) may meet the face it does not exclude at t ~ 0, which
+        # nvcc's FMA rounding and the plain version's decide apart: at most
+        # OFF_SHARE of the rays end elsewhere.  The rest agree in t, and a
+        # differing triangle is a genuine equal-t tie.
+        same = assert_agrees_with_referee(k, p, OFF_SHARE, ties=True)
+        sub = th.Ray(*(x[same] for x in r))
+        k_s, p_s = (k[0][same], k[1][same]), (p[0][same], p[1][same])
+        assert_same_nearest(k_s, p_s, share)
+        assert_ties_genuine(sp.scene, sub, k_s, p_s, kernel)
+        # B1 on the rays that pass the plain-version check.  It reads the
+        # scene's edges (differences of f32 corners), K1 the grid's (f64
+        # differences rounded once): a grazing ray turns the last bits into
+        # a larger dt, on at most OFF_SHARE of the rays.  On the rest t
+        # agrees, and a differing triangle is a genuine equal-t tie.
+        b = brute_shoot(sp.scene, sub, kernel)
+        near = assert_agrees_with_referee(k_s, b, OFF_SHARE, ties=True)
+        k_b, b_b = (k_s[0][near], k_s[1][near]), (b[0][near], b[1][near])
+        assert_same_nearest(k_b, b_b, share)
+        assert_ties_genuine(sp.scene, th.Ray(*(x[near] for x in sub)), k_b, b_b, kernel)
+
+
+@pytest.mark.parametrize("kernel", ["watertight", "mt"])
+def test_grid_shoot_cells_of_many_rows(dev, kernel):
+    """A coarse grid over a dense sphere: cells of many window rows, which
+    the lanes of a group share slot by slot."""
+    top = th.Topology.build(shapes.shoebox(4, 5, 3) + shapes.icosphere(4, 1.2, (2.0, 2.5, 1.5)))
+    grid = build_voxel_grid(top, domain=3, device=dev)
+    assert grid.max_cell_wins >= 8
+    rays = rays_of(np.random.default_rng(6), 0.2, 2.8, 4096, dev)
+    k, p = grid_shoot(rays, grid, kernel), grid_shoot_plain(rays, grid, kernel)
+    assert_same_nearest(k, p)
+    sc = top.scene(device=dev)
+    assert_ties_genuine(sc, rays, k, p, kernel)
+    assert_agrees_with_referee(k, brute_shoot(sc, rays, kernel))
+
+
+def floor_tris(n):
+    """An n x n floor of unit squares at z = 0, two triangles each."""
+    out = []
+    for i in range(n):
+        for j in range(n):
+            q = np.array([[i, j, 0], [i + 1, j, 0], [i + 1, j + 1, 0], [i, j + 1, 0]], float)
+            out += [q[[0, 1, 2]], q[[2, 3, 0]]]
+    return out
+
+
+def downward_rays(rng, lo, hi, z, n, dev):
+    o = np.stack([rng.uniform(lo[0], hi[0], n), rng.uniform(lo[1], hi[1], n),
+                  rng.uniform(*z, n)], 1)
+    d = np.stack([rng.normal(0, 0.2, n), rng.normal(0, 0.2, n), -np.ones(n)], 1)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return th.Ray.make(torch.from_numpy(o.astype(np.float32)).to(dev),
+                       torch.from_numpy(d.astype(np.float32)).to(dev))
+
+
+def assert_lowest_id_on_ties(rays, sp, kernel):
+    """Shot again with the winner's polygon excluded, a ray that finds the
+    same t finds a higher triangle id.  Returns the number of such ties."""
+    t, tri = grid_shoot(rays, sp.struct, kernel)
+    assert bool(torch.isfinite(t).all())
+    poly = sp.scene.tri_poly[tri.long()]
+    ex = torch.stack([poly, torch.full_like(poly, -1)], 1).int()
+    t2, tri2 = grid_shoot(rays._replace(exclude_poly=ex), sp.struct, kernel)
+    tie = t2 == t
+    assert bool((tri[tie] < tri2[tie]).all())
+    return int(tie.sum())
+
+
+@pytest.mark.parametrize("kernel", ["watertight", "mt"])
+@pytest.mark.parametrize("domain", [2, 8])
+def test_grid_shoot_ties_go_to_the_lowest_id(dev, domain, kernel):
+    """Two topologies hold the same 8 x 8 floor, the second in reverse
+    order, so every ray ends on an exact tie between twins in different
+    lanes (and, with domain 2, different rows) of one cell: the group's
+    reduction keeps the first topology's, lower, id."""
+    floor = floor_tris(8)
+    top_corner = np.array([[0.0, 0.0, 4.0], [0.1, 0.0, 4.0], [0.0, 0.1, 4.0]])  # the grid's height
+    tops = [th.Topology.build(floor), th.Topology.build(floor[::-1] + [top_corner])]
+    sp = th.SpatialPartition(tops, domain=domain, kernel=kernel, device=dev)
+    assert domain == 8 or sp.struct.max_cell_wins >= 4
+    rays = downward_rays(np.random.default_rng(8), (1.0, 1.0), (7.0, 7.0), (0.5, 2.0), 4096, dev)
+    n_first = tops[0].n_tris
+    _, tri = grid_shoot(rays, sp.struct, kernel)
+    assert bool((tri < n_first).all())  # the first topology's twin wins
+    assert assert_lowest_id_on_ties(rays, sp, kernel) == 4096
+    assert_same_nearest(grid_shoot(rays, sp.struct, kernel),
+                        brute_shoot(sp.scene, rays, kernel), tie_share=0.0)
+
+
+@pytest.mark.parametrize("kernel", ["watertight", "mt"])
+@pytest.mark.parametrize("domain", [4, 16])
+def test_grid_shoot_hall_floor_ties(dev, domain, kernel):
+    """Rays from inside the concert hall's stage riser, downward, end on
+    z = 0, where the floor's and the stage's bottom triangles coincide; on
+    the rays whose two t come out equal the lowest id wins, and where K1
+    and its plain version pick different triangles, both are hits at the
+    same t."""
+    top = th.Topology.build(shapes.concert_hall())
+    sp = th.SpatialPartition(top, domain=domain, kernel=kernel, device=dev)
+    rays = downward_rays(np.random.default_rng(9), (5.5, 1.5), (24.5, 8.5), (0.2, 1.0), 4096, dev)
+    assert assert_lowest_id_on_ties(rays, sp, kernel) > 0
+    # Every ray ends on the pair, so any share may tie; each flip is genuine.
+    k, p = grid_shoot(rays, sp.struct, kernel), grid_shoot_plain(rays, sp.struct, kernel)
+    assert_same_nearest(k, p, tie_share=1.0)
+    assert_ties_genuine(sp.scene, rays, k, p, kernel)
 
 
 def test_grid_shoot_exclusion_and_topology_filter(dev):

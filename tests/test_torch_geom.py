@@ -22,6 +22,10 @@ import hare_tpu_torch.geom as tg  # noqa: E402
 from hare_tpu_torch import Ray, SpatialPartition, Topology  # noqa: E402
 from hare_tpu_torch.mesh import shapes  # noqa: E402
 
+# The port's entry points place tensors on "cuda" unless told otherwise;
+# these tests run the plain versions on the CPU.
+CPU = "cpu"
+
 # f32 results of the same arithmetic in the same order; XLA and PyTorch may
 # still fuse or contract differently, so values agree to a few ulps.
 RTOL = 1e-5
@@ -172,7 +176,7 @@ def test_grid_no_cracks_parity(target):
     aim = aim.astype(np.float32)
     d = aim / np.linalg.norm(aim, axis=1, keepdims=True)
     o = np.zeros_like(d)
-    ours = SpatialPartition(top, accel="grid").shoot(
+    ours = SpatialPartition(top, accel="grid", device=CPU).shoot(
         Ray.make(torch.from_numpy(o), torch.from_numpy(d))
     )
     jtop = JTopology.build(

@@ -20,6 +20,10 @@ from hare_tpu.mesh import shapes as jshapes  # noqa: E402
 import hare_tpu_torch as th  # noqa: E402
 from hare_tpu_torch.mesh import shapes  # noqa: E402
 
+# The port's entry points place tensors on "cuda" unless told otherwise;
+# these tests run the plain versions on the CPU.
+CPU = "cpu"
+
 # Absorption gradients: per-polygon sums of per-ray energy products, in
 # another order (tests/test_torch_trace.py).
 GRAD_RTOL = 1e-4
@@ -53,7 +57,7 @@ def test_absorption_grads_match_jax(accel):
     tt = th.Topology.build(shapes.shoebox(4, 5, 3))
     grads = {}
     for which in (accel, "brute"):
-        sp = th.SpatialPartition(tt, accel=which)
+        sp = th.SpatialPartition(tt, accel=which, device=CPU)
         a = torch.tensor(a0, requires_grad=True)
         res = th.trace_rays(sp.scene, th.Ray.make(torch.from_numpy(o), torch.from_numpy(d)),
                             a, bounces, sp.shoot_fn, aux=sp.aux)

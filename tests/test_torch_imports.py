@@ -17,6 +17,10 @@ from hare_tpu_torch.kernels import build  # noqa: E402
 from hare_tpu_torch.mesh import shapes  # noqa: E402
 from hare_tpu_torch.trace.bounce import histogram_kernel  # noqa: E402
 
+# The port's entry points place tensors on "cuda" unless told otherwise;
+# these tests run the plain versions on the CPU.
+CPU = "cpu"
+
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "hare_tpu")  # compared as whole first components
 
@@ -70,9 +74,9 @@ def test_unported_accel_raises(room, accel, exc):
     and shoots one ray straight up to the ceiling; an unknown name raises."""
     if exc is not None:
         with pytest.raises(exc, match=accel):
-            th.SpatialPartition(room, accel=accel)
+            th.SpatialPartition(room, accel=accel, device=CPU)
         return
-    sp = th.SpatialPartition(room, accel=accel)
+    sp = th.SpatialPartition(room, accel=accel, device=CPU)
     hr = sp.shoot(th.Ray.make(torch.tensor([[2.0, 2.5, 1.0]]), torch.tensor([[0.0, 0.0, 1.0]])))
     assert bool(hr.hit[0]) and abs(float(hr.t[0]) - 2.0) < 1e-5
 
@@ -86,11 +90,11 @@ KNOBS = ["cap", "soft", "tier", "cap_s", "march"]
 ])
 def test_tpu_knobs_raise(room, knob, accel):
     with pytest.raises(ValueError, match=knob):
-        th.SpatialPartition(room, accel=accel, **{knob: 8})
+        th.SpatialPartition(room, accel=accel, device=CPU, **{knob: 8})
 
 
 def test_unported_trace_features_raise(room):
-    sp = th.SpatialPartition(room, domain=4)
+    sp = th.SpatialPartition(room, domain=4, device=CPU)
     rays = th.Ray.make(torch.full((4, 3), 1.0), torch.tensor([[1.0, 0.0, 0.0]] * 4))
     a = torch.zeros(room.n_polys)
     with pytest.raises(NotImplementedError, match="scattering"):
@@ -102,12 +106,12 @@ def test_unported_trace_features_raise(room):
     with pytest.raises(NotImplementedError, match="soft"):
         th.energy_histogram(res, 16, soft=True)
     with pytest.raises(ValueError, match="kernel"):
-        th.SpatialPartition(room, domain=4, kernel="fast")
+        th.SpatialPartition(room, domain=4, kernel="fast", device=CPU)
 
 
 def test_vertex_gradient_request_raises(room):
     """The finalize backward is not ported: no silent zero gradient."""
-    sp = th.SpatialPartition(room, domain=4)
+    sp = th.SpatialPartition(room, domain=4, device=CPU)
     scene = sp.scene._replace(vertices=sp.scene.vertices.clone().requires_grad_())
     rays = th.Ray.make(torch.full((4, 3), 1.0), torch.tensor([[1.0, 0.0, 0.0]] * 4))
     with pytest.raises(NotImplementedError, match="vertices"):
@@ -118,13 +122,13 @@ def test_wrappers_never_fall_back(room):
     """A tensor on a device with neither a kernel nor a plain version raises;
     on a host without CUDA the kernel launchers raise instead of running the
     plain version."""
-    grid = th.accel.build_voxel_grid(room, domain=4)
+    grid = th.accel.build_voxel_grid(room, domain=4, device=CPU)
     meta = torch.device("meta")
     rays = th.Ray.make(torch.zeros(4, 3, device=meta), torch.ones(4, 3, device=meta))
     meta_grid = grid._replace(cell_meta=grid.cell_meta.to(meta), win_geom=grid.win_geom.to(meta))
     with pytest.raises(ValueError, match="meta"):
         grid_shoot(rays, meta_grid)
-    scene = th.build_scene([room])
+    scene = th.build_scene([room], device=CPU)
     with pytest.raises(ValueError, match="meta"):
         finalize_hits(scene, rays, torch.zeros(4, device=meta),
                       torch.zeros(4, dtype=torch.int32, device=meta))

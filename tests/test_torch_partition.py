@@ -21,6 +21,10 @@ import hare_tpu_torch as th  # noqa: E402
 from hare_tpu_torch.accel.partition import ACCELS  # noqa: E402
 from hare_tpu_torch.mesh import shapes  # noqa: E402
 
+# The port's entry points place tensors on "cuda" unless told otherwise;
+# these tests run the plain versions on the CPU.
+CPU = "cpu"
+
 # Same hit re-solved in f32 by two compilers: a few ulps.
 RTOL = ATOL = 1e-5
 # The concert hall's coincident overlapping polygons (stage and floor) make
@@ -43,7 +47,7 @@ def test_partition_backends_agree(halls, rng, accel):
     """Each backend through both facades on the concert hall: the same hits,
     t within ulps, tri_id equal except at equal-t ties; char_step equal."""
     jt, tt = halls
-    jsp, tsp = jh.SpatialPartition(jt, accel=accel), th.SpatialPartition(tt, accel=accel)
+    jsp, tsp = jh.SpatialPartition(jt, accel=accel), th.SpatialPartition(tt, accel=accel, device=CPU)
     assert tsp.char_step == jsp.char_step > 0
     o = rng.uniform((2, 2, 1), (28, 48, 16), (64, 3)).astype(np.float32)
     d = rand_dirs(rng, 64)
@@ -61,7 +65,7 @@ def test_partition_trace_integration(rng, accel):
     """trace_rays through shoot_fn in a closed room: every ray hits on every
     bounce, energy 0.75^3 after three; shoot_fn is memoized."""
     top = th.Topology.build(shapes.shoebox(4, 5, 3))
-    sp = th.SpatialPartition(top, accel=accel, **({"domain": 4} if accel == "grid" else {}))
+    sp = th.SpatialPartition(top, accel=accel, device=CPU, **({"domain": 4} if accel == "grid" else {}))
     assert sp.shoot_fn is sp.shoot_fn
     a = torch.full((top.n_polys,), 0.25)
     o = torch.tensor([[2.0, 2.5, 1.5]]).repeat(32, 1)

@@ -21,6 +21,10 @@ from hare_tpu_torch.convert import grid_from_numpy, scene_from_numpy  # noqa: E4
 from hare_tpu_torch.mesh import shapes  # noqa: E402
 from hare_tpu_torch.trace.bounce import histogram_plain  # noqa: E402
 
+# The port's entry points place tensors on "cuda" unless told otherwise;
+# these tests run the plain versions on the CPU.
+CPU = "cpu"
+
 N_RAYS, N_BOUNCES, N_BINS, BIN_DT = 512, 4, 64, 1e-3
 # Per-bounce energies and times: the same products and sums in f32.
 RTOL = 1e-5
@@ -54,11 +58,11 @@ def slice_runs():
     (_, (res_j, hist_j)), g_j = jax.value_and_grad(loss, has_aux=True)(jnp.asarray(absorption))
     jax_out = jax.tree.map(np.asarray, (res_j, hist_j, g_j))
 
-    scene = scene_from_numpy({k: np.asarray(v) for k, v in sp.scene._asdict().items()})
+    scene = scene_from_numpy({k: np.asarray(v) for k, v in sp.scene._asdict().items()}, device=CPU)
     g = sp.struct
     grid = grid_from_numpy(
         {k: np.asarray(getattr(g, k)) for k in ("cell_meta", "win_data", "grid_min", "voxel_size")},
-        g.dims, g.char_step, g.max_cell_wins, g.n_tris,
+        g.dims, g.char_step, g.max_cell_wins, g.n_tris, device=CPU,
     )
     a_t = torch.tensor(absorption, requires_grad=True)
     res_t = th.trace_rays(
@@ -133,7 +137,7 @@ def test_edge_reflection_excludes_coplanar_neighbor(rng):
     shared diagonal of two coplanar floor polygons never re-hit either at
     tiny t on the next bounce."""
     top = th.Topology.build(shapes.shoebox(4, 5, 3))
-    sp = th.SpatialPartition(top, accel="grid", domain=4)
+    sp = th.SpatialPartition(top, accel="grid", domain=4, device=CPU)
     v = sp.scene.vertices.numpy()
     tv = sp.scene.tri_v.numpy()[: top.n_tris]
     tp = sp.scene.tri_poly.numpy()
@@ -164,9 +168,9 @@ def test_edge_reflection_excludes_coplanar_neighbor(rng):
 
 def test_uniform_sphere():
     g = torch.Generator().manual_seed(0)
-    d = th.uniform_sphere(4096, g)
+    d = th.uniform_sphere(4096, g, device=CPU)
     assert d.shape == (4096, 3) and d.dtype == torch.float32
     np.testing.assert_allclose(d.norm(dim=-1).numpy(), 1.0, rtol=1e-5)
     assert abs(d.mean(0)).max() < 0.05  # uniform: no preferred direction
-    again = th.uniform_sphere(4096, torch.Generator().manual_seed(0))
+    again = th.uniform_sphere(4096, torch.Generator().manual_seed(0), device=CPU)
     assert torch.equal(d, again)

@@ -7,6 +7,8 @@ shoot on identical scene tables (the JAX tree shoots themselves are held
 against through the facade, ``tests/test_torch_partition.py``).
 """
 
+from functools import partial
+
 import numpy as np
 import pytest
 
@@ -26,6 +28,10 @@ from hare_tpu_torch.accel import kdtree, octree, ropes, tree  # noqa: E402
 from hare_tpu_torch.accel.brute import shoot_brute  # noqa: E402
 from hare_tpu_torch.convert import ropes_from_numpy, scene_from_numpy, tree_from_numpy  # noqa: E402
 from hare_tpu_torch.mesh import shapes  # noqa: E402
+
+# The port's entry points place tensors on "cuda" unless told otherwise;
+# these tests run the plain versions on the CPU.
+CPU = "cpu"
 
 # Port against JAX brute: the same f32 test, re-solved by two compilers.
 RTOL, ATOL = 1e-5, 1e-6
@@ -69,7 +75,7 @@ def scenes():
     for name, (faces, _) in SCENES.items():
         jt, tt = jh.Topology.build(faces(jshapes)), th.Topology.build(faces(shapes))
         jsc = jt.scene()
-        out[name] = (jt, tt, jsc, scene_from_numpy({k: np.asarray(v) for k, v in jsc._asdict().items()}))
+        out[name] = (jt, tt, jsc, scene_from_numpy({k: np.asarray(v) for k, v in jsc._asdict().items()}, device=CPU))
     return out
 
 
@@ -91,7 +97,7 @@ def test_tables_bit_equal(scenes, scene, kind):
     rows = tab["node_rows"]
     irows = rows.view(np.int32)
     if kind.startswith("ropes"):
-        st = ropes.KDRopes.from_numpy(**tab)
+        st = ropes.KDRopes.from_numpy(**tab, device=CPU)
         np.testing.assert_array_equal(st.node[:, 0].numpy(), irows[:, 0] >> 1)
         np.testing.assert_array_equal(st.node[:, 1].numpy(), irows[:, 0] & 1)
         np.testing.assert_array_equal(st.node[:, 2:].numpy(), irows[:, 2:4])
@@ -102,7 +108,7 @@ def test_tables_bit_equal(scenes, scene, kind):
         assert st.n_nodes == jtab.n_nodes
         assert st.max_steps == max(1, int(st.node[:-1, 1].sum())) * (st.max_depth + 1)
     else:
-        st = tree.TreeTables.from_numpy(**tab)
+        st = tree.TreeTables.from_numpy(**tab, device=CPU)
         K = tab["branch"]
         for c in range(3):
             np.testing.assert_array_equal(st.child_box[..., c].numpy(), rows[:, c * K:(c + 1) * K])
@@ -136,15 +142,15 @@ def agree(jsc, tsc, shoot_fn, o, d, ex=None, top_index=None, tie_share=MAX_TIE_S
 
 # (port builder, its keywords per scene — the JAX test's parameters)
 WALKS = {
-    "octree": (octree.build_octree, octree.shoot_octree, {
+    "octree": (partial(octree.build_octree, device=CPU), octree.shoot_octree, {
         "room": dict(max_depth=4, max_tris_per_node=4),
         "soup": dict(max_depth=6, max_tris_per_node=12),
         "hall": dict(max_depth=6, max_tris_per_node=16)}),
-    "kdtree": (kdtree.build_kdtree, kdtree.shoot_kdtree, {
+    "kdtree": (partial(kdtree.build_kdtree, device=CPU), kdtree.shoot_kdtree, {
         "room": dict(max_depth=8, max_tris_per_node=4),
         "soup": dict(max_depth=12, max_tris_per_node=12),
         "hall": dict(max_depth=14, max_tris_per_node=16)}),
-    "kdtree_ropes": (ropes.build_kdtree_ropes, ropes.shoot_kdtree_ropes, {
+    "kdtree_ropes": (partial(ropes.build_kdtree_ropes, device=CPU), ropes.shoot_kdtree_ropes, {
         "room": dict(max_depth=12, max_tris_per_node=8),
         "soup": dict(max_depth=12, max_tris_per_node=8),
         "hall": dict(max_depth=12, max_tris_per_node=8)}),
@@ -200,7 +206,7 @@ def test_walk_multi_topology(rng, which):
     top_index at test time."""
     faces = [lambda s: s.shoebox(), lambda s: s.icosphere(1, radius=0.8, center=(2.0, 2.5, 1.5))]
     jsc = jh.mesh.build_scene([jh.Topology.build(f(jshapes)) for f in faces])
-    tsc = scene_from_numpy({k: np.asarray(v) for k, v in jsc._asdict().items()})
+    tsc = scene_from_numpy({k: np.asarray(v) for k, v in jsc._asdict().items()}, device=CPU)
     tops = [th.Topology.build(f(shapes)) for f in faces]
     build, shoot, _ = WALKS[which]
     st = build(tops, max_depth=8, max_tris_per_node=8)
@@ -223,7 +229,7 @@ def test_walk_boundary_origin_parallel_ray(which):
     assert st.root_min[1].item() == 0.0
     if which != "octree":
         assert st.root_min[0].item() == 0.0
-    sc = top.scene()
+    sc = top.scene(device=CPU)
     o = [[0.0, -1.0, 1.5], [-1.0, 0.0, 1.5], [2.0, 2.5, 1.5], [2.0, 2.5, 1.5], [2.0, 0.0, 1.5]]
     d = [[0.0, 1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0], [-1.0, 0.0, 0.0], [0.0, 1.0, 0.0]]
     hr = shoot(sc, t_rays(o, d), st)
@@ -237,13 +243,13 @@ def test_root_leaf():
     """A scene that fits in one leaf: the pseudo-root holds one leaf child
     and nothing is pushed; the rope root is a leaf with six -1 ropes."""
     top = th.Topology.build(shapes.shoebox(4, 5, 3))
-    sc = top.scene()
+    sc = top.scene(device=CPU)
     rng = np.random.default_rng(2)
     o, d = rng.uniform(0.5, 2.5, (64, 3)), rand_dirs(rng, 64)
     ref = shoot_brute(sc, t_rays(o, d))
-    oc = octree.build_octree(top)  # 12 tris <= 16 per leaf
+    oc = octree.build_octree(top, device=CPU)  # 12 tris <= 16 per leaf
     assert oc.child_info[oc.pseudo_root, 0, 0].item() == -1  # the root is a leaf
-    kd = ropes.build_kdtree_ropes(top, max_tris_per_node=12)
+    kd = ropes.build_kdtree_ropes(top, max_tris_per_node=12, device=CPU)
     assert kd.n_nodes == 1 and (kd.ropes[0] == -1).all()
     for hr, pops in (octree.shoot_octree(sc, t_rays(o, d), oc, with_stats=True),
                      ropes.shoot_kdtree_ropes(sc, t_rays(o, d), kd, with_stats=True)):
@@ -257,12 +263,12 @@ def test_bounds_raise():
     top = th.Topology.build(shapes.random_soup(300, seed=17))
     rng = np.random.default_rng(3)
     rays = t_rays(rng.uniform(-1, 11, (64, 3)), rand_dirs(rng, 64))
-    kd = kdtree.build_kdtree(top, max_tris_per_node=4)
+    kd = kdtree.build_kdtree(top, max_tris_per_node=4, device=CPU)
     _, _, pops = tree.tree_shoot(rays, kd, with_stats=True)
     assert pops.max() > 3
     with pytest.raises(RuntimeError, match="stack"):
         tree.tree_shoot(rays, kd._replace(stack=2))
-    rp = ropes.build_kdtree_ropes(top, max_tris_per_node=4)
+    rp = ropes.build_kdtree_ropes(top, max_tris_per_node=4, device=CPU)
     _, _, steps = ropes.ropes_shoot(rays, rp, with_stats=True)
     assert steps.max() > 3
     with pytest.raises(RuntimeError, match="steps"):
@@ -274,9 +280,9 @@ def test_converted_tables_walk_alike(scenes, rng):
     ropes_from_numpy) walk exactly as the port-built ones."""
     jt, tt, _, tsc = scenes["soup"]
     rays = t_rays(rng.uniform(-1, 11, (128, 3)), rand_dirs(rng, 128))
-    a = tree_from_numpy(j_build_octree(jt))
-    b = ropes_from_numpy(j_build_ropes(jt))
-    for ours, conv, shoot in ((octree.build_octree(tt), a, tree.tree_shoot),
-                              (ropes.build_kdtree_ropes(tt), b, ropes.ropes_shoot)):
+    a = tree_from_numpy(j_build_octree(jt), device=CPU)
+    b = ropes_from_numpy(j_build_ropes(jt), device=CPU)
+    for ours, conv, shoot in ((octree.build_octree(tt, device=CPU), a, tree.tree_shoot),
+                              (ropes.build_kdtree_ropes(tt, device=CPU), b, ropes.ropes_shoot)):
         x, y = shoot(rays, ours), shoot(rays, conv)
         assert torch.equal(x[0], y[0]) and torch.equal(x[1], y[1])

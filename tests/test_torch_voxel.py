@@ -22,6 +22,10 @@ from hare_tpu_torch.accel.voxel import build_grid_tables, grid_shoot, shoot_grid
 from hare_tpu_torch.convert import grid_from_numpy, scene_from_numpy  # noqa: E402
 from hare_tpu_torch.mesh import shapes  # noqa: E402
 
+# The port's entry points place tensors on "cuda" unless told otherwise;
+# these tests run the plain versions on the CPU.
+CPU = "cpu"
+
 # Same nearest hit, re-solved in f32 by two compilers: a few ulps apart.
 RTOL = ATOL = 1e-5
 # Rays whose tri_id differs while both t agree (an equal-t tie between two
@@ -59,7 +63,7 @@ def test_host_tables_bit_equal(name):
         for a, b in zip(_grouped(getattr(tt, f)), _grouped(getattr(jt, f))):
             np.testing.assert_array_equal(a, b, err_msg=f)
 
-    js, ts = jt.scene(), tt.scene()
+    js, ts = jt.scene(), tt.scene(device=CPU)
     for f in ("vertices", "tri_v", "tri_poly", "tri_top", "poly_plane",
               "tri_edge_poly", "tri_meta"):
         np.testing.assert_array_equal(getattr(ts, f).numpy(), np.asarray(getattr(js, f)), err_msg=f)
@@ -75,7 +79,7 @@ def test_host_tables_bit_equal(name):
         assert tab[f] == getattr(jgrid, f), f
 
     # The tri-major repack keeps every row's triangles, order and ids.
-    g = th.accel.build_voxel_grid(tt, **grid_kw)
+    g = th.accel.build_voxel_grid(tt, device=CPU, **grid_kw)
     win = g.win_geom.shape[1]
     wd = tab["win_data"]
     np.testing.assert_array_equal(
@@ -93,10 +97,10 @@ def _tables(faces_fn, grid_kw):
     top = jh.Topology.build(faces_fn(jshapes))
     jsc = top.scene()
     jgrid = j_build_voxel_grid(top, **grid_kw)
-    tsc = scene_from_numpy({k: np.asarray(v) for k, v in jsc._asdict().items()})
+    tsc = scene_from_numpy({k: np.asarray(v) for k, v in jsc._asdict().items()}, device=CPU)
     tgrid = grid_from_numpy(
         {k: np.asarray(getattr(jgrid, k)) for k in ("cell_meta", "win_data", "grid_min", "voxel_size")},
-        jgrid.dims, jgrid.char_step, jgrid.max_cell_wins, jgrid.n_tris,
+        jgrid.dims, jgrid.char_step, jgrid.max_cell_wins, jgrid.n_tris, device=CPU,
     )
     return jsc, jgrid, tsc, tgrid
 
@@ -183,7 +187,7 @@ def test_top_index_parity(rng):
     sphere; each JAX top_index compiles its own shoot, so one is checked)."""
     faces = [lambda s: s.shoebox(), lambda s: s.icosphere(1, radius=0.8, center=(2.0, 2.5, 1.5))]
     jsp = jh.SpatialPartition([jh.Topology.build(f(jshapes)) for f in faces], domain=8)
-    tsp = th.SpatialPartition([th.Topology.build(f(shapes)) for f in faces], domain=8)
+    tsp = th.SpatialPartition([th.Topology.build(f(shapes)) for f in faces], domain=8, device=CPU)
     o = rng.uniform((0.5, 0.5, 0.5), (3.5, 4.5, 2.5), (100, 3)).astype(np.float32)
     d = rand_dirs(rng, 100).astype(np.float32)
     for ti in (1,):
@@ -208,7 +212,7 @@ def test_grid_boundary_origin_parallel_ray():
     port: an origin exactly ON the grid's min-x face (pad=0), moving
     parallel to it from outside, still finds the y=0 wall at t = 1."""
     top = th.Topology.build(shapes.shoebox(4, 5, 3))
-    sp = th.SpatialPartition(top, domain=4, pad=0.0)
+    sp = th.SpatialPartition(top, domain=4, pad=0.0, device=CPU)
     assert sp.struct.grid_min[0].item() == 0.0
     hr = sp.shoot(th.Ray.make(torch.tensor([[0.0, -1.0, 1.5]]), torch.tensor([[0.0, 1.0, 0.0]])))
     assert bool(hr.hit[0])
