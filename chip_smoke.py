@@ -15,9 +15,9 @@ per-polygon absorption, on the card.  Phases, one line each:
    from torch.profiler, and its bound (``hare_tpu_torch.benchmarks.
    bounds``: the least time the card could take for the same work).  K1
    runs on the rays of each of the 3 bounces of one trace, against its
-   plain version and against B1 (bit-equal on the first bounce; on the
-   rays where the two differ later, the float64 oracle must side with K1
-   at least as often as with B1), with the cells and triangle slots its
+   plain version (bit-equal) and against B1 (bit-equal on the first
+   bounce; on the rays where the two differ later, the float64 oracle must
+   side with K1 at least as often as with B1), with the cells and triangle slots its
    march visits (``voxel.grid_work``), its bound and its share of it, and
    the wrapper's host cost per call;
 4. the main path end to end, with its launch counts and invariants;
@@ -30,10 +30,13 @@ per-polygon absorption, on the card.  Phases, one line each:
    version, time per call and on the device, ns per gathered row and GB/s.
 7. the other backends: the host builds of the octree, KD tree and rope
    tree; B1 ``brute_shoot``, B2 ``tree_shoot`` and B3 ``ropes_shoot``
-   against their plain versions at each path's full width (B2 on the bench
-   scene and on config 3's hall) and B1 against the float64 oracle; B2
-   and B3 against B1 on the bench scene's first bounce; the main path
-   through ``octree``, ``kdtree`` and ``kdtree_ropes`` on the bench scene,
+   against their plain versions, bit-equal, at each path's full width (B2
+   and B3 on the rays of each of the 3 bounces of the bench scene, with
+   device time, pops or steps and bound per bounce; B2 on config 3's hall;
+   B1 on config 1, timed, and on the bench scene) and B1 against the
+   float64 oracle; B2 and B3 against B1 on the bench scene's first bounce;
+   the main path through ``octree``, ``kdtree`` and ``kdtree_ropes`` on the
+   bench scene,
    ``octree`` on the reference's eval config 3 (concert hall, 1M rays,
    fwd+bwd) and ``brute`` on eval config 1 (shoebox, 10k rays, fwd), each
    counted, checked and held against the plain versions on the CPU for a
@@ -53,11 +56,12 @@ import time
 import torch
 
 N_RAYS, N_BOUNCES, N_BINS, BIN_DT, ABSORPTION = 1 << 15, 3, 1024, 1e-3, 0.3
-# Kernel vs plain version: the same f32 arithmetic, with some of it
-# contracted into FMAs by nvcc — a few ulps.
+# Each traversal kernel agrees with its plain version to the bit
+# (same_bits).  Against B1, whose table rounds the edges otherwise, and for
+# K2's u, v, point and normal: within RTOL / ATOL.
 RTOL, ATOL = 1e-5, 1e-5
-# Rays whose winning triangle differs between K1 and its plain version may
-# only be equal-t ties (|dt| within RTOL), and at most this share of rays.
+# Rays whose winning triangle differs between a traversal and B1 may only be
+# equal-t ties (|dt| within RTOL), and at most this share of rays.
 MAX_TIE_SHARE = 1e-3
 # K3 adds with float atomics in a varying order: per-bin sums agree to f32
 # rounding, measured relative to the histogram total.
@@ -92,33 +96,40 @@ def timed_once(fn):
     return out, start.elapsed_time(end)
 
 
-def device_kernels(fn, reps=1):
-    """Run ``fn()`` ``reps`` times under torch.profiler, after one warm-up
-    call; returns {kernel name: (device microseconds, launches)} summed over
-    the calls the profiler recorded."""
+def launch_ms(fn, reps, tag):
+    """Device ms of one call of ``fn()`` in the kernels whose name contains
+    ``tag``, each launched once a call: for each such name, the mean over
+    its launches the profiler recorded in ``reps`` calls (it now and then
+    drops one, which leaves the mean of like launches unbiased), summed.
+    Fails where the profiler recorded nothing (``bench_scene.
+    profile_kernels``) or no launch of ``tag``."""
     from hare_tpu_torch.benchmarks.bench_scene import profile_kernels
 
-    return profile_kernels(fn, reps)
+    times = profile_kernels(fn, reps)
+    means = [t / k for name, (t, k) in times.items() if tag in name]
+    check(len(means) > 0, f"the profiler recorded no launch of {tag}")
+    check(all(k <= reps for name, (_, k) in times.items() if tag in name),
+          f"{tag} names a kernel launched more than once a call")
+    return sum(means) / 1e3
 
 
-def launch_ms(times, tag, per_call=1):
-    """Device ms of one call of the kernels whose name contains ``tag``,
-    ``per_call`` launches a call: a mean over the launches recorded, so a
-    call the profiler dropped does not bias it."""
-    us = sum(t for name, (t, _) in times.items() if tag in name)
-    n = sum(k for name, (_, k) in times.items() if tag in name)
-    check(n > 0, f"the profiler recorded no launch of {tag}")
-    return us / n * per_call / 1e3
+def all_kernels_ms(fn, reps):
+    """Device ms of all the kernels one call of ``fn()`` launches, over
+    ``reps`` calls."""
+    from hare_tpu_torch.benchmarks.bench_scene import profile_kernels
+
+    return sum(t for t, _ in profile_kernels(fn, reps).values()) / reps / 1e3
 
 
-def step_ms(times, tag, per_step=1):
-    """Device ms of one step: all recorded kernel time over the steps
-    recorded, counted as the launches of ``tag`` (``per_step`` a step);
-    and the same for the kernels named ``*tag*``."""
-    steps = sum(k for name, (_, k) in times.items() if tag in name) / per_step
-    check(steps > 0, f"the profiler recorded no launch of {tag}")
-    return sum(t for t, _ in times.values()) / steps / 1e3, {
-        name: t / steps / 1e3 for name, (t, _) in times.items()}
+def step_ms(fn, reps):
+    """Device ms of one step ``fn()``: all the kernel time the profiler
+    recorded in ``reps`` steps, over ``reps``; and the same for each kernel
+    name."""
+    from hare_tpu_torch.benchmarks.bench_scene import profile_kernels
+
+    times = profile_kernels(fn, reps)
+    return sum(t for t, _ in times.values()) / reps / 1e3, {
+        name: t / reps / 1e3 for name, (t, _) in times.items()}
 
 
 def kernel_ms(per_name_ms, tag):
@@ -140,13 +151,12 @@ def gather_phase(label, tab, idx, iters, out_dtype, call_ms):
         check(pp.sums_agree(k, p, pp.gather_sum_plain(tab.abs(), idx, iters)),
               f"{label}: gather_sum differs from its plain version beyond the f32 bound")
     err = float((k.double() - p.double()).abs().max())
-    dev_ms = launch_ms(device_kernels(lambda: pp.gather_sum(tab, idx, iters, out_dtype), 10),
-                       "gather_rows")
+    dev_ms = launch_ms(lambda: pp.gather_sum(tab, idx, iters, out_dtype), 10, "gather_rows")
     def plain():
         return pp.gather_sum_plain(tab, idx, iters, out_dtype)
 
     plain_ms = cuda_time(plain, 5)
-    plain_dev_ms = sum(t for t, _ in device_kernels(plain, 3).values()) / 3 / 1e3
+    plain_dev_ms = all_kernels_ms(plain, 3)
     b = bounds.gather_sum_bound(tab, idx, iters, k.dtype)
     rows = idx.shape[0] * iters
     gbs = rows * tab.shape[1] * tab.element_size() / (dev_ms * 1e-3) / 1e9
@@ -184,14 +194,12 @@ def probe_phase(dev):
               f"P1 column_sum differs at {mb} MB (sums of ones are exact)")
         ms = cuda_time(lambda: pp.column_sum(x), 50)
         # Two launches a call: the bands' partial sums, then their fold.
-        dev_ms = launch_ms(device_kernels(lambda: pp.column_sum(x), 10), "column_sum", 2)
+        dev_ms = launch_ms(lambda: pp.column_sum(x), 10, "column_sum")
         plain_ms = cuda_time(lambda: pp.column_sum_plain(x), 50)
-        plain_dev_ms = sum(t for t, _ in device_kernels(
-            lambda: pp.column_sum_plain(x), 10).values()) / 10 / 1e3
+        plain_dev_ms = all_kernels_ms(lambda: pp.column_sum_plain(x), 10)
         # The one PyTorch call that computes P1's function: the yardstick.
         library_ms = cuda_time(lambda: torch.sum(x, 0), 50)
-        library_dev_ms = sum(t for t, _ in device_kernels(
-            lambda: torch.sum(x, 0), 10).values()) / 10 / 1e3
+        library_dev_ms = all_kernels_ms(lambda: torch.sum(x, 0), 10)
         b = bounds.column_sum_bound(*x.shape)
         gbs = x.numel() * 4 / (dev_ms * 1e-3) / 1e9
         by_mb[mb] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
@@ -275,6 +283,16 @@ def host_time(fn, reps=10):
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t) / reps * 1e3
+
+
+def same_bits(label, k, p):
+    """A kernel and its plain version on the same rays agree on every ray:
+    best_t to the bit, best_tri, and the pops or steps where given (the
+    kernels round as their plain versions do: ``-fmad=false``)."""
+    for what, a, b in zip(("best_t", "best_tri", "pops or steps"), k, p):
+        a, b = (x.view(torch.int32) if x.dtype == torch.float32 else x for x in (a, b))
+        differ = int((a != b).sum())
+        check(differ == 0, f"{label}: {what} differs from the plain version on {differ} rays")
 
 
 def nearest_agree(label, k, p):
@@ -398,9 +416,10 @@ def config_rays(th, origin, n, dev):
     return th.Ray.make(torch.tensor(origin, device=dev).expand(n, 3).contiguous(), d)
 
 
-def backends_phase(dev, top, grid_sp, rays, absorption, grid_hist):
+def backends_phase(dev, top, grid_sp, rays, batches, absorption, grid_hist):
     """Phase 7: the brute, octree, KD-tree and rope backends (B1-B3) on the
-    bench scene and on the reference's eval configs 1 and 3.  Returns the
+    bench scene (B2 and B3 on the rays ``batches`` of each bounce of the grid
+    path's trace) and on the reference's eval configs 1 and 3.  Returns the
     three kernels' records."""
     import hare_tpu_torch as th
     from hare_tpu_torch.accel import brute, common, ropes, tree
@@ -426,48 +445,71 @@ def backends_phase(dev, top, grid_sp, rays, absorption, grid_hist):
     octree, kdtree, kdropes = (sps[a].struct for a in ("octree", "kdtree", "kdtree_ropes"))
     scene = grid_sp.scene
 
-    # ---- 7.2 each kernel against its plain version, on the card.
-    walks = (  # (label, kernel, plain version, structure, device kernel name, ops a visit)
+    # ---- 7.2 each kernel against its plain version, on the card: B2 and B3
+    # on the rays of each bounce, with their bound counted from the plain
+    # walk's work (the leaves' runs it tests, the node rows it reads).
+    walks = (  # (label, kernel, plain version, structure, device kernel name, K or None)
         ("B2 tree_shoot octree", tree.tree_shoot, tree.tree_shoot_plain, octree,
-         "tree_shoot_kernel", octree.branch * bounds.SLAB_OPS),
+         "tree_shoot_kernel", octree.branch),
         ("B2 tree_shoot kdtree", tree.tree_shoot, tree.tree_shoot_plain, kdtree,
-         "tree_shoot_kernel", kdtree.branch * bounds.SLAB_OPS),
+         "tree_shoot_kernel", kdtree.branch),
         ("B3 ropes_shoot", ropes.ropes_shoot, ropes.ropes_shoot_plain, kdropes,
-         "ropes_shoot_kernel", bounds.EXIT_OPS),
+         "ropes_shoot_kernel", None),
     )
     walk_out, walk_rec = {}, {}
-    for label, fn, plain, st, tag, visit_ops in walks:
-        k = fn(rays, st, with_stats=True)
-        # The plain walk's work (the leaves' runs it tests, its pops or
-        # steps) is what the bound is counted from.
-        with common.tally_runs() as runs:
-            p = plain(rays, st, with_stats=True)
-        err, flips = nearest_agree(label, k, p)
-        slots, slots_touched = bounds.runs_work(runs, st.win_ids)
-        b = bounds.walk_bound(N_RAYS, slots, slots_touched, int(p[2].sum()), visit_ops)
-        walk_out[label] = k
-        ms = cuda_time(lambda: fn(rays, st), 10)
-        dev_ms = launch_ms(device_kernels(lambda: fn(rays, st), 10), tag)
-        plain_ms = cuda_time(lambda: plain(rays, st), 1)
-        steps = k[2].float()
-        walk_rec[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b["bound_ms"],
-                               bound_by=b["bound_by"], library_ms=None, device_ms=dev_ms)
-        print(f"phase 7 {label}: tri_id mismatches {flips} (equal-t ties), max |dt| {err:.3e}; "
-              f"kernel {ms:.4f} ms per call ({dev_ms:.4f} ms on the device), plain "
-              f"{plain_ms:.4f} ms; {'steps' if 'ropes' in label else 'pops'} per ray mean "
-              f"{float(steps.mean()):.2f}, max {int(steps.max())}; plain walk's work {slots} "
-              f"triangle slots ({slots / N_RAYS:.1f} a ray) of {slots_touched} distinct: bound "
-              f"{b['bound_ms']:.4f} ms ({b['bound_by']}), {b['bound_ms'] / dev_ms:.1%} of it")
+    for label, fn, plain, st, tag, branch in walks:
+        per_bounce = []
+        for b, r in enumerate(batches, 1):
+            n = r.origin.shape[0]
+            k = fn(r, st, with_stats=True)
+            with common.tally_runs() as runs, common.tally_rows() as rows:
+                p, plain_ms = timed_once(lambda: plain(r, st, with_stats=True))
+            same_bits(f"{label} bounce {b}", k, p)
+            bnd = bounds.walk_bound(n, runs, rows, st.win_ids, branch)
+            if b == 1:
+                walk_out[label] = k
+            ms = cuda_time(lambda: fn(r, st), 10)
+            dev_ms = launch_ms(lambda: fn(r, st), 10, tag)
+            visits = k[2].double()
+            per_bounce.append(dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, max_abs_err=0.0,
+                                   bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"],
+                                   visits_per_ray=float(visits.mean()),
+                                   slots_per_ray=bnd["slots"] / n, slots_touched=bnd["slots_touched"],
+                                   node_visits=bnd["node_visits"], node_bytes=bnd["node_bytes"]))
+            print(f"phase 7 {label} bounce {b}: bit-equal to its plain version, "
+                  f"{'steps' if branch is None else 'pops'} included; kernel {ms:.4f} ms per call "
+                  f"({dev_ms:.4f} ms on the device), plain {plain_ms:.3f} ms; "
+                  f"{'steps' if branch is None else 'pops'} per ray mean {float(visits.mean()):.2f}, "
+                  f"max {int(visits.max())}; plain walk's work {bnd['slots']} triangle slots "
+                  f"({bnd['slots'] / n:.1f} a ray) of {bnd['slots_touched']} distinct, "
+                  f"{bnd['node_visits']} {'leaf steps' if branch is None else 'node rows read'} "
+                  f"({bnd['node_bytes'] / 1e6:.3f} MB of distinct node rows): bound "
+                  f"{bnd['bound_ms']:.5f} ms ({bnd['bound_by']}: {bnd['ops'] / 1e9:.4f} GFLOP, "
+                  f"{bnd['bytes'] / 1e6:.3f} MB), {bnd['bound_ms'] / dev_ms:.2%} of it")
+        mean = {key: sum(x[key] for x in per_bounce) / len(per_bounce)
+                for key in ("ms", "device_ms", "plain_ms", "bound_ms")}
+        walk_rec[label] = dict(max_abs_err=0.0, **mean, library_ms=None,
+                               bound_by=max(per_bounce, key=lambda x: x["bound_ms"])["bound_by"],
+                               bounces=per_bounce)
+        print(f"phase 7 {label} mean of {len(batches)} bounces: {mean['ms']:.4f} ms per call "
+              f"({mean['device_ms']:.4f} ms on the device), bound {mean['bound_ms']:.5f} ms, "
+              f"{mean['bound_ms'] / mean['device_ms']:.2%} of it")
 
     # B1 on config 1 at full size (the bench scene's full width is in 7.3).
     room = th.Topology.build(shapes.shoebox(4, 5, 3))
     room_sc = room.scene(device=dev)
     c1_rays = config_rays(th, (2.0, 2.5, 1.5), 10_000, dev)
-    b1_err, flips = nearest_agree("B1 config 1", brute.brute_shoot(room_sc, c1_rays),
-                                  brute.brute_shoot_plain(room_sc, c1_rays))
-    print(f"phase 7 B1 brute_shoot config 1 ({c1_rays.origin.shape[0]} rays, "
-          f"{room_sc.tri_geom.shape[0]} triangle rows with padding): tri_id mismatches "
-          f"{flips}, max |dt| {b1_err:.3e}")
+    same_bits("B1 config 1", brute.brute_shoot(room_sc, c1_rays),
+              brute.brute_shoot_plain(room_sc, c1_rays))
+    c1_ms = cuda_time(lambda: brute.brute_shoot(room_sc, c1_rays), 50)
+    c1_dev_ms = launch_ms(lambda: brute.brute_shoot(room_sc, c1_rays), 20, "brute_shoot_kernel")
+    c1_plain_ms = cuda_time(lambda: brute.brute_shoot_plain(room_sc, c1_rays), 20)
+    c1_bound = bounds.brute_shoot_bound(c1_rays.origin.shape[0], room.n_tris)
+    print(f"phase 7 B1 brute_shoot config 1 ({c1_rays.origin.shape[0]} rays x {room.n_tris} tris, "
+          f"{room_sc.tri_geom.shape[0]} triangle rows with padding): bit-equal to its plain "
+          f"version; kernel {c1_ms:.4f} ms per call ({c1_dev_ms:.4f} ms on the device), plain "
+          f"{c1_plain_ms:.4f} ms; bound {c1_bound['bound_ms']:.6f} ms ({c1_bound['bound_by']}), "
+          f"{c1_bound['bound_ms'] / c1_dev_ms:.2%} of it")
     # B1 against the float64 oracle on 1,000 config-1 rays (tests/test_brute.py).
     o_np, d_np = (x[:1000].double().cpu().numpy() for x in (c1_rays.origin, c1_rays.direction))
     refs = [oracle_shoot(room, o_np[i], d_np[i]) for i in range(1000)]
@@ -487,15 +529,13 @@ def backends_phase(dev, top, grid_sp, rays, absorption, grid_hist):
     # ---- 7.3 every traversal against B1, the referee, on the bench scene.
     b1 = brute.brute_shoot(scene, rays)
     b1_ms = cuda_time(lambda: brute.brute_shoot(scene, rays), 3)
-    b1_dev_ms = launch_ms(device_kernels(lambda: brute.brute_shoot(scene, rays), 2),
-                          "brute_shoot_kernel")
+    b1_dev_ms = launch_ms(lambda: brute.brute_shoot(scene, rays), 2, "brute_shoot_kernel")
     b1_plain, b1_plain_ms = timed_once(lambda: brute.brute_shoot_plain(scene, rays))
-    err, flips = nearest_agree("B1 bench scene", b1, b1_plain)
-    b1_err = max(b1_err, err)
+    same_bits("B1 bench scene", b1, b1_plain)
     b1_bound = bounds.brute_shoot_bound(N_RAYS, top.n_tris)
     print(f"phase 7 B1 brute_shoot bench scene ({N_RAYS} rays x {top.n_tris} tris = "
-          f"{N_RAYS * top.n_tris / 1e9:.2f}e9 tests): tri_id mismatches {flips}, max |dt| "
-          f"{err:.3e}; {b1_ms:.3f} ms per call ({b1_dev_ms:.3f} ms on the device, "
+          f"{N_RAYS * top.n_tris / 1e9:.2f}e9 tests): bit-equal to its plain version; "
+          f"{b1_ms:.3f} ms per call ({b1_dev_ms:.3f} ms on the device, "
           f"{N_RAYS * top.n_tris / b1_dev_ms / 1e6:.1f} G tests/s); plain {b1_plain_ms:.3f} ms; "
           f"bound {b1_bound['bound_ms']:.4f} ms ({b1_bound['bound_by']}), "
           f"{b1_bound['bound_ms'] / b1_dev_ms:.1%} of it")
@@ -507,8 +547,7 @@ def backends_phase(dev, top, grid_sp, rays, absorption, grid_hist):
     rec_launch = {"brute": 0, "tree": 0, "ropes": 0}
     walk_fn = {"octree": tree.tree_shoot, "kdtree": tree.tree_shoot,
                "kdtree_ropes": ropes.ropes_shoot}
-    tags = {"octree": "tree_shoot_kernel", "kdtree": "tree_shoot_kernel",
-            "kdtree_ropes": "ropes_shoot_kernel", "brute": "brute_shoot_kernel"}
+    walk_label = dict(zip(("octree", "kdtree", "kdtree_ropes"), (label for label, *_ in walks)))
     per_shoot = {}
     fb_mrays = {}
     for accel, sp in sps.items():
@@ -536,17 +575,20 @@ def backends_phase(dev, top, grid_sp, rays, absorption, grid_hist):
             th.energy_histogram(r, N_BINS, BIN_DT).sum().backward()
 
         fwd_ms, fb_ms = host_time(fwd, 5), host_time(fwd_bwd, 5)
-        first = launch_ms(device_kernels(lambda: walk_fn[accel](rays, sp.struct), 5), tags[accel])
-        mean = launch_ms(device_kernels(fwd, 2), tags[accel])
-        busy, _ = step_ms(device_kernels(fwd_bwd, 3), "histogram_kernel")
+        # The walk's device time a shoot, from 7.2 (like launches on each
+        # bounce's rays, one profiled window a bounce).
+        rec = walk_rec[walk_label[accel]]
+        first, mean = rec["bounces"][0]["device_ms"], rec["device_ms"]
+        busy, _ = step_ms(fwd_bwd, 3)
         per_shoot[accel] = (first, mean)
         fb_mrays[accel] = N_RAYS * N_BOUNCES / fb_ms / 1e3
         print(f"phase 7 {accel} main path: launches {launches}; all {N_RAYS} rays hit on "
               f"{N_BOUNCES} bounces; histogram within {l1:.3f} (L1) of the grid path's; "
               f"grad sum {float(g.sum()):.4f}; {REF_RAYS}-ray CPU reference agrees")
-        print(f"phase 7 {accel} metric: shoot {first:.4f} ms on the device (bounce 1), "
+        print(f"phase 7 {accel} metric: shoot {first:.4f} ms on the device (bounce 1, 7.2), "
               f"{mean:.4f} ms (mean of {N_BOUNCES}); fwd {fwd_ms:.3f} ms, fwd+bwd {fb_ms:.3f} ms; "
-              f"{fb_mrays[accel]:.4f} Mrays/s fwd+bwd; idle share {1 - busy / fb_ms:.3f}")
+              f"{fb_mrays[accel]:.4f} Mrays/s fwd+bwd; device busy {busy:.4f} ms a fwd+bwd step, "
+              f"idle share {1 - busy / fb_ms:.3f}")
 
     print(f"phase 7 stack vs ropes (bench scene, same SAH KD tree): B2 stack {per_shoot['kdtree'][0]:.4f} "
           f"ms, B3 ropes {per_shoot['kdtree_ropes'][0]:.4f} ms per first-bounce shoot on the device "
@@ -561,14 +603,12 @@ def backends_phase(dev, top, grid_sp, rays, absorption, grid_hist):
     a3 = torch.full((hall.n_polys,), ABSORPTION, device=dev)
     # B2 against its plain version on the path's own first-bounce rays: the
     # hall's coplanar stage, balcony and wall faces are where ties happen.
-    k3 = tree.tree_shoot(r3, sp3.struct)
-    p3, p3_ms = timed_once(lambda: tree.tree_shoot_plain(r3, sp3.struct))
-    c3_err, c3_flips = nearest_agree("B2 tree_shoot config 3", k3, p3)
-    oct_r = walk_rec["B2 tree_shoot octree"]
-    oct_r["max_abs_err"] = max(oct_r["max_abs_err"], c3_err)
+    k3 = tree.tree_shoot(r3, sp3.struct, with_stats=True)
+    p3, p3_ms = timed_once(lambda: tree.tree_shoot_plain(r3, sp3.struct, with_stats=True))
+    same_bits("B2 tree_shoot config 3", k3, p3)
     print(f"phase 7 B2 tree_shoot config 3 (concert hall octree, max_depth "
-          f"{sp3.struct.max_depth}, 1M rays): tri_id mismatches {c3_flips} (equal-t ties), "
-          f"max |dt| {c3_err:.3e}; plain {p3_ms:.3f} ms")
+          f"{sp3.struct.max_depth}, stack bound {sp3.struct.stack}, 1M rays): bit-equal to its "
+          f"plain version, pops included; plain {p3_ms:.3f} ms")
     counters = (tree.tree_shoot, common.finalize_hits, th.energy_histogram)
     res3, _, launches, g3 = drive(th, sp3, r3, a3, N_BINS, counters, True, False)
     rec_launch["tree"] += launches[0]
@@ -609,8 +649,10 @@ def backends_phase(dev, top, grid_sp, rays, absorption, grid_hist):
     return [
         dict(name="brute_shoot", route="cuda", source=src + "brute_shoot.cu",
              replaces="hare_tpu/accel/brute.py:63", launches=rec_launch["brute"],
-             max_abs_err=b1_err, ms=b1_ms, plain_ms=b1_plain_ms, bound_ms=b1_bound["bound_ms"],
-             bound_by=b1_bound["bound_by"], library_ms=None, device_ms=b1_dev_ms),
+             max_abs_err=0.0, ms=c1_ms, plain_ms=c1_plain_ms, bound_ms=c1_bound["bound_ms"],
+             bound_by=c1_bound["bound_by"], library_ms=None, device_ms=c1_dev_ms,
+             bench_referee=dict(ms=b1_ms, device_ms=b1_dev_ms, plain_ms=b1_plain_ms,
+                                bound_ms=b1_bound["bound_ms"], bound_by=b1_bound["bound_by"])),
         dict(name="tree_shoot", route="cuda", source=src + "tree_shoot.cu",
              replaces="hare_tpu/accel/tree.py:249", launches=rec_launch["tree"],
              max_abs_err=max(oct_r["max_abs_err"], kd_r["max_abs_err"]),
@@ -667,10 +709,11 @@ def main():
     # K1 on the rays of each bounce of one trace: against its plain version
     # and against B1, timed, and beside its bound from the plain march's work.
     per_bounce = []
-    for b, r in enumerate(bench_scene.bounce_rays(sp, rays, absorption), 1):
+    batches = bench_scene.bounce_rays(sp, rays, absorption)
+    for b, r in enumerate(batches, 1):
         k, p = voxel.grid_shoot(r, grid), voxel.grid_shoot_plain(r, grid)
         plain_ms = cuda_time(lambda: voxel.grid_shoot_plain(r, grid), 1)
-        err, flips = nearest_agree(f"K1 bounce {b}", k, p)
+        same_bits(f"K1 bounce {b}", k, p)
         check(bool(torch.isfinite(k[0]).all()), f"K1: a bounce-{b} ray missed in the closed room")
         # B1 reads scene.tri_geom, whose edges are differences of f32
         # corners; K1's window rows hold f64 differences rounded once.  The
@@ -684,19 +727,19 @@ def main():
             check(b1_err == 0.0 and b1_flips == 0, "K1 differs from B1 on the first bounce")
         side = oracle_side(f"K1 vs B1 bounce {b}", top, r, k, b1, differ)
         ms = cuda_time(lambda: voxel.grid_shoot(r, grid), 20)
-        dev_ms = launch_ms(device_kernels(lambda: voxel.grid_shoot(r, grid), 10),
+        dev_ms = launch_ms(lambda: voxel.grid_shoot(r, grid), 10,
                            "grid_shoot_kernel")
         work = voxel.grid_work(r, grid)
         bnd = bounds.grid_shoot_bound(work)
         cells, slots = work.cells.double(), work.slots.double()
-        per_bounce.append(dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, max_abs_err=err,
-                               tie_flips=flips, b1_max_abs_dt=b1_err, b1_flips=b1_flips,
+        per_bounce.append(dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, max_abs_err=0.0,
+                               b1_max_abs_dt=b1_err, b1_flips=b1_flips,
                                b1_beyond_tol=b1_off, oracle=side,
                                bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"],
                                slots_per_ray=float(slots.mean()),
                                cells_per_ray=float(cells.mean())))
-        print(f"phase 3 K1 grid_shoot bounce {b}: against its plain version tri_id mismatches "
-              f"{flips} (equal-t ties), max |dt| {err:.3e}; against B1 tri_id flips {b1_flips}, "
+        print(f"phase 3 K1 grid_shoot bounce {b}: bit-equal to its plain version; against B1 "
+              f"tri_id flips {b1_flips}, "
               f"max |dt| {b1_err:.3e}, rays beyond |dt| <= {ATOL} + {RTOL} t {b1_off}; on those "
               f"{side['rays']} rays the float64 oracle matches K1 on {side['k1_match']} and B1 on "
               f"{side['b1_match']} (t within {ORACLE_ATOL}), K1 nearer on {side['k1_nearer']}, "
@@ -736,8 +779,8 @@ def main():
         errs[f] = float((a - b).abs().max())
         check(torch.allclose(a, b, rtol=RTOL, atol=ATOL), f"K2 {f} differs by {errs[f]}")
     ms = cuda_time(lambda: common.finalize_hits(sp.scene, rays, bt_k, btri_k), 50)
-    dev_ms = launch_ms(device_kernels(
-        lambda: common.finalize_hits(sp.scene, rays, bt_k, btri_k), 10), "finalize_kernel")
+    dev_ms = launch_ms(lambda: common.finalize_hits(sp.scene, rays, bt_k, btri_k), 10,
+                       "finalize_kernel")
     plain_ms = cuda_time(lambda: common.finalize_hits_plain(sp.scene, rays, bt_k, btri_k), 20)
     bnd = bounds.finalize_hits_bound(btri_k)
     print("phase 3 K2 finalize_hits: max |diff| " +
@@ -764,7 +807,7 @@ def main():
         return bounce.histogram_kernel(res.energy, res.time, res.hit, N_BINS, BIN_DT)
 
     ms = cuda_time(k3, 100)
-    dev_ms = launch_ms(device_kernels(k3, 10), "histogram_kernel")
+    dev_ms = launch_ms(k3, 10, "histogram_kernel")
     plain_ms = cuda_time(
         lambda: bounce.histogram_plain(res.energy, res.time, res.hit, N_BINS, BIN_DT), 100)
     bnd = bounds.histogram_bound(res.hit, N_BINS)
@@ -849,7 +892,7 @@ def main():
           f"(82k-tri scene, grid DDA, 3-bounce, {N_RAYS} rays)")
 
     # Where one fwd+bwd step's device time goes, and how idle the card is.
-    busy, per_name = step_ms(device_kernels(fwd_bwd, 3), "histogram_kernel")
+    busy, per_name = step_ms(fwd_bwd, 3)
     parts = {k: kernel_ms(per_name, tag) for k, tag in (
         ("K1", "grid_shoot_kernel"), ("K2", "finalize_kernel"), ("K3", "histogram_kernel"))}
     print(f"phase 5 device time per fwd+bwd step: busy {busy:.4f} ms of {fb_ms:.3f} ms "
@@ -861,7 +904,7 @@ def main():
     records += probe_phase(dev)
 
     # ---- phase 7: the brute, octree, KD-tree and rope backends.
-    records += backends_phase(dev, top, sp, rays, absorption, hist.detach())
+    records += backends_phase(dev, top, sp, rays, batches, absorption, hist.detach())
 
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

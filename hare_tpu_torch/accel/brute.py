@@ -34,7 +34,7 @@ from .common import (
     key_to_hit,
 )
 
-__all__ = ["brute_shoot", "brute_shoot_plain", "shoot_brute"]
+__all__ = ["brute_shoot", "brute_shoot_args", "brute_shoot_plain", "shoot_brute"]
 
 
 def brute_shoot(
@@ -63,17 +63,32 @@ def brute_shoot(
         raise ValueError("brute_shoot: scene.tri_geom / tri_meta shapes disagree")
     best_t = torch.empty(n, dtype=torch.float32, device=o.device)
     best_tri = torch.empty(n, dtype=torch.int32, device=o.device)
+    args = brute_shoot_args(scene, rays, best_t, best_tri, kernel, min_t, top_index)
     brute_shoot.launches += 1
-    build.launch(
-        "hare_brute_shoot", o.contiguous(), d.contiguous(), ex.contiguous(), n,
-        scene.tri_geom.contiguous(), scene.tri_meta.contiguous(), n_tris,
-        float(min_t), -1 if top_index is None else int(top_index),
-        int(kernel == "mt"), best_t, best_tri,
-    )
+    build.launch("hare_brute_shoot", *args)
     return best_t, best_tri
 
 
 brute_shoot.launches = 0
+
+
+def brute_shoot_args(
+    scene: Scene,
+    rays: Ray,
+    best_t: torch.Tensor,
+    best_tri: torch.Tensor,
+    kernel: str = "watertight",
+    min_t: float = MIN_T,
+    top_index: Optional[int] = None,
+) -> tuple:
+    """The arguments of the C entry point ``hare_brute_shoot`` up to the
+    outputs (tensors as tensors, for :func:`~..kernels.build.launch`); the
+    stream follows."""
+    o, d, ex = rays.origin, rays.direction, rays.exclude_poly
+    return (o.contiguous(), d.contiguous(), ex.contiguous(), o.shape[0],
+            scene.tri_geom.contiguous(), scene.tri_meta.contiguous(), scene.tri_geom.shape[0],
+            float(min_t), -1 if top_index is None else int(top_index),
+            int(kernel == "mt"), best_t, best_tri)
 
 
 def brute_shoot_plain(

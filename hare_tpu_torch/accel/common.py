@@ -15,7 +15,7 @@ equal t, the lowest triangle id — the JAX tie rule (``common.py:224-242``).
 from __future__ import annotations
 
 from contextlib import contextmanager
-from typing import Iterator, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,8 +35,11 @@ __all__ = [
     "finalize_hits_plain",
     "hit_key",
     "key_to_hit",
+    "note_rows",
     "pack_windows",
+    "ray_counter",
     "repack_windows",
+    "tally_rows",
     "tally_runs",
     "test_runs",
     "test_windows",
@@ -49,6 +52,10 @@ NO_HIT_KEY = (1 << 63) - 1
 KERNELS = ("watertight", "mt")
 # The list :func:`tally_runs` collects into, or None.
 _tally: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = None
+# The (table, rows) pairs :func:`tally_rows` collects into, or None.
+_rows: Optional[List[Tuple[str, torch.Tensor]]] = None
+# The persistent launches' ray counters, by (device index, raw stream).
+_RAY_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def pack_windows(
@@ -281,6 +288,43 @@ def tally_runs() -> Iterator[List[Tuple[torch.Tensor, torch.Tensor]]]:
         yield _tally
     finally:
         _tally = outer
+
+
+def note_rows(table: str, rows: torch.Tensor) -> None:
+    """Record that a plain walk read ``rows`` of its table ``table``, when a
+    :func:`tally_rows` block is open."""
+    if _rows is not None:
+        _rows.append((table, rows.to(torch.int64)))
+
+
+@contextmanager
+def tally_rows() -> Iterator[List[Tuple[str, torch.Tensor]]]:
+    """Collect the node rows the plain tree and rope walks read inside the
+    block, as ``(table name, row indices)`` pairs (a row once per read):
+    with :func:`tally_runs`, the work ``benchmarks/bounds.py`` computes the
+    walks' bounds from."""
+    global _rows
+    outer, _rows = _rows, []
+    try:
+        yield _rows
+    finally:
+        _rows = outer
+
+
+def ray_counter(device: torch.device) -> torch.Tensor:
+    """The ray counter of the persistent launches (K1, B2 and B3,
+    ``kernels/csrc/persistent.cuh``) on ``device`` for the current stream:
+    two zeroed ints, made once per (device, stream) and left at zero by
+    every launch.  Launches on one stream run in turn, so the three kernels
+    share it."""
+    # The raw stream handle, without the Stream object that
+    # torch.cuda.current_stream builds: that costs several microseconds of
+    # host time a call, on a path the host already bounds.
+    key = (device.index, torch._C._cuda_getCurrentRawStream(device.index))
+    counter = _RAY_COUNTERS.get(key)
+    if counter is None:
+        counter = _RAY_COUNTERS[key] = torch.zeros(2, dtype=torch.int32, device=device)
+    return counter
 
 
 def _check_no_grad(scene: Scene, rays: Ray) -> None:

@@ -21,7 +21,7 @@ Row n is the JAX terminal row (a leaf with no windows, an unbounded box and
 all ropes -1); the port's walks stop a ray instead of parking it there.
 
 Traversal: :func:`ropes_shoot` is B3 (``kernels/csrc/ropes_shoot.cu``, one
-thread per ray carrying ``(node, t, position)``) for CUDA tensors and
+group of lanes per ray carrying ``(node, t, position)``) for CUDA tensors and
 :func:`ropes_shoot_plain` — the same walk, lockstep over the active rays —
 for CPU tensors.  At an inner node a ray descends one level by comparing
 its position with the split, ties to the direction's sign; at a leaf it
@@ -57,7 +57,9 @@ from .common import (
     check_rays,
     finalize_hits,
     key_to_hit,
+    note_rows,
     pack_windows,
+    ray_counter,
     repack_windows,
     test_runs,
 )
@@ -69,6 +71,7 @@ __all__ = [
     "build_kdtree_ropes",
     "build_kdtree_ropes_tables",
     "ropes_shoot",
+    "ropes_shoot_args",
     "ropes_shoot_plain",
     "shoot_kdtree_ropes",
 ]
@@ -361,23 +364,41 @@ def ropes_shoot(
     best_tri = torch.empty(n, dtype=torch.int32, device=dev)
     steps = torch.empty(n, dtype=torch.int32, device=dev) if with_stats else None
     err = torch.zeros(1, dtype=torch.int32, device=dev)
-    fparams = (ctypes.c_float * 8)(*tree.host_params, ENTRY_EPS * tree.char_step, min_t)
-    iparams = (ctypes.c_int * 4)(
-        tree.win_geom.shape[1], tree.max_steps,
-        -1 if top_index is None else int(top_index), int(kernel == "mt"),
-    )
+    args = ropes_shoot_args(rays, tree, best_t, best_tri, steps, err, kernel, min_t, top_index)
     ropes_shoot.launches += 1
-    build.launch(
-        "hare_ropes_shoot", o.contiguous(), d.contiguous(), ex.contiguous(), n,
-        tree.node, tree.split, tree.box, tree.leaf_win, tree.ropes,
-        tree.win_geom, tree.win_ids, fparams, iparams, best_t, best_tri, steps, err,
-    )
+    build.launch("hare_ropes_shoot", *args, ray_counter(dev))
     if int(err.item()):
         raise _step_overflow(tree)
     return (best_t, best_tri, steps) if with_stats else (best_t, best_tri)
 
 
 ropes_shoot.launches = 0
+
+
+def ropes_shoot_args(
+    rays: Ray,
+    tree: KDRopes,
+    best_t: torch.Tensor,
+    best_tri: torch.Tensor,
+    steps: Optional[torch.Tensor],
+    err: torch.Tensor,
+    kernel: str = "watertight",
+    min_t: float = MIN_T,
+    top_index: Optional[int] = None,
+) -> tuple:
+    """The arguments of the C entry point ``hare_ropes_shoot`` up to the
+    outputs and the error flag (tensors as tensors, for
+    :func:`~..kernels.build.launch`; ``steps`` may be None); the ray counter
+    (:func:`~.common.ray_counter`) and the stream follow."""
+    o, d, ex = rays.origin, rays.direction, rays.exclude_poly
+    fparams = (ctypes.c_float * 8)(*tree.host_params, ENTRY_EPS * tree.char_step, min_t)
+    iparams = (ctypes.c_int * 4)(
+        tree.win_geom.shape[1], tree.max_steps,
+        -1 if top_index is None else int(top_index), int(kernel == "mt"),
+    )
+    return (o.contiguous(), d.contiguous(), ex.contiguous(), o.shape[0],
+            tree.node, tree.split, tree.box, tree.leaf_win, tree.ropes,
+            tree.win_geom, tree.win_ids, fparams, iparams, best_t, best_tri, steps, err)
 
 
 def ropes_shoot_plain(
@@ -393,7 +414,10 @@ def ropes_shoot_plain(
     window run, exit face, snap, rope), with the kernel's float conventions:
     ``where(d == 0, 1, d)`` for the reciprocal and ``t = inf`` for a zero
     component (``ropes.py:325-326,396-398``), positions as ``o + t * d``
-    rounded after the product and after the sum."""
+    rounded after the product and after the sum.  The rows it reads as the
+    kernel does (every step a ``"node"`` row, an inner step its ``"split"``,
+    a leaf step its ``"leaf_win"``, ``"box"`` and ``"ropes"`` rows) go to an
+    open :func:`~.common.tally_rows` block."""
     check_kernel(kernel)
     check_rays(rays)
     o, d, ex = rays.origin, rays.direction, rays.exclude_poly
@@ -422,6 +446,10 @@ def ropes_shoot_plain(
         steps[idx] += 1
         nd = tree.node[node]
         leaf = nd[:, 1] == 1
+        note_rows("node", node)
+        note_rows("split", node[~leaf])
+        for table in ("leaf_win", "box", "ropes"):
+            note_rows(table, node[leaf])
 
         # ---- inner nodes: one-level descent, ties to the direction's sign.
         ax = nd[:, 0:1].long()

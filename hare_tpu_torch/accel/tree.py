@@ -18,9 +18,9 @@ row (no children).  A missing child has an inverted box (+inf min, -inf
 max), id -1 and no windows.
 
 Traversal: :func:`tree_shoot` is B2 (``kernels/csrc/tree_shoot.cu``, one
-thread per ray with a stack of exact f32 ``(node, tmin)`` entries) for CUDA
-tensors, :func:`tree_shoot_plain` — the same walk, lockstep over the active
-rays — for CPU tensors.  Each ray pops a node, prunes it if its entry t
+ray per group of lanes with a stack of exact f32 ``(node, tmin)`` entries)
+for CUDA tensors, :func:`tree_shoot_plain` — the same walk, lockstep over
+the active rays — for CPU tensors.  Each ray pops a node, prunes it if its entry t
 exceeds the best hit, slab-tests the K children, tests the window run of
 each hit leaf child at once (best hit updated live), and pushes the hit
 inner children far-to-near, so the nearest pops first (the reference's
@@ -55,7 +55,9 @@ from .common import (
     check_rays,
     finalize_hits,
     key_to_hit,
+    note_rows,
     pack_windows,
+    ray_counter,
     repack_windows,
     test_runs,
 )
@@ -66,6 +68,7 @@ __all__ = [
     "collapse_levels",
     "shoot_tree",
     "tree_shoot",
+    "tree_shoot_args",
     "tree_shoot_plain",
 ]
 
@@ -73,7 +76,7 @@ __all__ = [
 N_COMP = 9
 # Branch factors the kernel is compiled for (octree 8, KD 2, KD levels=2 4).
 KERNEL_BRANCHES = (2, 4, 8)
-# The kernel's per-thread stack array; a larger bound S raises.
+# The largest stack bound S the kernel's launch takes; a larger S raises.
 KERNEL_MAX_STACK = 128
 
 
@@ -298,22 +301,40 @@ def tree_shoot(
     best_tri = torch.empty(n, dtype=torch.int32, device=dev)
     pops = torch.empty(n, dtype=torch.int32, device=dev) if with_stats else None
     err = torch.zeros(1, dtype=torch.int32, device=dev)
-    iparams = (ctypes.c_int * 6)(
-        tree.branch, tree.win_geom.shape[1], tree.pseudo_root, tree.stack,
-        -1 if top_index is None else int(top_index), int(kernel == "mt"),
-    )
+    args = tree_shoot_args(rays, tree, best_t, best_tri, pops, err, kernel, min_t, top_index)
     tree_shoot.launches += 1
-    build.launch(
-        "hare_tree_shoot", o.contiguous(), d.contiguous(), ex.contiguous(), n,
-        tree.child_box, tree.child_info, tree.win_geom, tree.win_ids,
-        float(min_t), iparams, best_t, best_tri, pops, err,
-    )
+    build.launch("hare_tree_shoot", *args, ray_counter(dev))
     if int(err.item()):
         raise _stack_overflow(tree)
     return (best_t, best_tri, pops) if with_stats else (best_t, best_tri)
 
 
 tree_shoot.launches = 0
+
+
+def tree_shoot_args(
+    rays: Ray,
+    tree: TreeTables,
+    best_t: torch.Tensor,
+    best_tri: torch.Tensor,
+    pops: Optional[torch.Tensor],
+    err: torch.Tensor,
+    kernel: str = "watertight",
+    min_t: float = MIN_T,
+    top_index: Optional[int] = None,
+) -> tuple:
+    """The arguments of the C entry point ``hare_tree_shoot`` up to the
+    outputs and the error flag (tensors as tensors, for
+    :func:`~..kernels.build.launch`; ``pops`` may be None); the ray counter
+    (:func:`~.common.ray_counter`) and the stream follow."""
+    o, d, ex = rays.origin, rays.direction, rays.exclude_poly
+    iparams = (ctypes.c_int * 6)(
+        tree.branch, tree.win_geom.shape[1], tree.pseudo_root, tree.stack,
+        -1 if top_index is None else int(top_index), int(kernel == "mt"),
+    )
+    return (o.contiguous(), d.contiguous(), ex.contiguous(), o.shape[0],
+            tree.child_box, tree.child_info, tree.win_geom, tree.win_ids,
+            float(min_t), iparams, best_t, best_tri, pops, err)
 
 
 def tree_shoot_plain(
@@ -332,6 +353,8 @@ def tree_shoot_plain(
     ``scatter_reduce(amin)`` after each), and pushes the hit inner children
     with ``tmin <= best_t`` far-to-near (ties: the higher child slot first,
     so the lower slot pops first) — the same per-ray sequence as the kernel.
+    The node rows it reads (one a pop that survives the prune) go to an open
+    :func:`~.common.tally_rows` block as table ``"child"``.
     """
     check_kernel(kernel)
     check_rays(rays)
@@ -359,6 +382,7 @@ def tree_shoot_plain(
         node, t_node = st_node[idx, top], st_t[idx, top]
         live = t_node <= best_t(idx)
         r, node = idx[live], node[live]
+        note_rows("child", node)
 
         # ---- slab test of the K children (NaN-propagating min/max).
         box = tree.child_box[node]  # (m, K, 8)

@@ -23,7 +23,7 @@ buffers, resume rounds or straggler tiers.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, NamedTuple, Optional, Sequence, Tuple, Union
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -42,6 +42,7 @@ from .common import (
     finalize_hits,
     key_to_hit,
     pack_windows,
+    ray_counter,
     repack_windows,
     test_runs,
 )
@@ -402,27 +403,11 @@ def grid_shoot(
     best_tri = torch.empty(n, dtype=torch.int32, device=o.device)
     args = grid_shoot_args(rays, grid, best_t, best_tri, kernel, min_t, top_index)
     grid_shoot.launches += 1
-    build.launch("hare_grid_shoot", *args, _ray_counter(o.device))
+    build.launch("hare_grid_shoot", *args, ray_counter(o.device))
     return best_t, best_tri
 
 
 grid_shoot.launches = 0
-_RAY_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
-
-
-def _ray_counter(device: torch.device) -> torch.Tensor:
-    """K1's ray counter on ``device`` for the current stream: two zeroed
-    ints, made once per (device, stream) and left at zero by every launch
-    (``grid_shoot.cu``); launches on one stream run in turn, so they can
-    share it."""
-    # The raw stream handle, without the Stream object that
-    # torch.cuda.current_stream builds: that costs several microseconds of
-    # host time a call, on a path the host already bounds.
-    key = (device.index, torch._C._cuda_getCurrentRawStream(device.index))
-    counter = _RAY_COUNTERS.get(key)
-    if counter is None:
-        counter = _RAY_COUNTERS[key] = torch.zeros(2, dtype=torch.int32, device=device)
-    return counter
 
 
 def grid_shoot_args(
@@ -436,7 +421,8 @@ def grid_shoot_args(
 ) -> tuple:
     """The arguments of the C entry point ``hare_grid_shoot`` up to the
     outputs ``best_t`` and ``best_tri`` (tensors as tensors, for
-    :func:`~..kernels.build.launch`); the ray counter (:func:`_ray_counter`)
+    :func:`~..kernels.build.launch`); the ray counter
+    (:func:`~.common.ray_counter`)
     and the stream follow."""
     o, d, ex = rays.origin, rays.direction, rays.exclude_poly
     fparams = (ctypes.c_float * 14)(

@@ -10,8 +10,9 @@ hand-written kernels of ``kernels/csrc/gather_probe.cu``::
 
 :mod:`.bench_scene` (the bench scene, each bounce's rays, profiler
 times) and :mod:`.bounds` (each kernel's bound) serve ``chip_smoke.py``;
-:mod:`.k1_sweep` times K1's design candidates, and :mod:`.k1_host` its
-wrapper's host cost, in this checkout or another.
+:mod:`.kernel_sweep` times the design candidates of the traversal kernels
+(K1, B1, B2, B3), and :mod:`.k1_host` K1's wrapper's host cost, in this
+checkout or another.
 
 ``import hare_tpu_torch`` does not import this package.
 """

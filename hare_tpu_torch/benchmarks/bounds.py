@@ -5,7 +5,8 @@ card's peak FP32 rate, and the bytes it must move (each input read once,
 each output written once) over the card's memory rate.  Where the work
 depends on the data, it is counted on the run's own inputs: K1's from
 :func:`~..accel.voxel.grid_work`, B2's and B3's from the runs their plain
-versions hand :func:`~..accel.common.test_runs`.  ``chip_smoke.py`` puts
+versions hand :func:`~..accel.common.test_runs` and the node rows they read
+(:func:`~..accel.common.tally_rows`).  ``chip_smoke.py`` puts
 each kernel's time beside its bound; the CPU tests check the counts.
 
 Operations are counted by hand from ``kernels/csrc``, at the fewest a test
@@ -14,13 +15,15 @@ shorter way): FP32 adds, subtracts, multiplies and reciprocals, one each (a
 contracted FMA counts as the two it replaces); compares, selects, min/max,
 absolute values and sign flips are not counted.  Bytes are those the
 function needs: of a window slot, its 9 geometry floats and 3 ids, not the
-padding of its 16-byte loads.  So the bound is a floor, not a count of
-issued instructions or of bytes loaded.
+padding of its 16-byte loads.  A tree's node rows count the same way, the
+fields the walk reads (B2: ``TREE_CHILD_BYTES`` a child; B3:
+``ROPE_ROW_BYTES`` a table row), each distinct row once.  So the bound is a
+floor, not a count of issued instructions or of bytes loaded.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
@@ -28,7 +31,9 @@ __all__ = [
     "EXIT_OPS",
     "PEAK_BYTES",
     "PEAK_FP32",
+    "ROPE_ROW_BYTES",
     "SLAB_OPS",
+    "TREE_CHILD_BYTES",
     "TRI_TEST_OPS",
     "bound",
     "brute_shoot_bound",
@@ -37,6 +42,7 @@ __all__ = [
     "gather_sum_bound",
     "grid_shoot_bound",
     "histogram_bound",
+    "rows_work",
     "runs_work",
     "walk_bound",
 ]
@@ -71,6 +77,14 @@ RAY_BYTES = 12 + 12 + 8  # origin, direction (f32), exclusions (2 x i32)
 NEAREST_BYTES = 4 + 4  # best_t (f32), best_tri (i32)
 SLOT_BYTES = 36 + 12  # one window slot: v0 | e1 | e2 (9 f32), tri | poly | top (3 i32)
 CELL_META_BYTES = 8  # one cell_meta entry (2 x i32)
+# One child of a B2 node row: its box (min.xyz, max.xyz: 6 f32 of 2 float4)
+# and its info (id, window start, window count: 3 i32 of 1 int4); a row is K
+# of them.
+TREE_CHILD_BYTES = 24 + 12
+# B3's node tables, bytes a row: node (axis, is_leaf, lo, hi), split, box
+# (min.xyz, max.xyz of 2 float4), leaf window (start, count), ropes (six
+# faces of 2 int4).
+ROPE_ROW_BYTES = {"node": 16, "split": 4, "box": 24, "leaf_win": 8, "ropes": 24}
 TRI_GEOM_BYTES = 36  # scene.tri_geom row (9 f32)
 TRI_META_BYTES = 32  # scene.tri_meta row (8 i32)
 # K2's hit record per ray: hit (bool), t, u, v, point (3), poly, tri,
@@ -117,17 +131,42 @@ def runs_work(runs: Iterable[Tuple[torch.Tensor, torch.Tensor]],
     return slots, int(live[covered].sum())
 
 
-def walk_bound(n_rays: int, slots: int, slots_touched: int, node_visits: int,
-               visit_ops: int, kernel: str = "watertight") -> Dict[str, object]:
-    """B2 or B3: ``slots`` triangle tests of ``slots_touched`` distinct
-    non-null slots (:func:`runs_work`), ``node_visits`` node pops or rope
-    steps of ``visit_ops`` operations each (``K * SLAB_OPS`` a pop,
-    ``EXIT_OPS`` a rope step); rays in, nearest hits out.  The node rows are
-    not counted in the bytes: their distinct count is not recorded, so this
-    bound is a floor below the tree's own."""
-    ops = slots * TRI_TEST_OPS[kernel] + node_visits * visit_ops
-    nbytes = n_rays * (RAY_BYTES + NEAREST_BYTES) + slots_touched * SLOT_BYTES
-    return bound(ops, nbytes)
+def rows_work(rows: Iterable[Tuple[str, torch.Tensor]],
+              row_bytes: Dict[str, int]) -> Tuple[Dict[str, int], int]:
+    """``({table: rows read}, bytes of the distinct rows)`` of the node rows
+    a plain walk read (:func:`~..accel.common.tally_rows`): a row counts once
+    per read in the first, once at ``row_bytes[table]`` in the second."""
+    by_table: Dict[str, list] = {}
+    for table, idx in rows:
+        by_table.setdefault(table, []).append(idx)
+    reads = {table: sum(int(i.numel()) for i in idx) for table, idx in by_table.items()}
+    nbytes = sum(int(torch.unique(torch.cat(idx)).numel()) * row_bytes[table]
+                 for table, idx in by_table.items())
+    return reads, nbytes
+
+
+def walk_bound(n_rays: int, runs, rows, win_ids: torch.Tensor, branch: Optional[int],
+               kernel: str = "watertight") -> Dict[str, object]:
+    """B2 (``branch`` = K) or B3 (``branch`` None) on the work a plain walk
+    tallied (:func:`~..accel.common.tally_runs`, :func:`~..accel.common.
+    tally_rows`): the ``slots`` triangle tests of ``slots_touched`` distinct
+    non-null slots (:func:`runs_work`); ``node_visits`` node visits (B2: the
+    rows read, ``K * SLAB_OPS`` operations each; B3: the leaf steps,
+    ``EXIT_OPS`` each); the ``node_bytes`` of the distinct node rows read
+    (:func:`rows_work`); rays in, nearest hits out.  Returns the bound with
+    those four counts."""
+    slots, touched = runs_work(runs, win_ids)
+    if branch is None:
+        reads, node_bytes = rows_work(rows, ROPE_ROW_BYTES)
+        visits, visit_ops = reads.get("box", 0), EXIT_OPS
+    else:
+        reads, node_bytes = rows_work(rows, {"child": branch * TREE_CHILD_BYTES})
+        visits, visit_ops = reads.get("child", 0), branch * SLAB_OPS
+    ops = slots * TRI_TEST_OPS[kernel] + visits * visit_ops
+    nbytes = n_rays * (RAY_BYTES + NEAREST_BYTES) + touched * SLOT_BYTES + node_bytes
+    out = bound(ops, nbytes)
+    out.update(slots=slots, slots_touched=touched, node_visits=visits, node_bytes=node_bytes)
+    return out
 
 
 def brute_shoot_bound(n_rays: int, n_tris: int, kernel: str = "watertight") -> Dict[str, object]:

@@ -4,9 +4,16 @@ All ``csrc/*.cu`` files compile into ONE shared library with a plain C
 interface.  Each source compiles in its own nvcc process, all started
 together, and one more links the objects::
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false \\
          -Xcompiler -fPIC -c -o <obj> csrc/<source>.cu      # one per source
     nvcc -shared -o hare_tpu_torch/_build/libhare_kernels_<hash>.so <objs>
+
+``-fmad=false``: nvcc would otherwise contract ``a * b + c`` into one fused
+multiply-add, rounded once, where each kernel's plain version (and the JAX
+package) rounds the product and the sum apart.  Without it the kernels'
+triangle tests, slab tests and DDA steps differ from their plain versions
+in the last bit, which flips equal-t ties and near-zero hits.  With it
+every kernel rounds each operation as its plain version does.
 
 The build runs at first use (a few seconds), and again whenever the hash of
 the sources and flags changes.  Nothing here runs at import time, so the
@@ -31,7 +38,7 @@ __all__ = ["NVCC_FLAGS", "library", "launch"]
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
     "-Xcompiler", "-fPIC",
 )
 
@@ -43,8 +50,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "hare_grid_shoot": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "hare_brute_shoot": [_P, _P, _P, _I, _P, _P, _I, _F, _I, _I, _P, _P, _P],
-    "hare_tree_shoot": [_P, _P, _P, _I, _P, _P, _P, _P, _F, _P, _P, _P, _P, _P, _P],
-    "hare_ropes_shoot": [_P, _P, _P, _I] + [_P] * 7 + [_P, _P, _P, _P, _P, _P, _P],
+    "hare_tree_shoot": [_P, _P, _P, _I, _P, _P, _P, _P, _F, _P, _P, _P, _P, _P, _P, _P],
+    "hare_ropes_shoot": [_P, _P, _P, _I] + [_P] * 7 + [_P, _P, _P, _P, _P, _P, _P, _P],
     "hare_finalize_hits": [_P, _P, _P, _P, _P, _P, _I, _I] + [_P] * 9 + [_P],
     "hare_energy_histogram": [_P, _P, _P, _LL, _I, _F, _P, _P],
     "hare_column_sum": [_P, _LL, _I, _I, _P, _P, _P],

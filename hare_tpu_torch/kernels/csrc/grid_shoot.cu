@@ -32,13 +32,14 @@
 // geometry together, neighbouring lanes on neighbouring slots, and a
 // shuffle reduction of the hit key (bits(t) << 32 | tri, the plain version's
 // own key) leaves every lane with the same best hit, so the early exit is
-// uniform.  The launch is persistent: as many blocks as fit at once, each
-// group taking its next ray from a counter, so no SM idles behind a slow
-// wave.  G = 16, 128 threads a block and the persistent launch were chosen
-// by measurement among G = 8, 16 and 32, 256 threads, one group per ray and
-// a prefetch of the next cell's meta (hare_tpu_torch/benchmarks/
-// k1_sweep.py, PERF.md §6).  The result is bit-equal to the
-// one-thread-per-ray kernel's.
+// uniform.  The launch is persistent (persistent.cuh, shared with B2 and
+// B3): as many blocks as fit at once, each group taking its next ray from a
+// counter, so no SM idles behind a slow wave.  G = 16, 128 threads a block
+// and the persistent launch were chosen by measurement among G = 8, 16 and
+// 32, 256 threads, one group per ray and a prefetch of the next cell's meta
+// (hare_tpu_torch/benchmarks/kernel_sweep.py, PERF.md §6).  The result is
+// bit-equal to the one-thread-per-ray kernel's, and, with -fmad=false
+// (kernels/build.py), to the plain version's.
 //
 // Semantics (all from the JAX code): entry at max(t_near, 0) + 1e-4*char_step
 // for outside rays; masked DDA step where ties advance several axes at once;
@@ -47,13 +48,13 @@
 // nearest t wins, equal t goes to the lowest triangle id.
 #include <limits>
 
+#include "persistent.cuh"
 #include "windows.cuh"
 
 namespace {
 
 constexpr int kGroup = 16;   // lanes per ray
 constexpr int kBlock = 128;  // threads per block
-static_assert(kGroup == 8 || kGroup == 16 || kGroup == 32, "G is 8, 16 or 32");
 static_assert(kBlock % 32 == 0, "whole warps per block");
 
 constexpr float kInf = std::numeric_limits<float>::infinity();
@@ -176,9 +177,8 @@ __device__ __forceinline__ void shoot_ray(int i, int lane, unsigned mask,
   }
 }
 
-// counter[0] is the next ray to take, counter[1] the groups that have
-// finished; both are 0 at launch, and the last group to finish sets them
-// back to 0 for the next launch on the stream.
+// The persistent launch (persistent.cuh): each group takes its next ray from
+// the counter until none is left.
 template <bool MT>
 __global__ void __launch_bounds__(kBlock)
 grid_shoot_kernel(const float* __restrict__ o, const float* __restrict__ d,
@@ -188,43 +188,24 @@ grid_shoot_kernel(const float* __restrict__ o, const float* __restrict__ d,
                   const int4* __restrict__ win_ids, const Grid g,
                   float* __restrict__ best_t_out, int* __restrict__ best_tri_out,
                   unsigned* __restrict__ counter) {
-  // Groups are aligned within the warp: lanes [base, base + G) hold one ray.
   const int lane = threadIdx.x % kGroup;
-  const unsigned mask = (kGroup == 32 ? 0xFFFFFFFFu : (1u << (kGroup % 32)) - 1u)
-                        << ((threadIdx.x % 32) - lane);
+  const unsigned mask = hare::group_mask<kGroup>();
   for (;;) {
-    unsigned next = 0;
-    if (lane == 0) next = atomicAdd(&counter[0], 1u);
-    const int i = static_cast<int>(__shfl_sync(mask, next, 0, kGroup));
+    const int i = hare::take_ray<kGroup>(counter, lane, mask);
     if (i >= n) break;  // the whole group
     shoot_ray<MT>(i, lane, mask, o, d, ex, cell_meta, win_geom, win_ids, g, best_t_out,
                   best_tri_out);
   }
-  // A group's last take from counter[0] has returned before it counts
-  // itself done, so the last group done is the last to touch either.
-  const unsigned groups = gridDim.x * (kBlock / kGroup);
-  __threadfence();
-  if (lane == 0 && atomicAdd(&counter[1], 1u) == groups - 1) {
-    atomicExch(&counter[0], 0u);
-    atomicExch(&counter[1], 0u);
-  }
+  hare::group_done<kGroup>(counter, lane);
 }
 
-// Blocks of the persistent launch: as many as the card holds at once, found
-// once per device and kernel.
 template <bool MT>
-int resident_blocks() {
-  constexpr int kMaxDevices = 64;
-  static int cached[kMaxDevices] = {};
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev < kMaxDevices && cached[dev] > 0) return cached[dev];
-  int sms = 0, per_sm = 0;
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, grid_shoot_kernel<MT>, kBlock, 0);
-  const int blocks = max(sms * per_sm, 1);
-  if (dev < kMaxDevices) cached[dev] = blocks;
-  return blocks;
+void launch(cudaStream_t s, const float* o, const float* d, const int* ex, int n,
+            const int2* meta, const float4* geom, const int4* ids, const Grid& g,
+            float* best_t, int* best_tri, unsigned* counter) {
+  const int blocks = hare::persistent_blocks(grid_shoot_kernel<MT>, n, kGroup, kBlock, 0);
+  grid_shoot_kernel<MT><<<blocks, kBlock, 0, s>>>(o, d, ex, n, meta, geom, ids, g, best_t,
+                                                  best_tri, counter);
 }
 
 }  // namespace
@@ -255,20 +236,13 @@ extern "C" int hare_grid_shoot(const float* o, const float* d, const int* ex, in
   const bool mt = iparams[5] != 0;
   if (n > 0) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const long long threads = static_cast<long long>(n) * kGroup;
-    const int ray_blocks = static_cast<int>((threads + kBlock - 1) / kBlock);
     const int2* meta = reinterpret_cast<const int2*>(cell_meta);
     const float4* geom = reinterpret_cast<const float4*>(win_geom);
     const int4* ids = reinterpret_cast<const int4*>(win_ids);
-    if (mt) {
-      const int blocks = min(ray_blocks, resident_blocks<true>());
-      grid_shoot_kernel<true><<<blocks, kBlock, 0, s>>>(o, d, ex, n, meta, geom, ids, g, best_t,
-                                                        best_tri, counter);
-    } else {
-      const int blocks = min(ray_blocks, resident_blocks<false>());
-      grid_shoot_kernel<false><<<blocks, kBlock, 0, s>>>(o, d, ex, n, meta, geom, ids, g, best_t,
-                                                         best_tri, counter);
-    }
+    if (mt)
+      launch<true>(s, o, d, ex, n, meta, geom, ids, g, best_t, best_tri, counter);
+    else
+      launch<false>(s, o, d, ex, n, meta, geom, ids, g, best_t, best_tri, counter);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,10 +2,13 @@
 //
 // Device twin of hare_tpu_torch/geom/intersect.py (kernel_components,
 // ray_aabb), itself the port of hare_tpu/geom/intersect.py:49-177 and
-// :228-256.  The arithmetic follows the plain version term by term.  nvcc
-// contracts a*b - c*d into FMAs (default -fmad=true); the watertight test's
-// band 8*FLT_EPSILON*(|u|+|v|+|w|) exists for exactly that, so a ray through
-// a shared edge is still accepted by at least one of its two triangles.
+// :228-256.  The arithmetic follows the plain version term by term, in the
+// same order, and the kernels are built with -fmad=false (kernels/build.py),
+// so every product and every sum is rounded as the plain version rounds it:
+// kernel and plain version agree to the bit.  The watertight test's band
+// 8*FLT_EPSILON*(|u|+|v|+|w|) is the JAX package's (intersect.py:134-140),
+// kept verbatim: a ray through a shared edge is accepted by at least one of
+// its two triangles even where a compiler does contract.
 #pragma once
 
 #include <cfloat>

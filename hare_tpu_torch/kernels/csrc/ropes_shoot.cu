@@ -1,9 +1,10 @@
-// B3 ropes_shoot: nearest hit through a KD-tree with ropes, one thread per ray.
+// B3 ropes_shoot: nearest hit through a KD-tree with ropes, one ray per group
+// of G lanes.
 //
 // Replaces hare_tpu/accel/ropes.py shoot_kdtree_ropes (:272-520), a lockstep
 // rope walk that appends packed (start, width) window runs to a buffer, tests
 // them in one batched pass per round, and resumes unresolved rays through
-// buffer tiers and straggler rounds.  Here each thread carries (node, t,
+// buffer tiers and straggler rounds.  Here each ray carries (node, t,
 // position) and walks (Popov et al. 2007):
 //   - at an inner node, descend one level by comparing the position with the
 //     split, the tie going to the direction's sign (ropes.py:362-371);
@@ -15,18 +16,31 @@
 //   - stop once the next leaf's entry t exceeds the best hit (:442; <=, so an
 //     equal-t hit with a lower triangle id ahead is still found).
 // Entry follows :312-331: t0 = 0 inside the root box, else max(t_near, 0) +
-// ENTRY_EPS * char_step.  Positions are o + t*d rounded after the product and
-// after the sum (__fmul_rn / __fadd_rn): nvcc would contract them into an FMA,
-// and the walk relies on the snapped and recomputed coordinates the plain
-// version computes.  The slab reciprocal uses where(d == 0, 1, d) and t = inf
-// for a zero component (:325-326, :396-398); min propagates NaN as
+// ENTRY_EPS * char_step.  Positions are o + t*d, the product and the sum
+// each rounded as the plain version rounds them (the kernels are built with
+// -fmad=false; the walk relies on the snapped and recomputed coordinates the
+// plain version computes).  The slab reciprocal uses where(d == 0, 1, d) and
+// t = inf for a zero component (:325-326, :396-398); min propagates NaN as
 // jnp.minimum does.
 //
 // What bounds it on the H100: dependent loads.  Each step reads one node
-// (int4 + the split, or the leaf's box, window run and ropes), then 64 bytes
-// per candidate triangle; threads of a warp walk different leaves, so the
-// loads do not coalesce and a warp waits for its slowest ray.  No stack: the
-// per-ray state is a few registers.
+// (int4 + the split, or the leaf's box, window run and ropes), then the
+// leaf's window rows; no stack, the per-ray state is a few registers.  The
+// first design, one thread per ray, filled the card to an eighth, a warp
+// waited for the slowest of its 32 walks, and each window slot was two
+// dependent, uncoalesced loads tested by one thread.
+//
+// The design, as K1's.  The walk is serial per ray, so the G lanes of a
+// group carry one ray's (node, position, t) in the same registers: a node
+// load is one broadcast address for the group, the exit face, the snap and
+// the rope come out identical on every lane, and a leaf's run goes to
+// hare::test_run_group (lane k tests slots k, k + G, ..., and a shuffle
+// reduction of the hit key leaves every lane with the same best hit), so
+// the group never diverges.  The launch is persistent (persistent.cuh).
+// G = 16, 128 threads a block and the persistent launch were chosen by
+// measurement among G = 8, 256 threads and one group per ray
+// (hare_tpu_torch/benchmarks/kernel_sweep.py, PERF.md §6).  The result is
+// bit-equal to the plain version's, steps included.
 //
 // A rope walk has no closed-form step bound; the tree gives one: each leaf is
 // entered at most once per ray and each entry descends at most max_depth
@@ -34,9 +48,14 @@
 // sets the error flag (the wrapper raises).
 #include <limits>
 
+#include "persistent.cuh"
 #include "windows.cuh"
 
 namespace {
+
+constexpr int kGroup = 16;   // lanes per ray
+constexpr int kBlock = 128;  // threads per block
+static_assert(kBlock % 32 == 0, "whole warps per block");
 
 constexpr float kInf = std::numeric_limits<float>::infinity();
 
@@ -49,22 +68,22 @@ struct RopeP {
   int top_index;  // -1 = no topology filter
 };
 
-__device__ __forceinline__ float along(float oc, float t, float dc) {
-  return __fadd_rn(oc, __fmul_rn(t, dc));
-}
-
+// Ray i, on every lane of its group (lane `lane`, the group's lanes `mask`).
 template <bool MT>
-__global__ void __launch_bounds__(128)
-ropes_shoot_kernel(const float* __restrict__ o, const float* __restrict__ d,
-                   const int* __restrict__ ex, int n, const int4* __restrict__ node_tab,
-                   const float* __restrict__ split, const float4* __restrict__ box,
-                   const int2* __restrict__ leaf_win, const int4* __restrict__ ropes,
-                   const float4* __restrict__ win_geom, const int4* __restrict__ win_ids,
-                   const RopeP p, float* __restrict__ best_t_out,
-                   int* __restrict__ best_tri_out, int* __restrict__ steps_out,
-                   int* __restrict__ err) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+__device__ __forceinline__ void shoot_ray(int i, int lane, unsigned mask,
+                                          const float* __restrict__ o,
+                                          const float* __restrict__ d,
+                                          const int* __restrict__ ex,
+                                          const int4* __restrict__ node_tab,
+                                          const float* __restrict__ split,
+                                          const float4* __restrict__ box,
+                                          const int2* __restrict__ leaf_win,
+                                          const int4* __restrict__ ropes,
+                                          const float4* __restrict__ win_geom,
+                                          const int4* __restrict__ win_ids, const RopeP& p,
+                                          float* __restrict__ best_t_out,
+                                          int* __restrict__ best_tri_out,
+                                          int* __restrict__ steps_out, int* __restrict__ err) {
   const float oc[3] = {o[3 * i], o[3 * i + 1], o[3 * i + 2]};
   const float dc[3] = {d[3 * i], d[3 * i + 1], d[3 * i + 2]};
   float best_t = kInf;
@@ -94,7 +113,7 @@ ropes_shoot_kernel(const float* __restrict__ o, const float* __restrict__ d,
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
       inv_sd[c] = 1.f / (dc[c] == 0.f ? 1.f : dc[c]);
-      pos[c] = along(oc[c], t0, dc[c]);
+      pos[c] = oc[c] + t0 * dc[c];
     }
     const hare::RayC ray = hare::ray_setup(oc[0], oc[1], oc[2], dc[0], dc[1], dc[2]);
     const hare::RunFilter filter{ex[2 * i], ex[2 * i + 1], p.top_index, p.min_t};
@@ -114,7 +133,8 @@ ropes_shoot_kernel(const float* __restrict__ o, const float* __restrict__ d,
       // ---- leaf: its window run, then the exit face and its rope.
       const int2 lw = __ldg(&leaf_win[node]);
       if (lw.y > 0)
-        hare::test_run<MT>(ray, win_geom, win_ids, lw.x, lw.y, p.win, filter, best_t, best_tri);
+        hare::test_run_group<MT, kGroup>(ray, win_geom, win_ids, lw.x, lw.y, p.win, filter,
+                                         lane, mask, best_t, best_tri);
       const float4 bmin = __ldg(&box[2 * node]);
       const float4 bmax = __ldg(&box[2 * node + 1]);
       const float lo_c[3] = {bmin.x, bmin.y, bmin.z}, hi_c[3] = {bmax.x, bmax.y, bmax.z};
@@ -133,20 +153,55 @@ ropes_shoot_kernel(const float* __restrict__ o, const float* __restrict__ d,
       const int4 r_hi = __ldg(&ropes[2 * node + 1]);  // -z, +z, -, -
       const int rope = face == 0 ? r_lo.x : face == 1 ? r_lo.y : face == 2 ? r_lo.z
                      : face == 3 ? r_lo.w : face == 4 ? r_hi.x : r_hi.y;
-      pos[0] = ex0 ? far_c[0] : along(oc[0], t_exit, dc[0]);
-      pos[1] = ex1 ? far_c[1] : along(oc[1], t_exit, dc[1]);
-      pos[2] = ex2 ? far_c[2] : along(oc[2], t_exit, dc[2]);
+      pos[0] = ex0 ? far_c[0] : oc[0] + t_exit * dc[0];
+      pos[1] = ex1 ? far_c[1] : oc[1] + t_exit * dc[1];
+      pos[2] = ex2 ? far_c[2] : oc[2] + t_exit * dc[2];
       if (rope < 0 || !(t_exit <= best_t)) {
         done = true;
         break;
       }
       node = rope;
     }
-    if (!done) atomicExch(err, 1);
+    if (!done && lane == 0) atomicExch(err, 1);
   }
-  best_t_out[i] = best_t;
-  best_tri_out[i] = best_tri;
-  if (steps_out) steps_out[i] = steps;
+  if (lane == 0) {
+    best_t_out[i] = best_t;
+    best_tri_out[i] = best_tri;
+    if (steps_out) steps_out[i] = steps;
+  }
+}
+
+// The persistent launch (persistent.cuh): each group takes its next ray from
+// the counter until none is left.
+template <bool MT>
+__global__ void __launch_bounds__(kBlock)
+ropes_shoot_kernel(const float* __restrict__ o, const float* __restrict__ d,
+                   const int* __restrict__ ex, int n, const int4* __restrict__ node_tab,
+                   const float* __restrict__ split, const float4* __restrict__ box,
+                   const int2* __restrict__ leaf_win, const int4* __restrict__ ropes,
+                   const float4* __restrict__ win_geom, const int4* __restrict__ win_ids,
+                   const RopeP p, float* __restrict__ best_t_out,
+                   int* __restrict__ best_tri_out, int* __restrict__ steps_out,
+                   int* __restrict__ err, unsigned* __restrict__ counter) {
+  const int lane = threadIdx.x % kGroup;
+  const unsigned mask = hare::group_mask<kGroup>();
+  for (;;) {
+    const int i = hare::take_ray<kGroup>(counter, lane, mask);
+    if (i >= n) break;  // the whole group
+    shoot_ray<MT>(i, lane, mask, o, d, ex, node_tab, split, box, leaf_win, ropes, win_geom,
+                  win_ids, p, best_t_out, best_tri_out, steps_out, err);
+  }
+  hare::group_done<kGroup>(counter, lane);
+}
+
+template <bool MT>
+void launch(cudaStream_t s, const float* o, const float* d, const int* ex, int n,
+            const int4* nd, const float* split, const float4* bx, const int2* lw,
+            const int4* rp, const float4* geom, const int4* ids, const RopeP& p,
+            float* best_t, int* best_tri, int* steps, int* err, unsigned* counter) {
+  const int blocks = hare::persistent_blocks(ropes_shoot_kernel<MT>, n, kGroup, kBlock, 0);
+  ropes_shoot_kernel<MT><<<blocks, kBlock, 0, s>>>(o, d, ex, n, nd, split, bx, lw, rp, geom, ids,
+                                                   p, best_t, best_tri, steps, err, counter);
 }
 
 }  // namespace
@@ -155,14 +210,16 @@ ropes_shoot_kernel(const float* __restrict__ o, const float* __restrict__ d,
 // 2) i32; ropes (rows, 8) i32; win_geom (R, win, 12) f32; win_ids (R, win, 4)
 // i32.  fparams (host): root_min[3], root_max[3], entry_eps, min_t.  iparams
 // (host): win, max_steps, top_index (-1 = none), mt.  steps may be null.
-// err: one int the kernel sets to 1 when a ray reaches max_steps.
-// Launches on `stream`; returns cudaGetLastError().
+// err: one int the kernel sets to 1 when a ray reaches max_steps.  counter:
+// the persistent launch's two unsigned on the device, 0 before the launch
+// and left at 0 (persistent.cuh).  Launches on `stream`; returns
+// cudaGetLastError().
 extern "C" int hare_ropes_shoot(const float* o, const float* d, const int* ex, int n,
                                 const int* node_tab, const float* split, const float* box,
                                 const int* leaf_win, const int* ropes, const float* win_geom,
                                 const int* win_ids, const float* fparams, const int* iparams,
                                 float* best_t, int* best_tri, int* steps, int* err,
-                                void* stream) {
+                                unsigned* counter, void* stream) {
   RopeP p;
   for (int c = 0; c < 3; ++c) {
     p.rmin[c] = fparams[c];
@@ -175,7 +232,6 @@ extern "C" int hare_ropes_shoot(const float* o, const float* d, const int* ex, i
   p.top_index = iparams[2];
   const bool mt = iparams[3] != 0;
   if (n > 0) {
-    const int blocks = (n + 127) / 128;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int4* nd = reinterpret_cast<const int4*>(node_tab);
     const float4* bx = reinterpret_cast<const float4*>(box);
@@ -184,11 +240,11 @@ extern "C" int hare_ropes_shoot(const float* o, const float* d, const int* ex, i
     const float4* geom = reinterpret_cast<const float4*>(win_geom);
     const int4* ids = reinterpret_cast<const int4*>(win_ids);
     if (mt)
-      ropes_shoot_kernel<true><<<blocks, 128, 0, s>>>(o, d, ex, n, nd, split, bx, lw, rp, geom,
-                                                      ids, p, best_t, best_tri, steps, err);
+      launch<true>(s, o, d, ex, n, nd, split, bx, lw, rp, geom, ids, p, best_t, best_tri, steps,
+                   err, counter);
     else
-      ropes_shoot_kernel<false><<<blocks, 128, 0, s>>>(o, d, ex, n, nd, split, bx, lw, rp, geom,
-                                                       ids, p, best_t, best_tri, steps, err);
+      launch<false>(s, o, d, ex, n, nd, split, bx, lw, rp, geom, ids, p, best_t, best_tri, steps,
+                    err, counter);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -27,8 +27,10 @@ from hare_tpu_torch.trace.bounce import histogram_kernel, histogram_plain  # noq
 
 pytestmark = pytest.mark.cuda
 
-# Kernel and plain version run the same f32 arithmetic; nvcc contracts some
-# of it into FMAs, so hit distances agree to a few ulps.
+# Every traversal kernel rounds each operation as its plain version does
+# (kernels/build.py builds with -fmad=false): the two agree to the bit
+# (assert_bit_equal).  RTOL / ATOL hold a kernel against B1, whose table
+# rounds edges otherwise, and K2's u, v, point and normal.
 RTOL, ATOL = 1e-5, 1e-5
 
 
@@ -45,6 +47,15 @@ def rays_of(rng, lo, hi, n, dev, ex=None):
     d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
     return th.Ray.make(torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev),
                        None if ex is None else torch.as_tensor(ex, device=dev))
+
+
+def assert_bit_equal(kernel_out, plain_out):
+    """Kernel and plain version agree on every ray: best_t to the bit,
+    best_tri, and pops or steps where given."""
+    for what, a, b in zip(("best_t", "best_tri", "pops or steps"), kernel_out, plain_out):
+        a, b = (x.view(torch.int32) if x.dtype == torch.float32 else x for x in (a, b))
+        differ = int((a != b).sum())
+        assert differ == 0, f"{what} differs on {differ} of {a.numel()} rays"
 
 
 def assert_same_nearest(kernel_out, plain_out, tie_share=1e-3):
@@ -92,34 +103,25 @@ SCENES = [
     # Eval config 3's hall: coplanar stage, balcony and wall faces.
     ("hall", shapes.concert_hall, dict(domain=16), (0.5, 17.5)),
 ]
-# Share of rays whose tri_id may differ between kernel and plain version,
-# per scene (default 1e-3); each such ray must be a genuine tie
-# (assert_ties_genuine).  The hall's coincident faces (the stage's underside
-# on the floor, the balconies' backs on the walls) tie on equal t between
-# polygons, and nvcc's FMA contraction of the watertight test rounds such a
-# pair an ulp apart where the plain version does not.  On an H100: 11-12 of
-# 4,096 rays for every traversal; 123 once each ray's first polygon is
-# excluded, since shooting on through the stage's top reaches the pair.
-TIE_SHARE = {"hall": 5e-2}
-
-
 @pytest.mark.parametrize("kernel", ["watertight", "mt"])
 @pytest.mark.parametrize("name, faces, kw, box", SCENES, ids=[s[0] for s in SCENES])
 def test_grid_shoot_matches_plain(dev, name, faces, kw, box, kernel):
+    """K1 against its plain version, to the bit; the hall's coincident faces
+    (the stage's underside on the floor, the balconies' backs on the walls)
+    tie on equal t between polygons, and both pick the lowest id."""
     top = th.Topology.build(faces())
     grid = build_voxel_grid(top, device=dev, **kw)
     rays = rays_of(np.random.default_rng(3), box[0], box[1], 4096, dev)
-    k, p = grid_shoot(rays, grid, kernel), grid_shoot_plain(rays, grid, kernel)
-    assert_same_nearest(k, p, TIE_SHARE.get(name, 1e-3))
-    assert_ties_genuine(top.scene(device=dev), rays, k, p, kernel)
+    assert_bit_equal(grid_shoot(rays, grid, kernel), grid_shoot_plain(rays, grid, kernel))
 
 
 # Origins inside the closed scenes, so that most rays reflect on every bounce.
 INSIDE = {"shoebox": (0.2, 2.8), "icosphere": (-0.5, 0.5)}
-# Reflected rays in the hall end on its coincident floor and stage bottom
-# far more often than rays from anywhere: on an H100 up to 17% of them tie
-# there, each a genuine equal-t tie (assert_ties_genuine).  And 5 of 4,096
-# start on such a pair and meet its other face at t ~ 0 in one version only.
+# Against B1, whose table rounds the edges otherwise: reflected rays in the
+# hall end on its coincident floor and stage bottom far more often than rays
+# from anywhere, and up to 17% of them tie there (on an H100), each a
+# genuine equal-t tie (assert_ties_genuine); and a grazing ray turns the
+# edges' last bits into a larger dt, on at most OFF_SHARE of the rays.
 REFLECTED_TIE_SHARE = {"hall": 0.25}
 OFF_SHARE = 2e-3
 
@@ -128,7 +130,8 @@ OFF_SHARE = 2e-3
 @pytest.mark.parametrize("name, faces, kw, box", SCENES, ids=[s[0] for s in SCENES])
 def test_grid_shoot_reflected_rays(dev, name, faces, kw, box, kernel):
     """K1 on the rays of bounces 2 and 3 of a trace (reflected rays, with
-    their exclusions) against its plain version and against B1."""
+    their exclusions) against its plain version, to the bit, and against
+    B1."""
     top = th.Topology.build(faces())
     sp = th.SpatialPartition(top, kernel=kernel, device=dev, **kw)
     box = INSIDE.get(name, box)
@@ -141,27 +144,19 @@ def test_grid_shoot_reflected_rays(dev, name, faces, kw, box, kernel):
         r = th.Ray(*(x[r.exclude_poly[:, 0] >= 0] for x in r))
         assert r.origin.shape[0] > 500
         k = grid_shoot(r, sp.struct, kernel)
-        p = grid_shoot_plain(r, sp.struct, kernel)
-        # A ray that starts where two faces coincide (the hall's stage on
-        # its floor) may meet the face it does not exclude at t ~ 0, which
-        # nvcc's FMA rounding and the plain version's decide apart: at most
-        # OFF_SHARE of the rays end elsewhere.  The rest agree in t, and a
-        # differing triangle is a genuine equal-t tie.
-        same = assert_agrees_with_referee(k, p, OFF_SHARE, ties=True)
-        sub = th.Ray(*(x[same] for x in r))
-        k_s, p_s = (k[0][same], k[1][same]), (p[0][same], p[1][same])
-        assert_same_nearest(k_s, p_s, share)
-        assert_ties_genuine(sp.scene, sub, k_s, p_s, kernel)
-        # B1 on the rays that pass the plain-version check.  It reads the
-        # scene's edges (differences of f32 corners), K1 the grid's (f64
-        # differences rounded once): a grazing ray turns the last bits into
-        # a larger dt, on at most OFF_SHARE of the rays.  On the rest t
-        # agrees, and a differing triangle is a genuine equal-t tie.
-        b = brute_shoot(sp.scene, sub, kernel)
-        near = assert_agrees_with_referee(k_s, b, OFF_SHARE, ties=True)
-        k_b, b_b = (k_s[0][near], k_s[1][near]), (b[0][near], b[1][near])
+        # Rays that start where two faces coincide (the hall's stage on its
+        # floor) and meet the face they do not exclude at t ~ 0 included.
+        assert_bit_equal(k, grid_shoot_plain(r, sp.struct, kernel))
+        # B1 reads the scene's edges (differences of f32 corners), K1 the
+        # grid's (f64 differences rounded once): a grazing ray turns the
+        # last bits into a larger dt, on at most OFF_SHARE of the rays.  On
+        # the rest t agrees, and a differing triangle is a genuine equal-t
+        # tie.
+        b = brute_shoot(sp.scene, r, kernel)
+        near = assert_agrees_with_referee(k, b, OFF_SHARE, ties=True)
+        k_b, b_b = (k[0][near], k[1][near]), (b[0][near], b[1][near])
         assert_same_nearest(k_b, b_b, share)
-        assert_ties_genuine(sp.scene, th.Ray(*(x[near] for x in sub)), k_b, b_b, kernel)
+        assert_ties_genuine(sp.scene, th.Ray(*(x[near] for x in r)), k_b, b_b, kernel)
 
 
 @pytest.mark.parametrize("kernel", ["watertight", "mt"])
@@ -172,11 +167,9 @@ def test_grid_shoot_cells_of_many_rows(dev, kernel):
     grid = build_voxel_grid(top, domain=3, device=dev)
     assert grid.max_cell_wins >= 8
     rays = rays_of(np.random.default_rng(6), 0.2, 2.8, 4096, dev)
-    k, p = grid_shoot(rays, grid, kernel), grid_shoot_plain(rays, grid, kernel)
-    assert_same_nearest(k, p)
-    sc = top.scene(device=dev)
-    assert_ties_genuine(sc, rays, k, p, kernel)
-    assert_agrees_with_referee(k, brute_shoot(sc, rays, kernel))
+    k = grid_shoot(rays, grid, kernel)
+    assert_bit_equal(k, grid_shoot_plain(rays, grid, kernel))
+    assert_agrees_with_referee(k, brute_shoot(top.scene(device=dev), rays, kernel))
 
 
 def floor_tris(n):
@@ -237,17 +230,13 @@ def test_grid_shoot_ties_go_to_the_lowest_id(dev, domain, kernel):
 def test_grid_shoot_hall_floor_ties(dev, domain, kernel):
     """Rays from inside the concert hall's stage riser, downward, end on
     z = 0, where the floor's and the stage's bottom triangles coincide; on
-    the rays whose two t come out equal the lowest id wins, and where K1
-    and its plain version pick different triangles, both are hits at the
-    same t."""
+    the rays whose two t come out equal the lowest id wins, and K1 agrees
+    with its plain version to the bit."""
     top = th.Topology.build(shapes.concert_hall())
     sp = th.SpatialPartition(top, domain=domain, kernel=kernel, device=dev)
     rays = downward_rays(np.random.default_rng(9), (5.5, 1.5), (24.5, 8.5), (0.2, 1.0), 4096, dev)
     assert assert_lowest_id_on_ties(rays, sp, kernel) > 0
-    # Every ray ends on the pair, so any share may tie; each flip is genuine.
-    k, p = grid_shoot(rays, sp.struct, kernel), grid_shoot_plain(rays, sp.struct, kernel)
-    assert_same_nearest(k, p, tie_share=1.0)
-    assert_ties_genuine(sp.scene, rays, k, p, kernel)
+    assert_bit_equal(grid_shoot(rays, sp.struct, kernel), grid_shoot_plain(rays, sp.struct, kernel))
 
 
 def test_grid_shoot_exclusion_and_topology_filter(dev):
@@ -260,22 +249,21 @@ def test_grid_shoot_exclusion_and_topology_filter(dev):
     ex = torch.stack([first.poly_id, torch.full_like(first.poly_id, -1)], dim=1)
     rays = rays._replace(exclude_poly=ex.to(torch.int32))
     for top_index in (None, 0, 1):
-        assert_same_nearest(grid_shoot(rays, sp.struct, top_index=top_index),
-                            grid_shoot_plain(rays, sp.struct, top_index=top_index))
+        assert_bit_equal(grid_shoot(rays, sp.struct, top_index=top_index),
+                         grid_shoot_plain(rays, sp.struct, top_index=top_index))
 
 
 @pytest.mark.parametrize("kernel", ["watertight", "mt"])
 @pytest.mark.parametrize("name, faces, kw, box", SCENES, ids=[s[0] for s in SCENES])
 def test_brute_shoot_matches_plain(dev, name, faces, kw, box, kernel):
-    """B1 against its plain version, with and without exclusions."""
+    """B1 against its plain version, to the bit, with and without
+    exclusions."""
     sc = th.Topology.build(faces()).scene(device=dev)
     rays = rays_of(np.random.default_rng(3), box[0], box[1], 4096, dev)
-    share = TIE_SHARE.get(name, 1e-3)
 
     def agree(rays):
-        k, p = brute_shoot(sc, rays, kernel), brute_shoot_plain(sc, rays, kernel)
-        assert_same_nearest(k, p, share)
-        assert_ties_genuine(sc, rays, k, p, kernel)
+        k = brute_shoot(sc, rays, kernel)
+        assert_bit_equal(k, brute_shoot_plain(sc, rays, kernel))
         return k
 
     first = agree(rays)
@@ -308,17 +296,14 @@ def walk_pair(which, rays, tree, kernel, **kw):
 @pytest.mark.parametrize("which", sorted(TREES))
 @pytest.mark.parametrize("name, faces, kw, box", SCENES, ids=[s[0] for s in SCENES])
 def test_tree_walks_match_plain(dev, name, faces, kw, box, which, kernel):
-    """B2 (K = 2, 4, 8) and B3 against their plain versions, the pops or
-    steps included on all but a few rays (an ulp of t can prune differently).
-    Rays that miss the root box take no rope step."""
+    """B2 (K = 2, 4, 8) and B3 against their plain versions, to the bit,
+    the pops or steps included.  Rays that miss the root box take no rope
+    step."""
     top = th.Topology.build(faces())
     tree = TREES[which](top, dev, max_tris_per_node=4)
     rays = rays_of(np.random.default_rng(3), box[0], box[1], 4096, dev)
-    share = TIE_SHARE.get(name, 1e-3)
     k, p = walk_pair(which, rays, tree, kernel)
-    assert_same_nearest(k[:2], p[:2], share)
-    assert_ties_genuine(top.scene(device=dev), rays, k[:2], p[:2], kernel)
-    assert int((k[2] != p[2]).sum()) <= max(1, int(rays.origin.shape[0] * share))
+    assert_bit_equal(k, p)
     assert int(k[2].max()) >= 1
 
 
@@ -349,9 +334,8 @@ def plane_rays(tree, lo, hi, n, dev):
 # octree's and the median KD tree's centre planes) tie on equal t often.
 # Against brute force, which rounds the geometry otherwise (f32 corners
 # subtracted), such ties may flip often; against its own plain version (the
-# same tables and tie rule) a walk flips only where nvcc's FMA contraction
-# rounds a tie an ulp apart: 5-6 of 4,096 rays on an H100.
-PLANE_TIE_SHARE, PLANE_PLAIN_TIE_SHARE = 1e-2, 2e-3
+# same tables and tie rule) a walk agrees to the bit.
+PLANE_TIE_SHARE = 1e-2
 
 
 @pytest.mark.parametrize("which", sorted(TREES))
@@ -363,7 +347,7 @@ def test_tree_walks_on_planes(dev, which):
     at t = 0 (``where(d == 0, 1e-30, d)``, as in the JAX package), so those
     rays are held to the plain version only.  These rays cross edges and
     vertices on purpose, so the test is the watertight one: Möller-Trumbore
-    has no edge rule that survives nvcc's FMA contraction."""
+    has no edge rule, and brute force rounds the edges otherwise."""
     top = th.Topology.build(shapes.shoebox(4, 5, 3) + shapes.icosphere(2, 0.8, (2.0, 2.5, 1.5)))
     sc = top.scene(device=dev)
     tree = TREES[which](top, dev, pad=0.0, max_tris_per_node=4)
@@ -372,8 +356,7 @@ def test_tree_walks_on_planes(dev, which):
     inner = ~((o == tree.root_min) | (o == tree.root_max)).any(dim=1)
     assert int(inner.sum()) > 2000
     sub = th.Ray(*(x[inner] for x in rays))
-    k, p = walk_pair(which, rays, tree, "watertight")
-    assert_same_nearest(k[:2], p[:2], PLANE_PLAIN_TIE_SHARE)
+    assert_bit_equal(*walk_pair(which, rays, tree, "watertight"))
     k = walk_pair(which, sub, tree, "watertight")[0]
     assert_same_nearest(k[:2], brute_shoot(sc, sub), PLANE_TIE_SHARE)
 
@@ -392,6 +375,153 @@ def test_walk_bounds_raise(dev):
     tree_shoot(rays, kd), ropes_shoot(rays, rp)  # the flag is per launch
 
 
+def every_traversal(top, dev, kernel, **kw):
+    """(label, kernel call, plain call) of K1, B1, B2 with K = 8, 2 and 4,
+    and B3 on one topology: each call takes the rays and returns best_t,
+    best_tri and, for the walks, the pops or steps."""
+    sc = top.scene(device=dev)
+    grid = build_voxel_grid(top, device=dev, **kw)
+    out = [("K1", lambda r: grid_shoot(r, grid, kernel), lambda r: grid_shoot_plain(r, grid, kernel)),
+           ("B1", lambda r: brute_shoot(sc, r, kernel), lambda r: brute_shoot_plain(sc, r, kernel))]
+    for which in ("octree", "kdtree", "kdtree_levels2", "ropes"):
+        tree = TREES[which](top, dev, max_tris_per_node=4)
+        out.append((which, lambda r, w=which, t=tree: walk_pair(w, r, t, kernel)[0],
+                     lambda r, w=which, t=tree: walk_pair(w, r, t, kernel)[1]))
+    return out
+
+
+@pytest.mark.parametrize("kernel", ["watertight", "mt"])
+@pytest.mark.parametrize("name, faces, kw, box", SCENES, ids=[s[0] for s in SCENES])
+def test_kernels_round_as_plain(dev, name, faces, kw, box, kernel):
+    """Every traversal kernel (K1, B1, B2 with K = 2, 4 and 8, B3) against
+    its plain version, to the bit, on rays from anywhere and on every ray
+    of bounces 2 and 3 of a trace from inside: the reflected rays, the
+    hall's coincident faces among them, and (the soup's) the rays that
+    missed on the bounce before and exclude nothing.  Built with nvcc's FMA contraction,
+    the kernels rounded a * b + c once where the plain versions round
+    twice, and some of these rays (near-zero hits, equal-t ties) came out
+    otherwise."""
+    top = th.Topology.build(faces())
+    rays = rays_of(np.random.default_rng(3), box[0], box[1], 4096, dev)
+    sp = th.SpatialPartition(top, kernel=kernel, device=dev, **kw)
+    lo, hi = INSIDE.get(name, box)
+    inside = rays_of(np.random.default_rng(5), lo, hi, 4096, dev)
+    batches = [rays] + bounce_rays(sp, inside, torch.full((top.n_polys,), 0.3, device=dev))[1:]
+    for label, fn, plain in every_traversal(top, dev, kernel, **kw):
+        for b, r in enumerate(batches):
+            k = fn(r)
+            assert bool(torch.isfinite(k[0]).any()), (label, b)
+            try:
+                assert_bit_equal(k, plain(r))
+            except AssertionError as e:
+                raise AssertionError(f"{label}, ray set {b}: {e}") from None
+
+
+@pytest.mark.parametrize("kernel", ["watertight", "mt"])
+@pytest.mark.parametrize("which", sorted(TREES))
+def test_tree_walks_ties_go_to_the_lowest_id(dev, which, kernel):
+    """Two topologies hold the same 8 x 8 floor, the second in reverse
+    order, so a ray down onto it meets exact equal-t twins in different
+    slots, rows and lanes of a leaf's run; rays straight down onto the unit
+    grid's lines meet up to four triangles at one exact t (integer corners,
+    dyadic origins), in the leaves on either side of a split.  The walk
+    keeps the lowest id, as B1 does, to the bit."""
+    floor = floor_tris(8)
+    top_corner = np.array([[0.0, 0.0, 4.0], [0.1, 0.0, 4.0], [0.0, 0.1, 4.0]])
+    tops = [th.Topology.build(floor), th.Topology.build(floor[::-1] + [top_corner])]
+    sc = th.build_scene(tops, device=dev)
+    tree = TREES[which](tops, dev, max_tris_per_node=4)
+    tilted = downward_rays(np.random.default_rng(8), (1.0, 1.0), (7.0, 7.0), (0.5, 2.0), 2048, dev)
+    g = np.stack(np.meshgrid(np.arange(1, 8), np.arange(4, 29) / 4, indexing="ij"), -1).reshape(-1, 2)
+    g = np.concatenate([g, g[:, ::-1]])  # on the lines x = i and y = j
+    o = np.concatenate([g, np.full((len(g), 1), 1.5)], 1).astype(np.float32)
+    d = np.tile(np.array([[0.0, 0.0, -1.0]], np.float32), (len(g), 1))
+    straight = th.Ray.make(torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev))
+    n_first = tops[0].n_tris
+    for rays in (tilted, straight):
+        k, p = walk_pair(which, rays, tree, kernel)
+        assert_bit_equal(k, p)
+        assert bool(torch.isfinite(k[0]).all()) and bool((k[1] < n_first).all())
+        assert_bit_equal(k[:2], brute_shoot(sc, rays, kernel))
+    assert bool((k[0] == 1.5).all())
+
+
+def min_stack(rays, tree):
+    """The least stack bound with which the plain walk does not raise."""
+    lo, hi = 1, tree.stack  # raises at lo - 1 (none at 0), not at hi
+    while lo < hi:
+        mid = (lo + hi) // 2
+        try:
+            tree_shoot_plain(rays, tree._replace(stack=mid))
+            hi = mid
+        except RuntimeError:
+            lo = mid + 1
+    return lo
+
+
+@pytest.mark.parametrize("which", ["octree", "kdtree", "kdtree_levels2"])
+def test_tree_walk_reaches_its_stack_bound(dev, which):
+    """A stack bound S that some ray's walk fills exactly: no raise, and the
+    walk is the plain version's; one below raises, and the next launch on
+    the stream is clean."""
+    top = th.Topology.build(shapes.random_soup(300, seed=17))
+    rays = rays_of(np.random.default_rng(3), -1.0, 11.0, 1024, dev)
+    tree = TREES[which](top, dev, max_tris_per_node=2)
+    s = min_stack(rays, tree)
+    assert 2 <= s < tree.stack
+    exact = tree._replace(stack=s)
+    assert_bit_equal(tree_shoot(rays, exact, with_stats=True),
+                     tree_shoot_plain(rays, exact, with_stats=True))
+    with pytest.raises(RuntimeError, match="stack"):
+        tree_shoot(rays, tree._replace(stack=s - 1))
+    assert_bit_equal(tree_shoot(rays, exact), tree_shoot_plain(rays, exact))
+
+
+def test_persistent_counter_shared_in_turn(dev):
+    """K1, B2 and B3 share one ray counter per device and stream, each
+    launch leaving it at zero: run in turn on the concert hall with no ray,
+    one, fewer than the card holds groups, and config 3's 1M, each agrees
+    with its plain version to the bit."""
+    from hare_tpu_torch.accel.common import ray_counter
+
+    top = th.Topology.build(shapes.concert_hall())
+    grid = build_voxel_grid(top, device=dev)
+    octree = build_octree(top, device=dev)
+    rope = build_kdtree_ropes(top, device=dev)
+    d = th.uniform_sphere(1_000_000, torch.Generator().manual_seed(0), device=dev)
+    big = th.Ray.make(torch.tensor([15.0, 24.0, 8.0], device=dev).expand_as(d).contiguous(), d)
+    for n in (0, 1, 100, 1_000_000, 1, 0, 100):
+        rays = th.Ray(*(x[:n] for x in big))
+        for k, p in ((grid_shoot(rays, grid), grid_shoot_plain(rays, grid)),
+                     (tree_shoot(rays, octree, with_stats=True),
+                      tree_shoot_plain(rays, octree, with_stats=True)),
+                     (ropes_shoot(rays, rope, with_stats=True),
+                      ropes_shoot_plain(rays, rope, with_stats=True))):
+            assert k[0].shape == (n,)
+            assert_bit_equal(k, p)
+            assert torch.equal(ray_counter(grid.cell_meta.device).cpu(),
+                               torch.zeros(2, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("which", ["kdtree", "ropes", "hall_octree"])
+def test_tree_walks_deep_trees(dev, which):
+    """The KD tree at its default depth limit of 22 (one triangle a leaf,
+    so the build reaches it; B2's stack bound S = 28) and the concert
+    hall's octree (config 3's): kernel and plain version agree to the bit."""
+    if which == "hall_octree":
+        top = th.Topology.build(shapes.concert_hall())
+        tree = build_octree(top, device=dev)
+        rays = rays_of(np.random.default_rng(4), 0.5, 17.5, 4096, dev)
+    else:
+        top = th.Topology.build(shapes.random_soup(600, seed=19))
+        tree = TREES[which](top, dev, max_depth=22, max_tris_per_node=1)
+        assert tree.max_depth == 22
+        rays = rays_of(np.random.default_rng(4), -1.0, 11.0, 4096, dev)
+    k, p = walk_pair("ropes" if which == "ropes" else "tree", rays, tree, "watertight")
+    assert_bit_equal(k, p)
+    assert int(k[2].max()) > (22 if which != "hall_octree" else 2)
+
+
 def test_tree_walks_exclusion_and_topology_filter(dev):
     tops = [th.Topology.build(shapes.shoebox()),
             th.Topology.build(shapes.icosphere(1, radius=0.8, center=(2.0, 2.5, 1.5)))]
@@ -404,7 +534,7 @@ def test_tree_walks_exclusion_and_topology_filter(dev):
         tree = TREES[which](tops, dev, max_tris_per_node=8)
         for top_index in (None, 0, 1):
             k, p = walk_pair(which, rays, tree, "watertight", top_index=top_index)
-            assert_same_nearest(k[:2], p[:2])
+            assert_bit_equal(k, p)
             assert_same_nearest(k[:2], brute_shoot(sc, rays, top_index=top_index))
 
 

@@ -2,10 +2,13 @@
 
 ``voxel.grid_work`` replays K1's plain march with counts (cells visited,
 non-null window slots tested); ``common.tally_runs`` records the runs a
-plain traversal hands ``test_runs``; ``benchmarks/bounds.py`` turns counts
-and shapes into each kernel's bound.  Hand-counted rays through a small
-grid, and the counts against the plain march on the JAX package's parity
-scenes.
+plain traversal hands ``test_runs``, ``common.tally_rows`` the node rows a
+plain tree or rope walk reads; ``benchmarks/bounds.py`` turns counts and
+shapes into each kernel's bound.  Hand-counted rays through a small grid
+and a two-leaf tree, and the counts against the plain march on the JAX
+package's parity scenes.  The design sweep's candidates apply to the built
+kernel sources, and it calls a parent through the parameters its source
+declares.
 """
 
 import numpy as np
@@ -15,10 +18,11 @@ torch = pytest.importorskip("torch")
 
 import hare_tpu_torch as th  # noqa: E402
 from hare_tpu_torch.accel import common, voxel  # noqa: E402
+from hare_tpu_torch.accel.kdtree import build_kdtree  # noqa: E402
 from hare_tpu_torch.accel.ropes import build_kdtree_ropes, ropes_shoot_plain  # noqa: E402
 from hare_tpu_torch.accel.tree import tree_shoot_plain  # noqa: E402
 from hare_tpu_torch.benchmarks import bounds  # noqa: E402
-from hare_tpu_torch.benchmarks import k1_sweep  # noqa: E402
+from hare_tpu_torch.benchmarks import kernel_sweep  # noqa: E402
 from hare_tpu_torch.benchmarks.bench_scene import bounce_rays  # noqa: E402
 from hare_tpu_torch.geom.intersect import MIN_T  # noqa: E402
 from hare_tpu_torch.mesh import shapes  # noqa: E402
@@ -127,26 +131,93 @@ def test_runs_work_counts_overlaps_once():
 
 def test_tree_walks_tally_runs():
     """The runs the plain tree and rope walks test lie in their window
-    tables and hold the leaves' triangles; the bound is positive."""
+    tables and hold the leaves' triangles; the node rows they read lie in
+    their tables; the bound counts both."""
     top = th.Topology.build(shapes.shoebox(4, 5, 3) + shapes.icosphere(2, 0.8, (2.0, 2.5, 1.5)))
     rng = np.random.default_rng(2)
     o = torch.from_numpy(rng.uniform(0.3, 2.7, (128, 3)).astype(np.float32))
     d = torch.nn.functional.normalize(torch.from_numpy(rng.normal(size=(128, 3)).astype(np.float32)), dim=1)
     rays = th.Ray.make(o, d)
-    for tree, shoot, visit_ops in (
-        (th.build_octree(top, device=CPU), tree_shoot_plain, 8 * bounds.SLAB_OPS),
-        (build_kdtree_ropes(top, device=CPU), ropes_shoot_plain, bounds.EXIT_OPS),
+    for tree, shoot, branch in (
+        (th.build_octree(top, device=CPU), tree_shoot_plain, 8),
+        (build_kdtree_ropes(top, device=CPU), ropes_shoot_plain, None),
     ):
-        with common.tally_runs() as runs:
+        with common.tally_runs() as runs, common.tally_rows() as rows:
             _, best_tri, visits = shoot(rays, tree, with_stats=True)
         slots, touched = bounds.runs_work(runs, tree.win_ids)
         assert 0 < touched <= int((tree.win_ids[..., 0] >= 0).sum()) and touched <= slots
         assert slots >= int((best_tri >= 0).sum())
-        b = bounds.walk_bound(128, slots, touched, int(visits.sum()), visit_ops)
-        assert b["bound_ms"] > 0
-        assert b["bytes"] == 128 * 40 + touched * 48
-        assert b["ops"] == slots * 43 + int(visits.sum()) * visit_ops
-    assert common._tally is None  # the tally ends with its block
+        n_rows = tree.child_box.shape[0] if branch else tree.node.shape[0]
+        assert all(bool((i < n_rows).all()) for _, i in rows)
+        b = bounds.walk_bound(128, runs, rows, tree.win_ids, branch)
+        assert b["bound_ms"] > 0 and (b["slots"], b["slots_touched"]) == (slots, touched)
+        # B2 slab-tests K children at each pop that survives its prune; B3
+        # takes an exit face at each leaf step: fewer visits than pops or steps.
+        assert 0 < b["node_visits"] <= int(visits.sum()) and b["node_bytes"] > 0
+        visit_ops = 8 * bounds.SLAB_OPS if branch else bounds.EXIT_OPS
+        assert b["bytes"] == 128 * 40 + touched * 48 + b["node_bytes"]
+        assert b["ops"] == slots * 43 + b["node_visits"] * visit_ops
+    assert common._tally is None and common._rows is None  # the tallies end with their blocks
+
+
+def two_leaf_scene():
+    """Two unit triangles in the planes x = 1 (A, polygon 0) and x = 3 (B,
+    polygon 1): with one triangle a leaf, each KD tree is a root split at
+    x ~ 1.06 over two leaves."""
+    faces = [tri(1.0, 0.0, 0.0, 1.0), tri(3.0, 0.0, 0.0, 1.0)]
+    top = th.Topology.build(faces)
+    rays = th.Ray.make(
+        torch.tensor([[0.0, 0.25, 0.25], [4.0, 0.25, 0.25], [0.0, 0.25, 0.25]]),
+        torch.tensor([[1.0, 0.0, 0.0], [-1.0, 0.0, 0.0], [1.0, 0.0, 0.0]]),
+        torch.tensor([[-1, -1], [-1, -1], [0, -1]], dtype=torch.int32),
+    )
+    return top, rays
+
+
+def test_walk_work_hand_counted():
+    """Three rays through the two-leaf trees: +x (hits A), -x (hits B) and
+    +x with A excluded (hits B), counted by hand."""
+    top, rays = two_leaf_scene()
+    kd = build_kdtree(top, max_tris_per_node=1, device=CPU)
+    rp = build_kdtree_ropes(top, max_tris_per_node=1, device=CPU)
+    assert kd.branch == 2 and rp.node[0, 1] == 0 and rp.node[1:3, 1].tolist() == [1, 1]
+
+    with common.tally_runs() as runs, common.tally_rows() as rows:
+        t, tri_id, pops = tree_shoot_plain(rays, kd, with_stats=True)
+    assert t.tolist() == [1.0, 1.0, 3.0] and tri_id.tolist() == [0, 1, 1]
+    # Each ray pops the pseudo-root and the root: 6 reads of 2 distinct rows
+    # of 2 x 36 B.  At the root every ray tests the low leaf's run; the
+    # high leaf's then only where its entry t is not beyond the best hit:
+    # not the first ray's (A at t = 1 before x ~ 1.06).  1 + 2 + 2 slots
+    # of the 2 non-null ones.
+    assert pops.tolist() == [2, 2, 2]
+    b = bounds.walk_bound(3, runs, rows, kd.win_ids, 2)
+    assert (b["slots"], b["slots_touched"], b["node_visits"], b["node_bytes"]) == (5, 2, 6, 144)
+    assert b["ops"] == 5 * 43 + 6 * 2 * 12
+    assert b["bytes"] == 3 * 40 + 2 * 48 + 144
+
+    with common.tally_runs() as runs, common.tally_rows() as rows:
+        t, tri_id, steps = ropes_shoot_plain(rays, rp, with_stats=True)
+    assert t.tolist() == [1.0, 1.0, 3.0] and tri_id.tolist() == [0, 1, 1]
+    # The first two rays descend from the root to their leaf, hit, and stop
+    # (the exit face lies beyond the hit); the third also follows the rope
+    # to the high leaf and leaves the tree: 2 + 2 + 3 steps, 4 of them at
+    # leaves.  Distinct rows: 3 node rows (16 B), the root's split (4 B),
+    # and both leaves' window, box and rope rows (8 + 24 + 24 B).
+    assert steps.tolist() == [2, 2, 3]
+    b = bounds.walk_bound(3, runs, rows, rp.win_ids, None)
+    assert (b["slots"], b["slots_touched"], b["node_visits"]) == (4, 2, 4)
+    assert b["node_bytes"] == 3 * 16 + 4 + 2 * (8 + 24 + 24)
+    assert b["ops"] == 4 * 43 + 4 * 6
+    assert b["bytes"] == 3 * 40 + 2 * 48 + b["node_bytes"]
+
+
+def test_rows_work_counts_distinct_rows_once():
+    rows = [("node", torch.tensor([0, 1, 1])), ("split", torch.tensor([0])),
+            ("node", torch.tensor([2, 0])), ("box", torch.tensor([], dtype=torch.int64))]
+    reads, nbytes = bounds.rows_work(rows, bounds.ROPE_ROW_BYTES)
+    assert reads == {"node": 5, "split": 1, "box": 0}
+    assert nbytes == 3 * 16 + 1 * 4
 
 
 def test_bounds_from_shapes():
@@ -174,20 +245,47 @@ def test_bounds_from_shapes():
     assert k3["ops"] == 3 * 2 and k3["bytes"] == 4 * 9 + 16 * 4 and k3["bound_by"] == "bytes"
 
 
-@pytest.mark.parametrize("label, replacements", k1_sweep.CANDIDATES,
-                         ids=[c[0] for c in k1_sweep.CANDIDATES])
-def test_k1_sweep_candidates_apply(label, replacements):
-    """Every design candidate of the sweep is the built K1 with its few
-    statements replaced, each found exactly once."""
+@pytest.mark.parametrize("label, replacements, flags", kernel_sweep.CANDIDATES["k1"],
+                         ids=[c[0] for c in kernel_sweep.CANDIDATES["k1"]])
+def test_k1_sweep_candidates_apply(label, replacements, flags):
+    """Every design candidate of K1 is the built K1 with its few statements
+    replaced, each found exactly once, or the built K1 under other flags."""
     from hare_tpu_torch.kernels import build
 
     src = (build.CSRC / "grid_shoot.cu").read_text()
-    out = k1_sweep.variant_source(src, replacements)
+    out = kernel_sweep.variant_source(src, replacements)
     assert (out == src) == (not replacements)
+    built = label == kernel_sweep.CANDIDATES["k1"][0][0]
+    assert built == (not replacements and flags is None) and not (replacements and flags)
     assert out.count("hare::test_run_group<MT, kGroup>") == 1
     if replacements:
         with pytest.raises(ValueError):  # a statement the kernel does not hold
-            k1_sweep.variant_source("", replacements)
+            kernel_sweep.variant_source("", replacements)
+
+
+WALK_CANDIDATES = [(k, *c) for k in ("b1", "b2", "b3") for c in kernel_sweep.CANDIDATES[k]]
+
+
+@pytest.mark.parametrize("kernel, label, replacements, flags", WALK_CANDIDATES,
+                         ids=[f"{c[0]}-{c[1]}" for c in WALK_CANDIDATES])
+def test_sweep_candidates_apply(kernel, label, replacements, flags):
+    """Every design candidate of B1, B2 and B3 is the built source with its
+    statements replaced, each found exactly once, or the built source under
+    nvcc's default FMA contraction."""
+    from hare_tpu_torch.kernels import build
+
+    src = (build.CSRC / kernel_sweep.SPECS[kernel].source).read_text()
+    out = kernel_sweep.variant_source(src, replacements)
+    assert (out == src) == (not replacements)
+    assert flags in (None, kernel_sweep.FMA_FLAGS)
+    built = label == kernel_sweep.CANDIDATES[kernel][0][0]
+    assert built == (not replacements and flags is None) and not (replacements and flags)
+    if flags is not None:
+        assert "-fmad=false" in build.NVCC_FLAGS and "-fmad=false" not in flags
+    assert out.count("hare::test_run_group<MT, kGroup>") == (kernel != "b1")
+    if replacements:
+        with pytest.raises(ValueError):
+            kernel_sweep.variant_source("", replacements)
 
 
 def test_k1_sweep_reads_the_entry_point():
@@ -195,12 +293,57 @@ def test_k1_sweep_reads_the_entry_point():
     parameters its source declares."""
     from hare_tpu_torch.kernels import build
 
+    spec = kernel_sweep.SPECS["k1"]
     src = (build.CSRC / "grid_shoot.cu").read_text()
-    params = k1_sweep._c_params(src)
-    assert [n for n, _ in params] == list(k1_sweep._ARG_NAMES) + ["counter", "stream"]
+    params = kernel_sweep._c_params(src, spec.entry)
+    assert [n for n, _ in params] == list(spec.args) + ["counter", "stream"]
     assert [t for _, t in params] == build._SIGNATURES["hare_grid_shoot"]
     older = ('extern "C" int hare_grid_shoot(const float* o, const float* d, const int* ex, '
              'int n, const int* cell_meta, const float* win_geom, const int* win_ids, '
              'const float* fparams, const int* iparams, float* best_t, int* best_tri, '
              'void* stream) {')
-    assert [n for n, _ in k1_sweep._c_params(older)] == list(k1_sweep._ARG_NAMES) + ["stream"]
+    assert [n for n, _ in kernel_sweep._c_params(older, spec.entry)] == list(spec.args) + ["stream"]
+
+
+# The B2 and B3 entry points of the one-thread-per-ray design, which had no
+# ray counter.
+OLDER_WALKS = {
+    "b2": ('extern "C" int hare_tree_shoot(const float* o, const float* d, const int* ex, int n,'
+           ' const float* child_box, const int* child_info, const float* win_geom,'
+           ' const int* win_ids, float min_t, const int* iparams, float* best_t,'
+           ' int* best_tri, int* pops, int* err, void* stream) {'),
+    "b3": ('extern "C" int hare_ropes_shoot(const float* o, const float* d, const int* ex, int n,'
+           ' const int* node_tab, const float* split, const float* box, const int* leaf_win,'
+           ' const int* ropes, const float* win_geom, const int* win_ids, const float* fparams,'
+           ' const int* iparams, float* best_t, int* best_tri, int* steps, int* err,'
+           ' void* stream) {'),
+}
+
+
+@pytest.mark.parametrize("kernel", ["b1", "b2", "b3"])
+def test_sweep_reads_the_walk_entry_points(kernel):
+    """B1, B2 and B3 are called, in this tree and in a parent, through the
+    parameters each source declares: what the wrapper's *_args function
+    gives, then the ray counter (B2, B3) and the stream."""
+    from hare_tpu_torch.kernels import build
+
+    spec = kernel_sweep.SPECS[kernel]
+    params = kernel_sweep._c_params((build.CSRC / spec.source).read_text(), spec.entry)
+    tail = ["stream"] if kernel == "b1" else ["counter", "stream"]
+    assert [n for n, _ in params] == list(spec.args) + tail
+    assert [t for _, t in params] == build._SIGNATURES[spec.entry]
+    if kernel in OLDER_WALKS:
+        older = kernel_sweep._c_params(OLDER_WALKS[kernel], spec.entry)
+        assert [n for n, _ in older] == list(spec.args) + ["stream"]
+
+
+def test_sweep_reads_a_checkout_flags(tmp_path):
+    """A parent is built with the flags its own build.py names."""
+    from hare_tpu_torch.kernels import build
+
+    root = build.CSRC.parents[2]
+    assert kernel_sweep._nvcc_flags(root) == build.NVCC_FLAGS
+    older = tmp_path / "hare_tpu_torch/kernels"
+    older.mkdir(parents=True)
+    (older / "build.py").write_text('NVCC_FLAGS = (\n    "-O3",\n    "-Xcompiler", "-fPIC",\n)\n')
+    assert kernel_sweep._nvcc_flags(tmp_path) == ("-O3", "-Xcompiler", "-fPIC")
