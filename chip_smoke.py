@@ -42,6 +42,21 @@ per-polygon absorption, on the card.  Phases, one line each:
    counted, checked and held against the plain versions on the CPU for a
    sub-batch; their shoot times, pops or steps per ray, step times,
    Mrays/s and idle shares; stack against ropes.
+8. vertex gradients and the soft histogram: A3 ``finalize_hits_bwd`` on
+   the rays of each bench bounce against its plain version (autograd
+   through the triangle test), element by element; the fixed-order
+   ``scatter_add_ordered`` on A3's corner cotangents of every bounce and
+   on the absorption keys against its plain version on the CPU (to the
+   bit) and one CPU ``index_add_``, timed beside ``index_add_`` on the card
+   (its yardstick); K3's soft mode and its backward on a 3-bounce trace
+   record, all repeatable to the bit; five bench fwd+bwd steps w.r.t.
+   absorption and five w.r.t. the vertices (soft bins) bitwise identical;
+   the bench scene's fwd+bwd w.r.t. the vertices (soft bins, first-moment
+   loss), counted and held against the CPU; and eval config 4 at full
+   size (655,372 triangles, SAH KD tree, 32,768 rays, 2 bounces, 512
+   bins): A3 and the scatter on the rays of each of its bounces as above,
+   then its hard-histogram loss, whose vertex gradient is zero, and the
+   soft first-moment loss, whose is not, every kernel's launches counted.
 
 Any failed check raises: there is no fallback.  The second-to-last line is
 the per-kernel JSON record, the last ``{"ok": true, "device": ...}``.
@@ -63,9 +78,22 @@ RTOL, ATOL = 1e-5, 1e-5
 # Rays whose winning triangle differs between a traversal and B1 may only be
 # equal-t ties (|dt| within RTOL), and at most this share of rays.
 MAX_TIE_SHARE = 1e-3
-# K3 adds with float atomics in a varying order: per-bin sums agree to f32
-# rounding, measured relative to the histogram total.
+# K3 sums in a fixed order of its own, index_add_ in index order: per-bin
+# sums agree to f32 rounding, measured relative to the histogram total.
 HIST_REL_TOL = 1e-5
+# A3 against its plain version in float64: element by element, each ray
+# within hare_tpu_torch.benchmarks.a3_check's A3_TOL of its bound (the size
+# of what it sums times its condition number, plus the effect of rounding
+# its inputs; that module's readings: planted faults fall far outside it);
+# the f32 plain version is read beside.
+# The scatter against one CPU index_add_ (each key's values in index order,
+# uncut, where the kernel adds a long run's 1024-value pieces in order):
+# the same values summed in another order, relative to the largest sum of
+# |values| of a key.
+SCATTER_REL_TOL = 1e-4
+# The soft backward against autograd through the plain soft histogram:
+# the same operations, relative to the largest gradient.
+SOFT_BWD_REL_TOL = 1e-6
 # The small-input reference: the plain versions on the CPU, which the CPU
 # tests hold against the JAX package.  Summed energies and gradients over
 # thousands of lanes, in another order.
@@ -271,6 +299,16 @@ def probe_phase(dev):
 def check(cond, what):
     if not cond:
         raise AssertionError(what)
+
+
+def same_floats(a, b):
+    """Two float tensors equal to the bit."""
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def rel_err(a, b):
+    """max |a - b| over max |b|."""
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
 
 
 def host_time(fn, reps=10):
@@ -620,11 +658,19 @@ def backends_phase(dev, top, grid_sp, rays, batches, absorption, grid_hist):
         th.energy_histogram(r, N_BINS, BIN_DT).sum().backward()
 
     fb3 = host_time(fwd_bwd3, 3)
+    # The absorption gradient's fixed-order scatter on the hall's long runs
+    # (a polygon hit by many of the 1M rays is one serial chain of adds).
+    busy3, per_name3 = step_ms(fwd_bwd3, 2)
+    runs3 = torch.unique(torch.clamp(res3.poly_id[0], min=0), return_counts=True)[1]
     print(f"phase 7 config 3 (concert hall {hall.n_tris} tris, octree, 1M rays, "
           f"{N_BOUNCES} bounces, fwd+bwd): launches {launches}; hit share "
           f"{float(res3.hit.float().mean()):.4f}; grad sum {float(g3.sum()):.4f}; "
           f"{REF_RAYS}-ray CPU reference agrees; {fb3:.3f} ms, "
-          f"{1e6 * N_BOUNCES / fb3 / 1e3:.4f} Mrays/s fwd+bwd")
+          f"{1e6 * N_BOUNCES / fb3 / 1e3:.4f} Mrays/s fwd+bwd; device busy {busy3:.4f} ms a "
+          f"step, of which the absorption gradient's scatter_add_ordered "
+          f"{kernel_ms(per_name3, 'scatter_ordered'):.4f} ms (3 calls; bounce 1's longest run "
+          f"{int(runs3.max())} of {runs3.numel()} polygons) and B2 "
+          f"{kernel_ms(per_name3, 'tree_shoot_kernel'):.4f} ms")
 
     # Config 1: shoebox, brute, 10k rays, 256 bins, forward.
     sp1 = th.SpatialPartition(room, accel="brute", device=dev)
@@ -661,6 +707,342 @@ def backends_phase(dev, top, grid_sp, rays, batches, absorption, grid_hist):
              kdtree=kd_r),
         dict(name="ropes_shoot", route="cuda", source=src + "ropes_shoot.cu",
              replaces="hare_tpu/accel/ropes.py:272", launches=rec_launch["ropes"], **rp_r),
+    ]
+
+
+def vertex_reference(th, sp, rays, absorption, n_bounces, n_bins, step_fn):
+    """The first REF_RAYS rays through ``step_fn`` (``repeat_check.
+    vertex_step``) on the card and, with the scene and structure moved to
+    the CPU, through the plain versions: the histogram and the vertex
+    gradient within REF_RTOL of the largest."""
+    from types import SimpleNamespace
+
+    cpu = torch.device("cpu")
+    sub = th.Ray(*(x[:REF_RAYS] for x in rays))
+    out = []
+    for where in (rays.origin.device, cpu):
+        part = SimpleNamespace(scene=to_device(sp.scene, where), shoot_fn=sp.shoot_fn,
+                               aux=None if sp.aux is None else to_device(sp.aux, where))
+        step = step_fn(th, part, to_device(sub, where), absorption.to(where), n_bounces, n_bins)
+        out.append([x.detach().cpu() for x in step()])
+    for what, k, c in zip(("histogram", "vertex gradient"), *out):
+        check(torch.allclose(k, c, rtol=REF_RTOL, atol=REF_RTOL * float(c.abs().max())),
+              f"{what} differs from the CPU reference by {rel_err(k, c):.3e} of its largest")
+
+
+def a3_phase(label, scene, rays, best_tri, hr, seed, dev):
+    """A3 on one shoot's rays with seeded cotangents against its plain
+    version in float64 on the card: vertex ids equal, every element of
+    d(origin), d(direction), the corner cotangents and the vertex sums
+    within a3_check's tolerance, two launches bitwise equal; the same
+    readings against the f32 plain version, and both f32 sides' largest
+    |diff| from float64 over the largest |g|.  Returns the arguments, the
+    kernel's outputs, the agreement and those float64 readings."""
+    from hare_tpu_torch.accel import common, scatter
+    from hare_tpu_torch.benchmarks import a3_check
+
+    n, n_v = rays.origin.shape[0], scene.vertices.shape[0]
+    args = (scene.vertices, scene.tri_meta, best_tri, hr.t, hr.hit, rays.origin, rays.direction,
+            a3_check.seeded_cotangents(n, seed, dev))
+    k = common.finalize_hits_bwd(*args)
+    p = common.finalize_hits_bwd_plain(*args)
+    p64 = common.finalize_hits_bwd_plain(
+        *(x.double() if x.is_floating_point() else x for x in args[:-1]),
+        tuple(g.double() for g in args[-1]))
+    check(torch.equal(k[2], p[2].to(torch.int32)), f"A3 {label}: vertex ids differ")
+    check(all(same_floats(x, y) for x, y in zip(k, common.finalize_hits_bwd(*args))
+              if x.dtype == torch.float32), f"A3 {label}: two launches differ")
+    bounds = a3_check.ray_bounds(args)
+    agree = a3_check.agreement(k, p64, args, bounds)
+    check(all(r["outside"] == 0 for r in agree.values()),
+          f"A3 {label} differs from its plain version in float64: {agree}")
+    agree32 = a3_check.agreement(k, p, args, bounds)
+    dv = {"kernel": scatter.scatter_add_ordered(k[2], k[3], n_v),
+          "plain": scatter.scatter_add_ordered(p[2].to(torch.int32), p[3], n_v)}
+    dv_64 = scatter.scatter_add_plain(p64[2], p64[3], n_v)
+    f64 = {key: (rel_err(x.double(), y), rel_err(z.double(), y)) for key, x, z, y in (
+        ("d_origin", k[0], p[0], p64[0]), ("d_direction", k[1], p[1], p64[1]),
+        ("d_vertices", dv["kernel"], dv["plain"], dv_64))}
+    err = max(float((x.double() - y).abs().max()) for x, y in (
+        (k[0], p64[0]), (k[1], p64[1]), (dv["kernel"], dv_64)))
+    print(f"phase 8 A3 finalize_hits_bwd {label} ({n} rays, {int(hr.hit.sum())} hits): each ray "
+          f"within {a3_check.A3_TOL} of its bound (a3_check.ray_bounds), the tolerance each "
+          f"needs against the plain version in float64 / in float32: " + ", ".join(
+              f"{key} {r['needed']:.3e} / {agree32[key]['needed']:.3e} ({r['outside']} outside; "
+              f"median |g| {r['median_over_max']:.3e} of the largest)"
+              for key, r in agree.items())
+          + "; largest |diff| from float64 over the largest |g|, kernel / plain f32: "
+          + ", ".join(f"{key} {x:.3e} / {y:.3e}" for key, (x, y) in f64.items())
+          + "; vertex ids equal, two launches bitwise equal")
+    return args, k, {"outputs": agree, "vs_f32_plain": agree32, "max_abs_err": err}, f64
+
+
+def scatter_exact(label, kk, vv, n_keys):
+    """The scatter on ``kk``, ``vv``: equal to its plain version on the CPU
+    to the bit, within SCATTER_REL_TOL of one CPU index_add_ (each key in
+    index order, uncut), two calls bitwise equal.  Returns the sums, that
+    reading and the run lengths."""
+    from hare_tpu_torch.accel import scatter
+
+    out = scatter.scatter_add_ordered(kk, vv, n_keys)
+    cpu = scatter.scatter_add_plain(kk.cpu(), vv.cpu(), n_keys)
+    check(same_floats(out.cpu(), cpu), f"scatter ({label}) differs from its plain version")
+    whole = torch.zeros_like(cpu).index_add_(0, kk.cpu().long(), vv.cpu())
+    mass = torch.zeros_like(cpu).index_add_(0, kk.cpu().long(), vv.cpu().abs())
+    vs_whole = float((out.cpu() - whole).abs().max()) / float(mass.max())
+    check(vs_whole <= SCATTER_REL_TOL, f"scatter ({label}) differs from CPU index_add_ by "
+          f"{vs_whole:.3e} of the largest sum of |values|")
+    check(same_floats(out, scatter.scatter_add_ordered(kk, vv, n_keys)),
+          f"scatter ({label}): two calls differ")
+    runs = torch.unique(kk, return_counts=True)[1]
+    cols = 1 if vv.dim() == 1 else vv.shape[1]
+    print(f"phase 8 scatter_add_ordered, {label} ({kk.numel()} values x {cols} into {n_keys} keys, "
+          f"{runs.numel()} used, longest run {int(runs.max())}, median {int(runs.median())}): "
+          f"equal to its plain version on the CPU to the bit, to one CPU index_add_ within "
+          f"{vs_whole:.3e} of the largest sum of |values|, two calls bitwise equal")
+    return out, vs_whole, runs
+
+
+def gradients_phase(dev, sp, rays, batches, absorption):
+    """Phase 8: vertex gradients and the soft histogram on the bench scene
+    (grid) and eval config 4.  Returns the records of A3, the scatter, K3's
+    soft mode and the soft backward."""
+    import hare_tpu_torch as th
+    from hare_tpu_torch.accel import common, scatter, tree, voxel
+    from hare_tpu_torch.benchmarks import bench_scene, bounds, configs, repeat_check
+    from hare_tpu_torch.trace import bounce
+
+    grid, scene = sp.struct, sp.scene
+    n_v = scene.vertices.shape[0]
+    src = "hare_tpu_torch/kernels/csrc/"
+
+    # ---- 8.1 A3 on the rays of each bounce, seeded cotangents, against its
+    # plain version on the card, element by element (per ray, and summed
+    # onto the vertices).
+    per_bounce, scratches = [], []
+    for b, r in enumerate(batches, 1):
+        n = r.origin.shape[0]
+        best_t, best_tri = voxel.grid_shoot(r, grid)
+        hr = common.finalize_hits(scene, r, best_t, best_tri)
+        args, k, agree, f64 = a3_phase(f"bounce {b}", scene, r, best_tri, hr, b, dev)
+        scratches.append((f"A3 bounce {b} corners", k[2], k[3], n_v))
+        if b == 1:
+            hr1 = hr
+        ms = cuda_time(lambda: common.finalize_hits_bwd(*args), 20)
+        dev_ms = launch_ms(lambda: common.finalize_hits_bwd(*args), 10, "finalize_bwd_kernel")
+        plain_ms = cuda_time(lambda: common.finalize_hits_bwd_plain(*args), 5)
+        bnd = bounds.finalize_hits_bwd_bound(best_tri, hr.hit, scene.tri_meta)
+        per_bounce.append(dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                               max_abs_err=agree["max_abs_err"], agreement=agree["outputs"],
+                               agreement_f32_plain=agree["vs_f32_plain"],
+                               f64_rel_err=f64, bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"]))
+        print(f"phase 8 A3 finalize_hits_bwd bounce {b} ({n} rays): kernel {ms:.4f} ms per call "
+              f"({dev_ms:.4f} ms on the device), plain {plain_ms:.3f} ms; bound "
+              f"{bnd['bound_ms']:.5f} ms ({bnd['bound_by']}: {bnd['bytes'] / 1e6:.2f} MB, "
+              f"{bnd['ops'] / 1e6:.2f} Mop), {bnd['bound_ms'] / dev_ms:.1%} of it")
+    a3 = {key: sum(x[key] for x in per_bounce) / len(per_bounce)
+          for key in ("ms", "device_ms", "plain_ms", "bound_ms")}
+
+    # ---- 8.2 the scatter on A3's scratch of every bounce and on the
+    # absorption gradient's keys: against CPU index_add_, to the bit, and
+    # repeatable; timed on bounce 1's corners and the absorption keys.
+    pid = torch.clamp(hr1.poly_id, min=0)
+    absorb_vals = torch.randn(pid.shape, generator=torch.Generator(device=dev).manual_seed(7),
+                              device=dev)
+    scat = {}
+    for label, kk, vv, n_keys in scratches + [("absorption gradient", pid, absorb_vals,
+                                               scene.n_polys)]:
+        out, vs_whole, runs = scatter_exact(label, kk, vv, n_keys)
+        if label not in ("A3 bounce 1 corners", "absorption gradient"):
+            continue
+        ms = cuda_time(lambda: scatter.scatter_add_ordered(kk, vv, n_keys), 50)
+        dev_ms = launch_ms(lambda: scatter.scatter_add_ordered(kk, vv, n_keys), 10, "scatter_ordered")
+        plain_ms = cuda_time(lambda: scatter.scatter_add_plain(kk, vv, n_keys), 50)
+        lib_out, lib_idx = torch.zeros_like(out), kk.long()
+        library_ms = cuda_time(lambda: lib_out.index_add_(0, lib_idx, vv), 50)
+        library_dev_ms = all_kernels_ms(lambda: lib_out.index_add_(0, lib_idx, vv), 10)
+        cols = 1 if vv.dim() == 1 else vv.shape[1]
+        bnd = bounds.scatter_bound(kk, cols, n_keys)
+        scat[label] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=library_ms,
+                           library_device_ms=library_dev_ms, bound_ms=bnd["bound_ms"],
+                           bound_by=bnd["bound_by"], max_abs_err=0.0, values=kk.numel(),
+                           keys=n_keys, longest_run=int(runs.max()), vs_index_add=vs_whole)
+        print(f"phase 8 scatter_add_ordered timed, {label}: {ms:.4f} ms per call with the sort "
+              f"({dev_ms:.4f} ms the kernel on the device), plain {plain_ms:.4f} ms, index_add_ "
+              f"on the card {library_ms:.4f} ms ({library_dev_ms:.4f} ms on the device); bound "
+              f"{bnd['bound_ms']:.5f} ms ({bnd['bound_by']}), {bnd['bound_ms'] / dev_ms:.1%} of it")
+
+    # ---- 8.3 K3's soft mode and its backward on a 3-bounce trace record;
+    # the first-moment loss's gradient into the backward.
+    with torch.no_grad():
+        res = th.trace_rays(scene, rays, absorption, N_BOUNCES, sp.shoot_fn, aux=sp.aux)
+    lanes = (res.energy, res.time, res.hit)
+    weight = torch.arange(N_BINS, dtype=torch.float32, device=dev)
+
+    def soft():
+        return bounce.histogram_kernel(*lanes, N_BINS, BIN_DT, soft=True)
+
+    def soft_bwd():
+        return bounce.soft_histogram_bwd(*lanes, weight, N_BINS, BIN_DT)
+
+    hs = soft()
+    hs_p = bounce.soft_histogram_plain(*lanes, N_BINS, BIN_DT)
+    total = float(hs_p.sum())
+    soft_err = float((hs - hs_p).abs().max())
+    check(soft_err <= HIST_REL_TOL * total, f"K3 soft differs by {soft_err} of total {total}")
+    check(math.isclose(total, float(res.energy.sum()), rel_tol=1e-5), "K3 soft loses energy")
+    check(same_floats(hs, soft()), "K3 soft: two launches differ")
+    gk = soft_bwd()
+    gp = bounce.soft_histogram_bwd_plain(*lanes, weight, N_BINS, BIN_DT)
+    bwd_rel = max(rel_err(x, y) for x, y in zip(gk, gp))
+    bwd_err = max(float((x - y).abs().max()) for x, y in zip(gk, gp))
+    check(bwd_rel <= SOFT_BWD_REL_TOL, f"the soft backward differs by {bwd_rel:.3e}")
+    check(all(same_floats(x, y) for x, y in zip(gk, soft_bwd())),
+          "the soft backward: two launches differ")
+    k3s = dict(ms=cuda_time(soft, 100), device_ms=launch_ms(soft, 10, "_partials"),
+               plain_ms=cuda_time(lambda: bounce.soft_histogram_plain(*lanes, N_BINS, BIN_DT), 20),
+               max_abs_err=soft_err, library_ms=None,
+               **{k: bounds.histogram_bound(res.hit, N_BINS, soft=True)[k]
+                  for k in ("bound_ms", "bound_by")})
+    sb = dict(ms=cuda_time(soft_bwd, 100), device_ms=launch_ms(soft_bwd, 10, "soft_bwd_kernel"),
+              plain_ms=cuda_time(
+                  lambda: bounce.soft_histogram_bwd_plain(*lanes, weight, N_BINS, BIN_DT), 10),
+              max_abs_err=bwd_err, library_ms=None,
+              **{k: bounds.soft_histogram_bwd_bound(res.hit, N_BINS)[k]
+                 for k in ("bound_ms", "bound_by")})
+    for label, r, extra in (("K3 energy_histogram soft", k3s,
+                             f"max |diff| / total {soft_err / total:.3e}"),
+                            ("K3 soft_histogram_bwd", sb,
+                             f"max |diff| {bwd_rel:.3e} of the largest")):
+        print(f"phase 8 {label} ({res.hit.numel()} lanes, {N_BINS} bins): {extra}, two launches "
+              f"bitwise equal; kernel {r['ms']:.4f} ms per call ({r['device_ms']:.4f} ms on the "
+              f"device), plain {r['plain_ms']:.4f} ms; bound {r['bound_ms']:.5f} ms "
+              f"({r['bound_by']}), {r['bound_ms'] / r['device_ms']:.1%} of it")
+
+    # ---- 8.4 the repair of bitwise repeats: five fwd+bwd steps each.
+    diffs = {
+        "absorption": repeat_check.max_diffs(
+            repeat_check.absorption_step(th, sp, rays, absorption, N_BOUNCES), repeat_check.STEPS),
+        "vertices, soft": repeat_check.max_diffs(
+            repeat_check.vertex_step(th, sp, rays, absorption, N_BOUNCES), repeat_check.STEPS),
+    }
+    check(all(x == 0.0 for v in diffs.values() for x in v),
+          f"a histogram or gradient differs between repeats: {diffs}")
+    print(f"phase 8 repeats (bench scene, grid, {repeat_check.STEPS} fwd+bwd steps each, "
+          f"loss sum(h * arange("
+          f"{N_BINS}))): " + "; ".join(
+        f"w.r.t. {key}: histogram max |diff| {h}, gradient max |diff| {g}"
+        for key, (h, g) in diffs.items()))
+
+    # ---- 8.5 the bench scene's fwd+bwd w.r.t. the vertices, soft bins.
+    counters = (voxel.grid_shoot, common.finalize_hits, th.energy_histogram,
+                common.finalize_hits_bwd, scatter.scatter_add_ordered, bounce.soft_histogram_bwd)
+    names = ("grid_shoot", "finalize_hits", "energy_histogram", "finalize_hits_bwd",
+             "scatter_add_ordered", "soft_histogram_bwd")
+    vstep = repeat_check.vertex_step(th, sp, rays, absorption, N_BOUNCES)
+    for fn in counters:
+        fn.launches = 0
+    hist, grad = vstep()
+    torch.cuda.synchronize()
+    launches = dict(zip(names, (fn.launches for fn in counters)))
+    check(launches["finalize_hits_bwd"] == N_BOUNCES and launches["scatter_add_ordered"] >= N_BOUNCES
+          and launches["energy_histogram"] == 1 and launches["soft_histogram_bwd"] == 1
+          and launches["grid_shoot"] == N_BOUNCES, f"vertex path launches {launches}")
+    check(bool(torch.isfinite(grad).all()) and float(grad.abs().max()) > 0,
+          "bench vertex gradient not finite and non-zero")
+    check(math.isclose(float(hist.detach().sum()), float(N_RAYS * sum(0.7 ** k for k in (1, 2, 3))),
+                       rel_tol=1e-4), "bench soft histogram total")
+    vertex_reference(th, sp, rays, absorption, N_BOUNCES, N_BINS, repeat_check.vertex_step)
+    fb_ms = host_time(vstep, 5)
+    busy, per_name = step_ms(vstep, 3)
+    print(f"phase 8 bench vertex path (grid, soft, loss sum(h * arange({N_BINS}))): launches "
+          f"{launches}; gradient finite, max |g| {float(grad.abs().max()):.4e}; {REF_RAYS}-ray "
+          f"CPU reference agrees; fwd+bwd {fb_ms:.3f} ms, {N_RAYS * N_BOUNCES / fb_ms / 1e3:.4f} "
+          f"Mrays/s; device busy {busy:.4f} ms a step (A3 "
+          f"{kernel_ms(per_name, 'finalize_bwd_kernel'):.4f}, scatter "
+          f"{kernel_ms(per_name, 'scatter_ordered'):.4f}, K3 {kernel_ms(per_name, '_partials'):.4f}, "
+          f"soft backward {kernel_ms(per_name, 'soft_bwd_kernel'):.4f} ms), idle share "
+          f"{1 - busy / fb_ms:.3f}")
+
+    # ---- 8.6 eval config 4 at full size.
+    c4 = configs.config4_setup(dev)
+    sp4, n4 = c4.partition, c4.rays.origin.shape[0]
+    check(c4.topology.n_tris == 655_372, f"config 4 has {c4.topology.n_tris} triangles")
+    st = sp4.struct
+    table_mb = sum(x.numel() * x.element_size() for x in st if isinstance(x, torch.Tensor)) / 1e6
+    print(f"phase 8 config 4 host build: topology {c4.topology_s:.2f} s, KD tree (SAH, "
+          f"max_tris_per_node 8) {c4.kdtree_s:.2f} s: {c4.topology.n_tris} tris, {st.n_nodes} "
+          f"nodes, max_depth {st.max_depth}, stack bound {st.stack}, {table_mb:.1f} MB of tables")
+
+    # A3 and the scatter on the rays of each of config 4's bounces, as in
+    # 8.1 and 8.2: its corner cotangents fall on some 10^5 vertex keys.
+    n_v4 = sp4.scene.vertices.shape[0]
+    for b, r in enumerate(bench_scene.bounce_rays(sp4, c4.rays, c4.absorption, c4.n_bounces),
+                          1):
+        best_t, best_tri = tree.tree_shoot(r, st)
+        hr = common.finalize_hits(sp4.scene, r, best_t, best_tri)
+        _, k, _, _ = a3_phase(f"config 4 bounce {b}", sp4.scene, r, best_tri, hr, 10 + b, dev)
+        scatter_exact(f"config 4 A3 bounce {b} corners", k[2], k[3], n_v4)
+
+    def hard_step():
+        v = sp4.scene.vertices.clone().requires_grad_()
+        r = th.trace_rays(sp4.scene.with_vertices(v), c4.rays, c4.absorption, c4.n_bounces,
+                          sp4.shoot_fn, aux=sp4.aux)
+        h = th.energy_histogram(r, c4.n_bins, BIN_DT)
+        h.sum().backward()
+        return h, v.grad
+
+    soft_step = repeat_check.vertex_step(th, sp4, c4.rays, c4.absorption, c4.n_bounces, c4.n_bins)
+    counters4 = counters + (tree.tree_shoot,)
+    names4 = names + ("tree_shoot",)
+    nb4 = c4.n_bounces
+    # Launches a step.  The hard loss gives time no cotangent, yet autograd
+    # runs A3 (on zero cotangents) and its scatter all the same.
+    want = dict(grid_shoot=0, tree_shoot=nb4, finalize_hits=nb4, finalize_hits_bwd=nb4,
+                energy_histogram=1)
+    for label, fn, want_zero in (("(a) hard histogram sum", hard_step, True),
+                                 ("(b) soft, first moment", soft_step, False)):
+        for f in counters4:
+            f.launches = 0
+        h, g = fn()
+        torch.cuda.synchronize()
+        launches4 = dict(zip(names4, (f.launches for f in counters4)))
+        g = torch.zeros_like(sp4.scene.vertices) if g is None else g
+        check(bool(torch.isfinite(g).all()), f"config 4 {label}: gradient not finite")
+        check(bool((g == 0).all()) if want_zero else float(g.abs().max()) > 0,
+              f"config 4 {label}: gradient {'non-zero' if want_zero else 'zero'}")
+        check(all(launches4[key] == n for key, n in want.items())
+              and launches4["scatter_add_ordered"] >= nb4
+              and launches4["soft_histogram_bwd"] == (0 if want_zero else 1),
+              f"config 4 {label}: launches {launches4}")
+        if not want_zero:
+            vertex_reference(th, sp4, c4.rays, c4.absorption, c4.n_bounces, c4.n_bins,
+                             repeat_check.vertex_step)
+        fb_ms = host_time(fn, 3)
+        busy, per_name = step_ms(fn, 2)
+        parts = ", ".join(f"{part} {kernel_ms(per_name, tag):.4f}" for part, tag in (
+            ("B2", "tree_shoot_kernel"), ("K2", "finalize_kernel"), ("A3", "finalize_bwd_kernel"),
+            ("scatter", "scatter_ordered"), ("K3", "_partials"), ("soft backward", "soft_bwd")))
+        print(f"phase 8 config 4 {label}: launches {launches4}; "
+              f"hit share {float(h.detach().sum()) / (n4 * sum(0.7 ** k for k in (1, 2))):.4f} of the "
+              f"closed-room energy; vertex gradient finite, max |g| {float(g.abs().max()):.4e}"
+              f"{'' if want_zero else f'; {REF_RAYS}-ray CPU reference agrees'}; fwd+bwd "
+              f"{fb_ms:.3f} ms, {n4 * c4.n_bounces / fb_ms / 1e3:.4f} Mrays/s fwd+bwd(vertices); "
+              f"device busy {busy:.4f} ms ({parts} ms), idle share {1 - busy / fb_ms:.3f}")
+
+    return [
+        dict(name="finalize_hits_bwd", route="cuda", source=src + "finalize_bwd.cu",
+             replaces="hare_tpu/accel/common.py:424", launches=launches["finalize_hits_bwd"],
+             max_abs_err=max(x["max_abs_err"] for x in per_bounce), **a3,
+             bound_by=max(per_bounce, key=lambda x: x["bound_ms"])["bound_by"], library_ms=None,
+             bounces=per_bounce),
+        dict(name="scatter_add_ordered", route="cuda", source=src + "scatter.cu",
+             replaces="hare_tpu/accel/common.py:390", launches=launches["scatter_add_ordered"],
+             **scat["A3 bounce 1 corners"], absorption=scat["absorption gradient"]),
+        dict(name="energy_histogram", mode="soft", route="cuda", source=src + "energy_histogram.cu",
+             replaces="hare_tpu/trace/bounce.py:280", launches=launches["energy_histogram"], **k3s),
+        dict(name="soft_histogram_bwd", route="cuda", source=src + "energy_histogram.cu",
+             replaces="hare_tpu/trace/bounce.py:289", launches=launches["soft_histogram_bwd"], **sb),
     ]
 
 
@@ -803,19 +1185,22 @@ def main():
     total = float(hist_p.sum())
     k3_err = float((hist_k - hist_p).abs().max())
     check(k3_err <= HIST_REL_TOL * total, f"K3 differs by {k3_err} of total {total}")
+
     def k3():
         return bounce.histogram_kernel(res.energy, res.time, res.hit, N_BINS, BIN_DT)
 
+    check(same_floats(hist_k, k3()), "K3: two launches differ")
     ms = cuda_time(k3, 100)
-    dev_ms = launch_ms(k3, 10, "histogram_kernel")
+    dev_ms = launch_ms(k3, 10, "_partials")
     plain_ms = cuda_time(
         lambda: bounce.histogram_plain(res.energy, res.time, res.hit, N_BINS, BIN_DT), 100)
     bnd = bounds.histogram_bound(res.hit, N_BINS)
-    print(f"phase 3 K3 energy_histogram: max |diff| / total {k3_err / total:.3e}; "
+    print(f"phase 3 K3 energy_histogram: max |diff| / total {k3_err / total:.3e}, two "
+          f"launches bitwise equal; "
           f"kernel {ms:.4f} ms per call ({dev_ms:.4f} ms on the device), "
           f"plain {plain_ms:.4f} ms; bound {bnd['bound_ms']:.5f} ms ({bnd['bound_by']}: "
           f"{bnd['bytes'] / 1e6:.2f} MB), {bnd['bound_ms'] / dev_ms:.1%} of it")
-    records.append(dict(name="energy_histogram", route="cuda",
+    records.append(dict(name="energy_histogram", mode="hard", route="cuda",
                         source="hare_tpu_torch/kernels/csrc/energy_histogram.cu",
                         replaces="hare_tpu/trace/bounce.py:294", max_abs_err=k3_err,
                         ms=ms, plain_ms=plain_ms, bound_ms=bnd["bound_ms"],
@@ -894,7 +1279,7 @@ def main():
     # Where one fwd+bwd step's device time goes, and how idle the card is.
     busy, per_name = step_ms(fwd_bwd, 3)
     parts = {k: kernel_ms(per_name, tag) for k, tag in (
-        ("K1", "grid_shoot_kernel"), ("K2", "finalize_kernel"), ("K3", "histogram_kernel"))}
+        ("K1", "grid_shoot_kernel"), ("K2", "finalize_kernel"), ("K3", "_partials"))}
     print(f"phase 5 device time per fwd+bwd step: busy {busy:.4f} ms of {fb_ms:.3f} ms "
           f"(idle share {1 - busy / fb_ms:.3f}); K1 {parts['K1']:.4f} ms, K2 "
           f"{parts['K2']:.4f} ms, K3 {parts['K3']:.4f} ms, other kernels "
@@ -905,6 +1290,9 @@ def main():
 
     # ---- phase 7: the brute, octree, KD-tree and rope backends.
     records += backends_phase(dev, top, sp, rays, batches, absorption, hist.detach())
+
+    # ---- phase 8: vertex gradients and the soft histogram.
+    records += gradients_phase(dev, sp, rays, batches, absorption)
 
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -29,6 +29,7 @@ from .common import (
     check_device,
     check_kernel,
     check_rays,
+    detach_rays,
     finalize_hits,
     hit_key,
     key_to_hit,
@@ -54,6 +55,7 @@ def brute_shoot(
     """
     check_kernel(kernel)
     check_rays(rays)
+    rays = detach_rays(rays)
     o, d, ex = rays.origin, rays.direction, rays.exclude_poly
     kind = check_device(o, d, ex, scene.tri_geom, scene.tri_meta)
     if kind == "cpu":
@@ -106,7 +108,7 @@ def brute_shoot_plain(
     check_rays(rays)
     o, d, ex = rays.origin, rays.direction, rays.exclude_poly
     test = ray_triangle_mt if kernel == "mt" else ray_triangle_watertight
-    v, tv = scene.vertices, scene.tri_v.long()
+    v, tv = scene.vertices.detach(), scene.tri_v.long()
     poly, top = scene.tri_meta[:, 0], scene.tri_meta[:, 7]
     best = torch.full((o.shape[0],), NO_HIT_KEY, dtype=torch.int64, device=o.device)
     for s in range(0, tv.shape[0], tri_tile):

@@ -3,8 +3,11 @@
 Counterpart of ``hare_tpu/accel/common.py``.  ``pack_windows`` is a NumPy copy
 (bit-equal tables; the tests check it).  ``test_windows`` is the plain
 PyTorch statement of the candidate test that K1 (``kernels/csrc/
-grid_shoot.cu``) fuses into its march.  ``finalize_hits`` is K2's wrapper:
-the CUDA kernel for CUDA tensors, its plain version for CPU tensors.
+grid_shoot.cu``) fuses into its march.  ``finalize_hits`` is K2's wrapper
+and, where a gradient is wanted, the ``_hit_vals`` custom VJP's counterpart:
+its backward is A3 (``finalize_hits_bwd``), whose vertex cotangents
+``accel.scatter.scatter_add_ordered`` sums onto the vertices.  Each runs its
+CUDA kernel for CUDA tensors, its plain version for CPU tensors.
 
 Nearest-hit reductions use one int64 *hit key* per candidate,
 ``float_bits(t) << 32 | tri_id``: for the positive t of an accepted hit the
@@ -31,7 +34,10 @@ __all__ = [
     "check_device",
     "check_kernel",
     "check_rays",
+    "detach_rays",
     "finalize_hits",
+    "finalize_hits_bwd",
+    "finalize_hits_bwd_plain",
     "finalize_hits_plain",
     "hit_key",
     "key_to_hit",
@@ -184,6 +190,18 @@ def check_rays(rays: Ray) -> None:
         raise TypeError("rays.exclude_poly must be int32")
 
 
+def detach_rays(rays: Ray) -> Ray:
+    """The rays as a traversal takes them: outside the autograd graph, as
+    the JAX package stops the gradient at every traversal's inputs
+    (``voxel.py:489-490``, ``tree.py:278-279``, ``ropes.py:307-308``).  The
+    gradient w.r.t. origins and directions comes from the finalize
+    backward alone."""
+    o, d = rays.origin, rays.direction
+    if o.requires_grad or d.requires_grad:
+        return Ray(o.detach(), d.detach(), rays.exclude_poly)
+    return rays
+
+
 def hit_key(t: torch.Tensor, tri: torch.Tensor) -> torch.Tensor:
     """int64 key ordering hits by (t, tri id); valid for t > 0."""
     return (t.contiguous().view(torch.int32).to(torch.int64) << 32) | tri.to(
@@ -327,18 +345,6 @@ def ray_counter(device: torch.device) -> torch.Tensor:
     return counter
 
 
-def _check_no_grad(scene: Scene, rays: Ray) -> None:
-    for name, x in (("scene.vertices", scene.vertices),
-                    ("rays.origin", rays.origin),
-                    ("rays.direction", rays.direction)):
-        if x.requires_grad:
-            raise NotImplementedError(
-                f"{name} requires grad: the hit-finalize backward (vertex and "
-                "ray gradients) is not ported yet, and a silent zero gradient "
-                "is not allowed"
-            )
-
-
 def finalize_hits_plain(
     scene: Scene,
     rays: Ray,
@@ -379,28 +385,15 @@ def finalize_hits_plain(
     )
 
 
-def finalize_hits(
+def _finalize_kernel(
     scene: Scene,
     rays: Ray,
     best_t: torch.Tensor,
     best_tri: torch.Tensor,
-    kernel: str = "watertight",
+    kernel: str,
 ) -> HitRecord:
-    """K2: the hit record of the traversal winners (``best_t`` decides the
-    hit mask; t, u, v are re-solved on the winner's plane, unmasked).
-    ``best_tri`` must hold -1 or a row of ``scene.tri_geom``, as
-    :func:`~.voxel.grid_shoot` returns.
-
-    CUDA tensors launch ``kernels/csrc/finalize_hits.cu``; CPU tensors take
-    :func:`finalize_hits_plain`.  Raises if a gradient would be needed
-    through the hit values — that backward is a later port.
-    """
-    check_kernel(kernel)
-    _check_no_grad(scene, rays)
+    """K2 on CUDA tensors (``kernels/csrc/finalize_hits.cu``)."""
     o, d = rays.origin, rays.direction
-    kind = check_device(scene.tri_geom, o, d, best_t, best_tri)
-    if kind == "cpu":
-        return finalize_hits_plain(scene, rays, best_t, best_tri, kernel)
     n = o.shape[0]
     t_rows = scene.tri_geom.shape[0]
     if (o.shape != (n, 3) or d.shape != (n, 3) or best_t.shape != (n,)
@@ -429,6 +422,164 @@ def finalize_hits(
         int(kernel == "mt"), *out,
     )
     return out
+
+
+def _finalize_forward(scene, rays, best_t, best_tri, kernel) -> HitRecord:
+    if check_device(scene.tri_geom, rays.origin, rays.direction, best_t, best_tri) == "cpu":
+        return finalize_hits_plain(scene, rays, best_t, best_tri, kernel)
+    return _finalize_kernel(scene, rays, best_t, best_tri, kernel)
+
+
+def _vals_live_plain(kernel: str, corners: torch.Tensor, o: torch.Tensor, d: torch.Tensor):
+    """The live recompute (``_vals_live``, ``common.py:387-397``): the
+    unmasked (t, u, v) and the normal of triangles given by their corners
+    ``(N, 3, 3)``."""
+    v0, v1, v2 = corners[:, 0], corners[:, 1], corners[:, 2]
+    e1, e2 = v1 - v0, v2 - v0
+    _, t, u, v = kernel_components(
+        kernel,
+        tuple(o[:, c] for c in range(3)),
+        tuple(d[:, c] for c in range(3)),
+        tuple(v0[:, c] for c in range(3)) + tuple(e1[:, c] for c in range(3))
+        + tuple(e2[:, c] for c in range(3)),
+        unmasked=True,
+    )
+    normal = torch.stack([
+        e1[:, 1] * e2[:, 2] - e1[:, 2] * e2[:, 1],
+        e1[:, 2] * e2[:, 0] - e1[:, 0] * e2[:, 2],
+        e1[:, 0] * e2[:, 1] - e1[:, 1] * e2[:, 0],
+    ], dim=-1)
+    return t, u, v, normal
+
+
+def finalize_hits_bwd_plain(
+    vertices: torch.Tensor,
+    tri_meta: torch.Tensor,
+    best_tri: torch.Tensor,
+    t: torch.Tensor,
+    hit: torch.Tensor,
+    o: torch.Tensor,
+    d: torch.Tensor,
+    cotangents: Tuple[torch.Tensor, ...],
+    kernel: str = "watertight",
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of A3: autograd through :func:`_vals_live_plain` over
+    the winners' live corners and the point ``o + where(hit, t, 0) d``, as
+    ``jax.vjp`` of ``_vals_live`` (``common.py:424-431``) with the point
+    around it (:460-462).  ``cotangents`` are those of t, u, v, point and
+    normal.  Returns ``(d_origin (N, 3), d_direction (N, 3), keys (3N,)
+    i32, d_corner (3N, 3))``: each corner's cotangent beside its vertex id.
+    ``t`` is unused: the live t has the forward's bits where ``tri_geom``
+    holds the live vertices (``Scene.with_vertices``)."""
+    del t
+    iv = tri_meta[torch.clamp(best_tri, min=0).long(), 4:7]
+    with torch.enable_grad():
+        corners = vertices.detach()[iv.long()].requires_grad_()
+        oo, dd = o.detach().requires_grad_(), d.detach().requires_grad_()
+        tl, ul, vl, normal = _vals_live_plain(kernel, corners, oo, dd)
+        th = torch.where(hit, tl, 0.0)
+        outs = (th, torch.where(hit, ul, 0.0), torch.where(hit, vl, 0.0),
+                torch.where(hit[:, None], oo + th[:, None] * dd, 0.0), normal)
+        g_corner, g_o, g_d = torch.autograd.grad(outs, (corners, oo, dd), cotangents)
+    return g_o, g_d, iv.reshape(-1), g_corner.reshape(-1, 3)
+
+
+def finalize_hits_bwd(
+    vertices: torch.Tensor,
+    tri_meta: torch.Tensor,
+    best_tri: torch.Tensor,
+    t: torch.Tensor,
+    hit: torch.Tensor,
+    o: torch.Tensor,
+    d: torch.Tensor,
+    cotangents: Tuple[torch.Tensor, ...],
+    kernel: str = "watertight",
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A3: the finalize backward per ray, as :func:`finalize_hits_bwd_plain`
+    returns it.  CUDA tensors launch ``kernels/csrc/finalize_bwd.cu``, whose
+    closed form serves both triangle tests; CPU tensors take the plain
+    version."""
+    if check_device(vertices, tri_meta, best_tri, t, hit, o, d, *cotangents) == "cpu":
+        return finalize_hits_bwd_plain(vertices, tri_meta, best_tri, t, hit, o, d,
+                                       cotangents, kernel)
+    n = o.shape[0]
+    shapes = [(n,)] * 3 + [(n, 3)] * 2
+    if (len(cotangents) != 5 or any(g.shape != sh for g, sh in zip(cotangents, shapes))
+            or o.shape != (n, 3) or d.shape != (n, 3) or not best_tri.shape == t.shape
+            == hit.shape == (n,) or vertices.shape[1:] != (3,) or tri_meta.shape[1:] != (8,)):
+        raise ValueError("finalize_hits_bwd: ray, winner, table or cotangent (t, u, v, "
+                         "point, normal) shapes disagree")
+    f = dict(dtype=torch.float32, device=o.device)
+    d_o, d_d = torch.empty(n, 3, **f), torch.empty(n, 3, **f)
+    keys = torch.empty(3 * n, dtype=torch.int32, device=o.device)
+    d_corner = torch.empty(3 * n, 3, **f)
+    finalize_hits_bwd.launches += 1
+    build.launch(
+        "hare_finalize_hits_bwd", _contig(vertices, torch.float32),
+        _contig(tri_meta, torch.int32), _contig(best_tri, torch.int32), _contig(t, torch.float32),
+        _contig(hit, torch.bool), _contig(o, torch.float32), _contig(d, torch.float32),
+        *(_contig(g, torch.float32) for g in cotangents), n, d_o, d_d, keys, d_corner,
+    )
+    return d_o, d_d, keys, d_corner
+
+
+finalize_hits_bwd.launches = 0
+
+
+class _FinalizeHits(torch.autograd.Function):
+    """The hit record, differentiable in the vertices and the rays
+    (``_hit_vals`` with its custom VJP, ``common.py:400-434``, and the
+    point around it).  Forward: K2 from ``scene.tri_geom``; backward: A3 at
+    the live ``vertices``, its corner cotangents summed onto them by
+    :func:`~.scatter.scatter_add_ordered`.  ``tri_geom`` gets no cotangent,
+    so the gradient reaches the vertices exactly once."""
+
+    @staticmethod
+    def forward(ctx, vertices, o, d, scene, exclude, best_t, best_tri, kernel):
+        hr = _finalize_forward(scene, Ray(o, d, exclude), best_t, best_tri, kernel)
+        ctx.mark_non_differentiable(hr.hit, hr.poly_id, hr.tri_id, hr.edge_nbr)
+        ctx.save_for_backward(vertices, scene.tri_meta, best_tri, hr.t, hr.hit, o, d)
+        ctx.kernel = kernel
+        return tuple(hr)
+
+    @staticmethod
+    def backward(ctx, _hit, g_t, g_u, g_v, g_point, _poly, _tri, g_normal, _nbr):
+        from .scatter import scatter_add_ordered  # scatter imports this module
+
+        vertices, tri_meta, best_tri, t, hit, o, d = ctx.saved_tensors
+        d_o, d_d, keys, d_corner = finalize_hits_bwd(
+            vertices, tri_meta, best_tri, t, hit, o, d, (g_t, g_u, g_v, g_point, g_normal),
+            ctx.kernel)
+        d_v = None
+        if ctx.needs_input_grad[0]:
+            d_v = scatter_add_ordered(keys, d_corner, vertices.shape[0])
+        return d_v, d_o, d_d, None, None, None, None, None
+
+
+def finalize_hits(
+    scene: Scene,
+    rays: Ray,
+    best_t: torch.Tensor,
+    best_tri: torch.Tensor,
+    kernel: str = "watertight",
+) -> HitRecord:
+    """K2: the hit record of the traversal winners (``best_t`` decides the
+    hit mask; t, u, v are re-solved on the winner's plane, unmasked).
+    ``best_tri`` must hold -1 or a row of ``scene.tri_geom``, as
+    :func:`~.voxel.grid_shoot` returns.
+
+    CUDA tensors launch ``kernels/csrc/finalize_hits.cu``; CPU tensors take
+    :func:`finalize_hits_plain`.  Where ``scene.vertices``, the origins or
+    the directions require grad, the record is differentiable in them
+    (t, u, v, point, normal): the backward is A3 (:func:`finalize_hits_bwd`)
+    at the live vertices, as the JAX package's custom VJP.
+    """
+    check_kernel(kernel)
+    o, d, v = rays.origin, rays.direction, scene.vertices
+    if torch.is_grad_enabled() and (v.requires_grad or o.requires_grad or d.requires_grad):
+        return HitRecord(*_FinalizeHits.apply(v, o, d, scene, rays.exclude_poly, best_t,
+                                              best_tri, kernel))
+    return _finalize_forward(scene, rays, best_t, best_tri, kernel)
 
 
 finalize_hits.launches = 0

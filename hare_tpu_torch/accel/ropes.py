@@ -55,6 +55,7 @@ from .common import (
     check_device,
     check_kernel,
     check_rays,
+    detach_rays,
     finalize_hits,
     key_to_hit,
     note_rows,
@@ -355,6 +356,7 @@ def ropes_shoot(
     """
     check_kernel(kernel)
     check_rays(rays)
+    rays = detach_rays(rays)
     o, d, ex = rays.origin, rays.direction, rays.exclude_poly
     kind = check_device(o, d, ex, tree.node, tree.win_geom)
     if kind == "cpu":

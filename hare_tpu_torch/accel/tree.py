@@ -53,6 +53,7 @@ from .common import (
     check_device,
     check_kernel,
     check_rays,
+    detach_rays,
     finalize_hits,
     key_to_hit,
     note_rows,
@@ -288,6 +289,7 @@ def tree_shoot(
     """
     check_kernel(kernel)
     check_rays(rays)
+    rays = detach_rays(rays)
     o, d, ex = rays.origin, rays.direction, rays.exclude_poly
     kind = check_device(o, d, ex, tree.child_box, tree.win_geom)
     if kind == "cpu":

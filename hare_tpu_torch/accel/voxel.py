@@ -39,6 +39,7 @@ from .common import (
     check_device,
     check_kernel,
     check_rays,
+    detach_rays,
     finalize_hits,
     key_to_hit,
     pack_windows,
@@ -394,6 +395,7 @@ def grid_shoot(
     """
     check_kernel(kernel)
     check_rays(rays)
+    rays = detach_rays(rays)
     o, d, ex = rays.origin, rays.direction, rays.exclude_poly
     kind = check_device(o, d, ex, grid.cell_meta, grid.win_geom)
     if kind == "cpu":

@@ -39,11 +39,14 @@ __all__ = [
     "brute_shoot_bound",
     "column_sum_bound",
     "finalize_hits_bound",
+    "finalize_hits_bwd_bound",
     "gather_sum_bound",
     "grid_shoot_bound",
     "histogram_bound",
     "rows_work",
     "runs_work",
+    "scatter_bound",
+    "soft_histogram_bwd_bound",
     "walk_bound",
 ]
 
@@ -70,8 +73,26 @@ FINALIZE_EXTRA_OPS = 2 + 9 + 6
 SLAB_OPS = 12
 # One rope step's exit face (ropes_shoot.cu): per axis (far - o) / d.
 EXIT_OPS = 6
-# K3 per hit lane: time / bin_dt (1), the add into the bin (1).
-HISTOGRAM_OPS = 2
+# K3 per hit lane, hard: time / bin_dt (1), the add into the bin (1); soft:
+# pos = time / bin_dt - 0.5 (2), x = pos - i0 (1), e_hi = e frac (1),
+# e_lo = e - e_hi (1), the adds into two bins (2).
+HISTOGRAM_OPS = {False: 2, True: 7}
+# The soft backward per hit lane: pos (2), x (1), G[hi] - G[lo] (1), times
+# frac (1), plus G[lo] (1), times e (1), over bin_dt (1).
+SOFT_BWD_OPS = 8
+# A3 per ray (finalize_bwd.cu), at the fewest: e1, e2 (6) and the normal's
+# two crosses (18) on every ray; on a hit ray also t's cotangent with the
+# point's (6), t d's (3), s (3), six crosses P, Q, e1 x e2, e1 x d, e2 x s,
+# d x s (54), det (5), 1 / det (1), t, u, v (18), their and det's scaled
+# cotangents (3 + 6), the three-term sums of s, d, e1, e2 (15 + 3 x 18),
+# d(origin) (3) and the first corner (6).
+FINALIZE_BWD_OPS = {False: 6 + 18, True: 201}
+# A3 per ray: best_tri, the forward t, hit, origin, direction and the
+# cotangents of t, u, v, point, normal in; d(origin), d(direction), three
+# vertex ids and three corner cotangents out.
+FINALIZE_BWD_RAY_BYTES = (4 + 4 + 1 + 24 + 12 + 24) + (24 + 12 + 36)
+VERTEX_BYTES = 12  # one (3,) f32 vertex
+TRI_V_BYTES = 12  # tri_meta lanes 4-6: a triangle's vertex ids
 
 RAY_BYTES = 12 + 12 + 8  # origin, direction (f32), exclusions (2 x i32)
 NEAREST_BYTES = 4 + 4  # best_t (f32), best_tri (i32)
@@ -188,11 +209,39 @@ def finalize_hits_bound(best_tri: torch.Tensor, kernel: str = "watertight") -> D
     return bound(ops, nbytes)
 
 
-def histogram_bound(hit: torch.Tensor, n_bins: int) -> Dict[str, object]:
+def histogram_bound(hit: torch.Tensor, n_bins: int, soft: bool = False) -> Dict[str, object]:
     """K3: energy, time (f32) and hit (bool) of every lane in, the bins out;
-    two operations a hit lane."""
+    ``HISTOGRAM_OPS[soft]`` operations a hit lane."""
     n = hit.numel()
-    return bound(int(hit.sum()) * HISTOGRAM_OPS, n * (4 + 4 + 1) + n_bins * 4)
+    return bound(int(hit.sum()) * HISTOGRAM_OPS[soft], n * (4 + 4 + 1) + n_bins * 4)
+
+
+def soft_histogram_bwd_bound(hit: torch.Tensor, n_bins: int) -> Dict[str, object]:
+    """The soft backward: every lane's energy, time and hit and the bins'
+    gradient in, d(energy) and d(time) out."""
+    n = hit.numel()
+    return bound(int(hit.sum()) * SOFT_BWD_OPS, n * (9 + 8) + n_bins * 4)
+
+
+def finalize_hits_bwd_bound(best_tri: torch.Tensor, hit: torch.Tensor,
+                            tri_meta: torch.Tensor) -> Dict[str, object]:
+    """A3 on one shoot's winners: ``FINALIZE_BWD_RAY_BYTES`` a ray, the
+    vertex ids of each distinct triangle read (misses read triangle 0) and
+    each distinct vertex of them once; ``FINALIZE_BWD_OPS`` a hit or a miss
+    ray."""
+    n, hits = best_tri.shape[0], int(hit.sum())
+    tris = torch.unique(torch.clamp(best_tri, min=0).long())
+    verts = int(torch.unique(tri_meta[tris, 4:7]).numel())
+    nbytes = n * FINALIZE_BWD_RAY_BYTES + tris.numel() * TRI_V_BYTES + verts * VERTEX_BYTES
+    ops = hits * FINALIZE_BWD_OPS[True] + (n - hits) * FINALIZE_BWD_OPS[False]
+    return bound(ops, nbytes)
+
+
+def scatter_bound(keys: torch.Tensor, cols: int, n_keys: int) -> Dict[str, object]:
+    """The scatter-add's function: each key (i32) and value (``cols`` f32)
+    read once, the ``n_keys`` sums written once; one add a value."""
+    m = keys.numel()
+    return bound(m * cols, m * (4 + 4 * cols) + n_keys * 4 * cols)
 
 
 def column_sum_bound(rows: int, cols: int) -> Dict[str, object]:

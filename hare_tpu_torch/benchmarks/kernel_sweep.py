@@ -188,7 +188,7 @@ CANDIDATES = {
     ),
 }
 
-_C_TYPES = {"int": ctypes.c_int, "float": ctypes.c_float}
+_C_TYPES = {"int": ctypes.c_int, "float": ctypes.c_float, "long": ctypes.c_longlong}
 
 
 def variant_source(src: str, replacements) -> str:

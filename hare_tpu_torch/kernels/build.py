@@ -53,7 +53,10 @@ _SIGNATURES = {
     "hare_tree_shoot": [_P, _P, _P, _I, _P, _P, _P, _P, _F, _P, _P, _P, _P, _P, _P, _P],
     "hare_ropes_shoot": [_P, _P, _P, _I] + [_P] * 7 + [_P, _P, _P, _P, _P, _P, _P, _P],
     "hare_finalize_hits": [_P, _P, _P, _P, _P, _P, _I, _I] + [_P] * 9 + [_P],
-    "hare_energy_histogram": [_P, _P, _P, _LL, _I, _F, _P, _P],
+    "hare_finalize_hits_bwd": [_P] * 12 + [_I] + [_P] * 5,
+    "hare_scatter_add_ordered": [_P, _P, _P, _LL, _I, _LL, _I, _P, _P, _P],
+    "hare_energy_histogram": [_P, _P, _P, _LL, _I, _F, _I, _P, _LL, _P, _P],
+    "hare_soft_histogram_bwd": [_P, _P, _P, _P, _LL, _I, _F, _P, _P, _P],
     "hare_column_sum": [_P, _LL, _I, _I, _P, _P, _P],
     "hare_gather_sum_f32": [_P, _LL, _I, _P, _I, _I, _P, _P],
     "hare_gather_sum_i32": [_P, _LL, _I, _P, _I, _I, _P, _P],

@@ -3,8 +3,9 @@
 Counterpart of ``hare_tpu/mesh/scene.py``.  One layout change: the JAX
 ``tri_geom`` row (T, 16) carries int32 ids bitcast into f32 lanes 9-15.  Here
 those ids stay int32 in ``tri_meta`` and ``tri_geom`` is the (T, 9) f32
-geometry block, so no id ever passes through float data movement.
-``with_vertices`` waits for the vertex-gradient port.
+geometry block, so no id ever passes through float data movement, and
+``with_vertices`` refreshes the geometry without the TPU's int-domain
+splice (``hare_tpu/mesh/scene.py:132-148``).
 """
 
 from __future__ import annotations
@@ -52,3 +53,24 @@ class Scene(NamedTuple):
     @property
     def n_polys(self) -> int:
         return self.poly_plane.shape[0]
+
+    def with_vertices(self, vertices: torch.Tensor) -> "Scene":
+        """``Set_Vertex`` (``Hare_Geometry_Topology.cs:506-511``): the same
+        topology at new coordinates, ``hare_tpu/mesh/scene.py:111-149``.
+
+        ``tri_geom`` is recomputed from ``vertices`` (v0 | v1 - v0 | v2 - v0
+        in f32, bit-equal to the JAX package's lanes 0-8), so every backend's
+        forward sees the live coordinates; the traversal tables keep their
+        build-time geometry (rebuild the structure after large moves).  The
+        rows are computed without autograd, as the JAX package stops their
+        gradient: the finalize backward (``accel.common.finalize_hits``)
+        takes d/d(vertices) from the live vertices, exactly once.
+        """
+        if self.tri_geom.shape[0] == 0 or vertices.shape[0] == 0:
+            return self._replace(vertices=vertices)
+        with torch.no_grad():
+            v = vertices.to(self.tri_geom.dtype)
+            tv = self.tri_v.long()
+            v0, v1, v2 = v[tv[:, 0]], v[tv[:, 1]], v[tv[:, 2]]
+            tri_geom = torch.cat([v0, v1 - v0, v2 - v0], dim=1)
+        return self._replace(vertices=vertices, tri_geom=tri_geom)

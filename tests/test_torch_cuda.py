@@ -13,17 +13,30 @@ torch = pytest.importorskip("torch")
 
 import hare_tpu_torch as th  # noqa: E402
 from hare_tpu_torch.accel.brute import brute_shoot, brute_shoot_plain  # noqa: E402
-from hare_tpu_torch.accel.common import finalize_hits, finalize_hits_plain  # noqa: E402
+from hare_tpu_torch.accel.common import (  # noqa: E402
+    finalize_hits,
+    finalize_hits_bwd,
+    finalize_hits_bwd_plain,
+    finalize_hits_plain,
+)
 from hare_tpu_torch.accel.kdtree import build_kdtree  # noqa: E402
 from hare_tpu_torch.accel.octree import build_octree  # noqa: E402
 from hare_tpu_torch.accel.ropes import build_kdtree_ropes, ropes_shoot, ropes_shoot_plain  # noqa: E402
+from hare_tpu_torch.accel.scatter import scatter_add_ordered, scatter_add_plain  # noqa: E402
 from hare_tpu_torch.accel.tree import tree_shoot, tree_shoot_plain  # noqa: E402
 from hare_tpu_torch.accel.voxel import build_voxel_grid, grid_shoot, grid_shoot_plain  # noqa: E402
+from hare_tpu_torch.benchmarks import a3_check  # noqa: E402
 from hare_tpu_torch.benchmarks import pallas_probe as probes  # noqa: E402
 from hare_tpu_torch.benchmarks.bench_scene import bounce_rays  # noqa: E402
 from hare_tpu_torch.geom.intersect import ray_triangle_mt, ray_triangle_watertight  # noqa: E402
 from hare_tpu_torch.mesh import shapes  # noqa: E402
-from hare_tpu_torch.trace.bounce import histogram_kernel, histogram_plain  # noqa: E402
+from hare_tpu_torch.trace.bounce import (  # noqa: E402
+    histogram_kernel,
+    histogram_plain,
+    soft_histogram_bwd,
+    soft_histogram_bwd_plain,
+    soft_histogram_plain,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -573,16 +586,145 @@ def test_finalize_matches_plain(dev, kernel):
 
 
 def test_histogram_matches_plain(dev):
+    """K3, hard and soft bins, one tile of bins and many (any n_bins fits),
+    against its plain version; two launches give the same bits."""
     g = torch.Generator(device=dev).manual_seed(0)
     energy = torch.rand(3, 50_000, generator=g, device=dev)
     time = torch.rand(3, 50_000, generator=g, device=dev) * 1.2 - 0.1
     hit = torch.rand(3, 50_000, generator=g, device=dev) < 0.9
-    for n_bins in (1024, 20_000):  # shared-memory and global-atomic paths
-        hk = histogram_kernel(energy, time, hit, n_bins, 1e-3)
-        hp = histogram_plain(energy, time, hit, n_bins, 1e-3)
-        # Float atomics add in a varying order: per-bin sums agree to f32
-        # rounding of the bin total.
-        torch.testing.assert_close(hk, hp, rtol=1e-5, atol=1e-5 * float(hp.abs().max()))
+    for soft, plain in ((False, histogram_plain), (True, soft_histogram_plain)):
+        for n_bins in (1024, 2048, 20_000):
+            hk = histogram_kernel(energy, time, hit, n_bins, 1e-3, soft=soft)
+            hp = plain(energy, time, hit, n_bins, 1e-3)
+            # K3 sums in a fixed order of its own, index_add_ in index order:
+            # per-bin sums agree to f32 rounding of the bin total.
+            torch.testing.assert_close(hk, hp, rtol=1e-5, atol=1e-5 * float(hp.abs().max()))
+            again = histogram_kernel(energy, time, hit, n_bins, 1e-3, soft=soft)
+            assert torch.equal(hk.view(torch.int32), again.view(torch.int32))
+
+
+def test_soft_histogram_bwd_matches_plain(dev):
+    """The soft backward against autograd through the plain soft histogram,
+    times at bin centres (JAX's clip gradient, 1/2) included; two launches
+    give the same bits."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    n_bins = 512
+    energy = torch.rand(3, 40_000, generator=g, device=dev)
+    time = torch.rand(3, 40_000, generator=g, device=dev) * 0.6 - 0.01
+    time[0, :100] = (torch.arange(100, device=dev, dtype=torch.float32) + 0.5) * 2.0 ** -10
+    hit = torch.rand(3, 40_000, generator=g, device=dev) < 0.9
+    hit[0, :100] = True
+    grad = torch.randn(n_bins, generator=g, device=dev)
+    bin_dt = 2.0 ** -10  # bin centres exact in f32
+    dk = soft_histogram_bwd(energy, time, hit, grad, n_bins, bin_dt)
+    dp = soft_histogram_bwd_plain(energy, time, hit, grad, n_bins, bin_dt)
+    for k, p in zip(dk, dp):
+        torch.testing.assert_close(k, p, rtol=1e-6, atol=1e-6 * float(p.abs().max()))
+    again = soft_histogram_bwd(energy, time, hit, grad, n_bins, bin_dt)
+    for k, a in zip(dk, again):
+        assert torch.equal(k.view(torch.int32), a.view(torch.int32))
+    # At a bin centre: half of energy (G[hi] - G[lo]) / bin_dt.
+    lo = torch.arange(100, device=dev)
+    half = 0.5 * energy[0, :100] * (grad[torch.clamp(lo + 1, max=n_bins - 1)] - grad[lo]) / bin_dt
+    torch.testing.assert_close(dk[1][0, :100], half, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("cols", [1, 3])
+@pytest.mark.parametrize("m, n_keys", [(1, 4), (5000, 3), (300_000, 40_000), (1_000_000, 200)])
+def test_scatter_matches_cpu(dev, m, n_keys, cols):
+    """The fixed-order scatter on the card equals its plain version on the
+    CPU to the bit (index_add_ a segment of sorted positions, the segments
+    in order), with long runs (few keys), many short ones and unused keys;
+    two launches give the same bits."""
+    rng = np.random.default_rng(m + cols)
+    keys = (rng.zipf(1.5, m) % n_keys).astype(np.int32)  # skewed: long runs
+    values = rng.normal(size=(m,) if cols == 1 else (m, cols)).astype(np.float32)
+    k_t, v_t = torch.from_numpy(keys), torch.from_numpy(values)
+    want = scatter_add_plain(k_t, v_t, n_keys)
+    got = scatter_add_ordered(k_t.to(dev), v_t.to(dev), n_keys)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    again = scatter_add_ordered(k_t.to(dev), v_t.to(dev), n_keys)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
+def bwd_inputs(dev, kernel, n=4096, seed=5):
+    """The hall's grid winners of ``n`` rays and seeded cotangents."""
+    top = th.Topology.build(shapes.concert_hall())
+    sp = th.SpatialPartition(top, avg_polys=12.0, kernel=kernel, device=dev)
+    rays = rays_of(np.random.default_rng(seed), 2.0, 16.0, n, dev)
+    best_t, best_tri = grid_shoot(rays, sp.struct, kernel)
+    hr = finalize_hits(sp.scene, rays, best_t, best_tri, kernel)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cts = tuple(torch.randn(shape, generator=g, device=dev)
+                for shape in ((n,), (n,), (n,), (n, 3), (n, 3)))
+    return sp.scene, rays, best_tri, hr, cts
+
+
+# A3's closed form against autograd through the plain triangle test: the
+# same VJP in another order of operations; relative to the largest
+# cotangent, where a grazing ray (det near 0) magnifies the rounding.
+BWD_RTOL, BWD_ATOL = 1e-3, 1e-4
+
+
+@pytest.mark.parametrize("kernel", ["watertight", "mt"])
+def test_finalize_backward_matches_plain(dev, kernel):
+    """A3 against its plain version on the card: per ray d(origin),
+    d(direction), the vertex ids and the corner cotangents, and the
+    scattered vertex gradient; every element within a3_check's bound of
+    the plain version in float64; two launches give the same bits."""
+    scene, rays, best_tri, hr, cts = bwd_inputs(dev, kernel)
+    args = (scene.vertices, scene.tri_meta, best_tri, hr.t, hr.hit, rays.origin, rays.direction,
+            cts)
+    k = finalize_hits_bwd(*args, kernel)
+    p = finalize_hits_bwd_plain(*args, kernel)
+    assert torch.equal(k[2], p[2].to(torch.int32))
+    p64 = finalize_hits_bwd_plain(
+        *(x.double() if x.is_floating_point() else x for x in args[:-1]),
+        tuple(g.double() for g in cts), kernel)
+    agree = a3_check.agreement(k, p64, args, a3_check.ray_bounds(args))
+    assert all(r["outside"] == 0 for r in agree.values()), agree
+    for a, b in zip((k[0], k[1], k[3]), (p[0], p[1], p[3])):
+        torch.testing.assert_close(a, b, rtol=BWD_RTOL, atol=BWD_ATOL * float(b.abs().max()))
+    n_v = scene.vertices.shape[0]
+    dv_k = scatter_add_ordered(k[2], k[3], n_v)
+    dv_p = scatter_add_plain(p[2], p[3], n_v)
+    torch.testing.assert_close(dv_k, dv_p, rtol=BWD_RTOL, atol=BWD_ATOL * float(dv_p.abs().max()))
+    again = finalize_hits_bwd(*args, kernel)
+    for a, b in zip(k, again):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("accel", ["brute", "grid", "octree", "kdtree", "kdtree_ropes"])
+def test_vertex_grads_on_card_match_cpu(dev, accel):
+    """d/d(vertices) of the soft histogram's first moment and of sum(t *
+    energy) on hits, 2 bounces, through each backend on the card (A3, the
+    scatter, K3 soft and its backward) against the plain versions on the
+    CPU; the card's gradient repeats to the bit."""
+    faces = shapes.shoebox(4, 5, 3) + shapes.icosphere(2, radius=0.7, center=(2.0, 3.5, 1.2))
+    top = th.Topology.build(faces)
+    out = {}
+    for where in ("cpu", dev):
+        sp = th.SpatialPartition(top, accel=accel, device=where)
+        rays = rays_of(np.random.default_rng(9), 0.3, 2.7, 2048, where)
+        a = torch.full((top.n_polys,), 0.3, device=where)
+        w = torch.arange(64, dtype=torch.float32, device=where)
+
+        def grads():
+            v = sp.scene.vertices.clone().requires_grad_()
+            res = th.trace_rays(sp.scene.with_vertices(v), rays, a, 2, sp.shoot_fn, aux=sp.aux)
+            h = th.energy_histogram(res, 64, 1e-3, soft=True)
+            loss = (h * w).sum() + torch.where(res.hit, res.t, 0.0).mul(res.energy).sum()
+            loss.backward()
+            return h.detach(), v.grad
+
+        out[str(where)] = [x.cpu() for x in grads()]
+        if where != "cpu":
+            again = grads()
+            assert all(torch.equal(x.view(torch.int32), y.cpu().view(torch.int32))
+                       for x, y in zip(out[str(where)], again))
+    for c, k in zip(out["cpu"], out[str(dev)]):
+        assert bool(torch.isfinite(k).all())
+        torch.testing.assert_close(k, c, rtol=1e-4, atol=1e-4 * float(c.abs().max()))
 
 
 def test_trace_on_card_matches_cpu(dev):

@@ -10,12 +10,13 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import hare_tpu_torch as th  # noqa: E402
-from hare_tpu_torch.accel.common import finalize_hits  # noqa: E402
+from hare_tpu_torch.accel.common import finalize_hits, finalize_hits_bwd  # noqa: E402
+from hare_tpu_torch.accel.scatter import scatter_add_ordered  # noqa: E402
 from hare_tpu_torch.accel.voxel import grid_shoot  # noqa: E402
 from hare_tpu_torch.benchmarks import pallas_probe  # noqa: E402
 from hare_tpu_torch.kernels import build  # noqa: E402
 from hare_tpu_torch.mesh import shapes  # noqa: E402
-from hare_tpu_torch.trace.bounce import histogram_kernel  # noqa: E402
+from hare_tpu_torch.trace.bounce import histogram_kernel, soft_histogram_bwd  # noqa: E402
 
 # The port's entry points place tensors on "cuda" unless told otherwise;
 # these tests run the plain versions on the CPU.
@@ -102,20 +103,8 @@ def test_unported_trace_features_raise(room):
                       scattering=torch.zeros(room.n_polys))
     with pytest.raises(NotImplementedError, match="remat"):
         th.trace_rays(sp.scene, rays, a, 2, sp.shoot_fn, aux=sp.aux, remat=True)
-    res = th.trace_rays(sp.scene, rays, a, 2, sp.shoot_fn, aux=sp.aux)
-    with pytest.raises(NotImplementedError, match="soft"):
-        th.energy_histogram(res, 16, soft=True)
     with pytest.raises(ValueError, match="kernel"):
         th.SpatialPartition(room, domain=4, kernel="fast", device=CPU)
-
-
-def test_vertex_gradient_request_raises(room):
-    """The finalize backward is not ported: no silent zero gradient."""
-    sp = th.SpatialPartition(room, domain=4, device=CPU)
-    scene = sp.scene._replace(vertices=sp.scene.vertices.clone().requires_grad_())
-    rays = th.Ray.make(torch.full((4, 3), 1.0), torch.tensor([[1.0, 0.0, 0.0]] * 4))
-    with pytest.raises(NotImplementedError, match="vertices"):
-        sp.shoot_fn(scene, rays)
 
 
 def test_wrappers_never_fall_back(room):
@@ -136,6 +125,18 @@ def test_wrappers_never_fall_back(room):
     res = th.TraceResult(torch.ones(2, 3, dtype=torch.bool, device=meta), e, e, None, None, None)
     with pytest.raises(ValueError, match="meta"):
         th.energy_histogram(res, 8)
+    with pytest.raises(ValueError, match="meta"):
+        th.energy_histogram(res, 8, soft=True)
+    with pytest.raises(ValueError, match="meta"):
+        soft_histogram_bwd(e, e, res.hit, torch.ones(8, device=meta), 8, 1e-3)
+    with pytest.raises(ValueError, match="meta"):
+        scatter_add_ordered(torch.zeros(4, dtype=torch.int32, device=meta),
+                            torch.ones(4, device=meta), 2)
+    ids = torch.zeros(4, dtype=torch.int32, device=meta)
+    cts = (rays.origin[:, 0],) * 3 + (rays.origin,) * 2
+    with pytest.raises(ValueError, match="meta"):
+        finalize_hits_bwd(scene.vertices.to(meta), scene.tri_meta.to(meta), ids,
+                          rays.origin[:, 0], ids.bool(), rays.origin, rays.direction, cts)
     if torch.cuda.is_available():
         return  # the rest is about hosts without a card
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -6,9 +6,11 @@ plain traversal hands ``test_runs``, ``common.tally_rows`` the node rows a
 plain tree or rope walk reads; ``benchmarks/bounds.py`` turns counts and
 shapes into each kernel's bound.  Hand-counted rays through a small grid
 and a two-leaf tree, and the counts against the plain march on the JAX
-package's parity scenes.  The design sweep's candidates apply to the built
-kernel sources, and it calls a parent through the parameters its source
-declares.
+package's parity scenes.  The design sweep's candidates and A3's planted
+faults apply to the built kernel sources, and they are called through the
+parameters each source declares; every C entry point's ctypes signature
+matches its declaration.  A3's element-by-element agreement counts what
+lies outside its tolerance.
 """
 
 import numpy as np
@@ -21,10 +23,11 @@ from hare_tpu_torch.accel import common, voxel  # noqa: E402
 from hare_tpu_torch.accel.kdtree import build_kdtree  # noqa: E402
 from hare_tpu_torch.accel.ropes import build_kdtree_ropes, ropes_shoot_plain  # noqa: E402
 from hare_tpu_torch.accel.tree import tree_shoot_plain  # noqa: E402
-from hare_tpu_torch.benchmarks import bounds  # noqa: E402
+from hare_tpu_torch.benchmarks import a3_check, bounds  # noqa: E402
 from hare_tpu_torch.benchmarks import kernel_sweep  # noqa: E402
 from hare_tpu_torch.benchmarks.bench_scene import bounce_rays  # noqa: E402
 from hare_tpu_torch.geom.intersect import MIN_T  # noqa: E402
+from hare_tpu_torch.kernels import build  # noqa: E402
 from hare_tpu_torch.mesh import shapes  # noqa: E402
 
 # The port's entry points place tensors on "cuda" unless told otherwise;
@@ -245,6 +248,27 @@ def test_bounds_from_shapes():
     assert k3["ops"] == 3 * 2 and k3["bytes"] == 4 * 9 + 16 * 4 and k3["bound_by"] == "bytes"
 
 
+def test_gradient_bounds_from_shapes():
+    hit = torch.tensor([[True, False], [True, True]])
+    # K3 soft: 7 operations a hit lane, the same bytes as hard.
+    soft = bounds.histogram_bound(hit, 16, soft=True)
+    assert soft["ops"] == 3 * 7 and soft["bytes"] == 4 * 9 + 16 * 4
+    sb = bounds.soft_histogram_bwd_bound(hit, 16)
+    assert sb["ops"] == 3 * 8 and sb["bytes"] == 4 * 17 + 16 * 4
+    # A3: rays 0 and 1 share triangle 1, ray 2 misses (triangle 0); the
+    # two triangles share two of their four vertices.
+    tri_meta = torch.zeros(3, 8, dtype=torch.int32)
+    tri_meta[0, 4:7] = torch.tensor([0, 1, 2])
+    tri_meta[1, 4:7] = torch.tensor([2, 1, 3])
+    a3 = bounds.finalize_hits_bwd_bound(torch.tensor([1, 1, -1], dtype=torch.int32),
+                                        torch.tensor([True, True, False]), tri_meta)
+    assert a3["ops"] == 2 * 201 + 24
+    assert a3["bytes"] == 3 * 141 + 2 * 12 + 4 * 12 and a3["bound_by"] == "bytes"
+    # The scatter: keys and (M, 3) values in, the sums out.
+    sc = bounds.scatter_bound(torch.zeros(10, dtype=torch.int32), 3, 4)
+    assert sc["ops"] == 30 and sc["bytes"] == 10 * 16 + 4 * 12
+
+
 @pytest.mark.parametrize("label, replacements, flags", kernel_sweep.CANDIDATES["k1"],
                          ids=[c[0] for c in kernel_sweep.CANDIDATES["k1"]])
 def test_k1_sweep_candidates_apply(label, replacements, flags):
@@ -347,3 +371,143 @@ def test_sweep_reads_a_checkout_flags(tmp_path):
     older.mkdir(parents=True)
     (older / "build.py").write_text('NVCC_FLAGS = (\n    "-O3",\n    "-Xcompiler", "-fPIC",\n)\n')
     assert kernel_sweep._nvcc_flags(tmp_path) == ("-O3", "-Xcompiler", "-fPIC")
+
+
+@pytest.mark.parametrize("entry", sorted(build._SIGNATURES))
+def test_signatures_match_the_sources(entry):
+    """Each C entry point is bound with the argument types its source
+    declares, in order, the stream last."""
+    decls = [src.read_text() for src in sorted(build.CSRC.glob("*.cu"))]
+    found = [d for d in decls if f'extern "C" int {entry}(' in d]
+    assert len(found) == 1
+    params = kernel_sweep._c_params(found[0], entry)
+    assert [t for _, t in params] == build._SIGNATURES[entry]
+    assert params[-1][0] == "stream"
+
+
+@pytest.mark.parametrize("label, replacements", a3_check.FAULTS,
+                         ids=[f[0] for f in a3_check.FAULTS])
+def test_a3_faults_apply(label, replacements):
+    """Each planted fault of A3 is the built finalize_bwd.cu with one
+    statement replaced, found exactly once; the fault is called through
+    the parameters the source declares."""
+    from hare_tpu_torch.kernels import build
+
+    src = (build.CSRC / "finalize_bwd.cu").read_text()
+    out = kernel_sweep.variant_source(src, replacements)
+    assert out != src and len(replacements) == 1
+    params = kernel_sweep._c_params(out, "hare_finalize_hits_bwd")
+    assert [n for n, _ in params] == list(a3_check.A3_PARAMS) + ["stream"]
+    with pytest.raises(ValueError):
+        kernel_sweep.variant_source("", replacements)
+
+
+def a3_case(rng, n):
+    """A3 arguments for ``n`` rays, each hitting its own right triangle of
+    the plane z = i nearly square (condition 1 to 1.1), with cotangents
+    between 0.5 and 1 in size; and random outputs of that size."""
+    corners = torch.tensor([[0, 0, 0], [1, 0, 0], [0, 1, 0]], dtype=torch.float32)
+    vertices = (corners[None] + torch.arange(n, dtype=torch.float32)[:, None, None]).reshape(-1, 3)
+    tri_meta = torch.zeros(n, 8, dtype=torch.int32)
+    tri_meta[:, 4:7] = torch.arange(3 * n, dtype=torch.int32).reshape(n, 3)
+    d = torch.tensor(rng.uniform(-0.1, 0.1, (n, 3)), dtype=torch.float32)
+    d[:, 2] = -1.0
+    o = torch.tensor(rng.uniform(0.2, 0.3, (n, 3)), dtype=torch.float32)
+    o[:, 2] += torch.arange(n, dtype=torch.float32) + 1.0
+    t = o[:, 2] - torch.arange(n, dtype=torch.float32)
+
+    def vals(*shape):
+        mag = rng.uniform(0.5, 1.0, shape) * rng.choice([-1.0, 1.0], shape)
+        return torch.tensor(mag, dtype=torch.float32)
+
+    args = (vertices, tri_meta, torch.arange(n, dtype=torch.int32), t,
+            torch.ones(n, dtype=torch.bool), o, d,
+            (vals(n), vals(n), vals(n), vals(n, 3), vals(n, 3)))
+    p = (vals(n, 3), vals(n, 3), tri_meta[:, 4:7].reshape(-1).clone(), vals(3 * n, 3))
+    return args, p
+
+
+def test_a3_condition():
+    """A ray square to its triangle has condition 1; one at 60 degrees to
+    the normal 2; one in the plane, or on a degenerate triangle, inf."""
+    vertices = torch.tensor([[0, 0, 0], [2, 0, 0], [0, 3, 0], [4, 0, 0]], dtype=torch.float32)
+    tri_meta = torch.zeros(2, 8, dtype=torch.int32)
+    tri_meta[0, 4:7] = torch.tensor([0, 1, 2])
+    tri_meta[1, 4:7] = torch.tensor([0, 1, 3])  # collinear corners
+    d = torch.tensor([[0, 0, -1], [3 ** 0.5 / 2, 0, 0.5], [1, 1, 0], [0, 0, 1]],
+                     dtype=torch.float32)
+    cond = a3_check.condition(vertices, tri_meta, torch.tensor([0, 0, -1, 1]), d)
+    assert cond[0] == 1.0 and abs(float(cond[1]) - 2.0) < 1e-6
+    assert torch.isinf(cond[2:]).all()
+
+
+def test_a3_jacobian_mass():
+    """|J|^T |g| bounds |J^T g| element by element, and equals it where
+    every cotangent but one is zero and that one is positive."""
+    def vjp64(args):
+        return common.finalize_hits_bwd_plain(
+            *(x.double() if x.is_floating_point() else x for x in args[:-1]),
+            tuple(c.double() for c in args[-1]))
+
+    args, _ = a3_case(np.random.default_rng(5), 16)
+    got = vjp64(args)
+    for m, g in zip(a3_check.jacobian_mass(args), (got[0], got[1], got[3])):
+        assert (g.abs() <= m * (1 + 1e-12)).all()
+    only_t = (args[-1][0].abs(),) + tuple(torch.zeros_like(c) for c in args[-1][1:])
+    one = args[:-1] + (only_t,)
+    got = vjp64(one)
+    for m, g in zip(a3_check.jacobian_mass(one), (got[0], got[1], got[3])):
+        torch.testing.assert_close(m, g.abs(), rtol=1e-12, atol=1e-12 * float(m.max()))
+
+
+def test_a3_input_sensitivity():
+    """The effect of rounding the inputs is finite and non-negative, and
+    for d(direction) it grows against |J|^T |g| as the origin nears the
+    plane it hits (t from 1.2 to 1e-3): there the rounding of o - v0 moves
+    t by far more than t's own size suggests."""
+    args, _ = a3_case(np.random.default_rng(6), 16)
+    sens = a3_check.input_sensitivity(args)
+    assert all(torch.isfinite(x).all() and (x >= 0).all() for x in sens)
+    o = args[5].clone()
+    o[:, 2] = torch.arange(16, dtype=torch.float32) + 1e-3  # just above each plane
+    near = a3_check.input_sensitivity(args[:5] + (o,) + args[6:])
+    assert float(near[1].amax(1).min()) > 0
+    mass_far = a3_check.jacobian_mass(args)[1].amax(1)
+    mass_near = a3_check.jacobian_mass(args[:5] + (o,) + args[6:])[1].amax(1)
+    assert (near[1].amax(1) / mass_near > sens[1].amax(1) / mass_far).all()
+
+
+def test_a3_agreement_counts_outside():
+    """agreement holds each ray to A3_TOL x its bound (its condition x its
+    largest |J|^T |g| element, plus its largest input sensitivity), and
+    each vertex sum to the sum of its corners' bounds; it counts what lies
+    beyond, a non-finite element among it."""
+    n = 64
+    args, p = a3_case(np.random.default_rng(3), n)
+    mass = a3_check.jacobian_mass(args)
+    sens = a3_check.input_sensitivity(args)
+    bounds = a3_check.ray_bounds(args)
+    same = a3_check.agreement(p, p, args, bounds)
+    assert set(same) == {"d_origin", "d_direction", "d_corner", "d_vertices"}
+    assert all(r["outside"] == 0 and r["needed"] == 0 for r in same.values())
+    assert all(0 < r["median_over_max"] <= 1 for r in same.values())
+    cond = a3_check.condition(args[0], args[1], args[2], args[6])
+    assert 1.0 <= float(cond.min()) and float(cond.max()) < 1.1
+    for b, m, e in zip(bounds, mass, sens):  # cond x the row's largest mass, + its largest sens
+        rows = (cond * m.amax(1) if m.shape[0] == n else cond * m.reshape(n, 9).amax(1))
+        rows = rows + e.reshape(n, -1).amax(1)
+        torch.testing.assert_close(b.reshape(n, -1), rows[:, None].expand(n, b.numel() // n))
+    k = list(p)
+    k[0] = p[0].clone()
+    k[0][0, 0] += 0.5 * a3_check.A3_TOL * float(bounds[0][0, 0])  # inside
+    k[0][1, 1] += 2.0 * a3_check.A3_TOL * float(bounds[0][1, 1])  # outside
+    k[0][2, 2] = float("nan")
+    k[1] = p[1] + 2.0 * a3_check.A3_TOL * bounds[1].float()
+    k[3] = p[3].clone()
+    k[3][0] += 1e3 * float(bounds[2].max())  # ray 0's first corner and its vertex
+    got = a3_check.agreement(tuple(k), p, args, bounds)
+    assert got["d_origin"]["outside"] == 2
+    assert got["d_direction"]["outside"] == 3 * n
+    assert 1.9 * a3_check.A3_TOL < got["d_direction"]["needed"] < 2.1 * a3_check.A3_TOL
+    assert got["d_corner"]["outside"] == 3
+    assert got["d_vertices"]["outside"] == 3
