@@ -87,7 +87,8 @@ HIST_REL_TOL = 1e-5
 # its inputs; that module's readings: planted faults fall far outside it);
 # the f32 plain version is read beside.
 # The scatter against one CPU index_add_ (each key's values in index order,
-# uncut, where the kernel adds a long run's 1024-value pieces in order):
+# uncut, where the kernel adds a key's sums over 1024-position chunks in
+# order):
 # the same values summed in another order, relative to the largest sum of
 # |values| of a key.
 SCATTER_REL_TOL = 1e-4
@@ -547,7 +548,7 @@ def backends_phase(dev, top, grid_sp, rays, batches, absorption, grid_hist):
           f"{room_sc.tri_geom.shape[0]} triangle rows with padding): bit-equal to its plain "
           f"version; kernel {c1_ms:.4f} ms per call ({c1_dev_ms:.4f} ms on the device), plain "
           f"{c1_plain_ms:.4f} ms; bound {c1_bound['bound_ms']:.6f} ms ({c1_bound['bound_by']}), "
-          f"{c1_bound['bound_ms'] / c1_dev_ms:.2%} of it")
+          f"{c1_bound['bound_ms'] / c1_dev_ms:.2%} of it; one ray a thread, one slab")
     # B1 against the float64 oracle on 1,000 config-1 rays (tests/test_brute.py).
     o_np, d_np = (x[:1000].double().cpu().numpy() for x in (c1_rays.origin, c1_rays.direction))
     refs = [oracle_shoot(room, o_np[i], d_np[i]) for i in range(1000)]
@@ -576,7 +577,11 @@ def backends_phase(dev, top, grid_sp, rays, batches, absorption, grid_hist):
           f"{b1_ms:.3f} ms per call ({b1_dev_ms:.3f} ms on the device, "
           f"{N_RAYS * top.n_tris / b1_dev_ms / 1e6:.1f} G tests/s); plain {b1_plain_ms:.3f} ms; "
           f"bound {b1_bound['bound_ms']:.4f} ms ({b1_bound['bound_by']}), "
-          f"{b1_bound['bound_ms'] / b1_dev_ms:.1%} of it")
+          f"{b1_bound['bound_ms'] / b1_dev_ms:.1%} of it; 2 rays a thread in triangle slabs. "
+          f"The bound counts {bounds.TRI_TEST_OPS['watertight']} operations a test at "
+          f"{bounds.PEAK_FP32 / 1e12:.0f} TFLOP/s, a fused multiply-add as two; built with "
+          f"-fmad=false each product and sum issues apart, so a kernel at the card's full "
+          f"issue rate would read about 50% of it")
     print("phase 7 against B1 on the first bounce: " + "; ".join(
         "{}: tie flips {}, max |dt| {:.3e}".format(label, *nearest_agree(f"{label} vs B1", k, b1)[::-1])
         for label, k in ((label, walk_out[label]) for label, *_ in walks)))
@@ -856,6 +861,7 @@ def gradients_phase(dev, sp, rays, batches, absorption):
         if label not in ("A3 bounce 1 corners", "absorption gradient"):
             continue
         ms = cuda_time(lambda: scatter.scatter_add_ordered(kk, vv, n_keys), 50)
+        host_ms = host_time(lambda: scatter.scatter_add_ordered(kk, vv, n_keys), 200)
         dev_ms = launch_ms(lambda: scatter.scatter_add_ordered(kk, vv, n_keys), 10, "scatter_ordered")
         plain_ms = cuda_time(lambda: scatter.scatter_add_plain(kk, vv, n_keys), 50)
         lib_out, lib_idx = torch.zeros_like(out), kk.long()
@@ -863,13 +869,15 @@ def gradients_phase(dev, sp, rays, batches, absorption):
         library_dev_ms = all_kernels_ms(lambda: lib_out.index_add_(0, lib_idx, vv), 10)
         cols = 1 if vv.dim() == 1 else vv.shape[1]
         bnd = bounds.scatter_bound(kk, cols, n_keys)
-        scat[label] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=library_ms,
+        scat[label] = dict(ms=ms, host_ms=host_ms, device_ms=dev_ms, plain_ms=plain_ms,
+                           library_ms=library_ms,
                            library_device_ms=library_dev_ms, bound_ms=bnd["bound_ms"],
                            bound_by=bnd["bound_by"], max_abs_err=0.0, values=kk.numel(),
                            keys=n_keys, longest_run=int(runs.max()), vs_index_add=vs_whole)
-        print(f"phase 8 scatter_add_ordered timed, {label}: {ms:.4f} ms per call with the sort "
-              f"({dev_ms:.4f} ms the kernel on the device), plain {plain_ms:.4f} ms, index_add_ "
-              f"on the card {library_ms:.4f} ms ({library_dev_ms:.4f} ms on the device); bound "
+        print(f"phase 8 scatter_add_ordered timed, {label}: host {host_ms:.4f} ms per call (wall, "
+              f"200 calls), {ms:.4f} ms per call by CUDA events, {dev_ms:.4f} ms on the device "
+              f"(its two kernels); plain {plain_ms:.4f} ms; index_add_ on the card "
+              f"{library_ms:.4f} ms per call ({library_dev_ms:.4f} ms on the device); bound "
               f"{bnd['bound_ms']:.5f} ms ({bnd['bound_by']}), {bnd['bound_ms'] / dev_ms:.1%} of it")
 
     # ---- 8.3 K3's soft mode and its backward on a 3-bounce trace record;

@@ -6,7 +6,11 @@ must agree with.  :func:`brute_shoot` is B1 (``kernels/csrc/brute_shoot.cu``,
 one thread per ray, triangles staged in shared-memory tiles) for CUDA
 tensors and :func:`brute_shoot_plain` — a tiled (rays x tris) test — for
 CPU tensors.  The winner goes through K2 (``finalize_hits``) for its
-``HitRecord``, as for every other backend.
+``HitRecord``, as for every other backend.  The kernel splits the
+triangles into slabs where the rays alone would not fill the card and
+merges each ray's slabs with a 64-bit ``atomicMin`` on its hit key
+(``common.hit_key``); a min is exact, so the result is the plain version's
+to the bit whatever the split.
 
 Acceptance (``Voxel_Grid.cs:475-499``, JAX ``brute.py:106-119``): valid,
 ``t > min_t``, the polygon is in neither exclusion slot, ``tri_poly != -2``
@@ -16,7 +20,7 @@ on equal t the lowest triangle index.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -37,6 +41,19 @@ from .common import (
 
 __all__ = ["brute_shoot", "brute_shoot_args", "brute_shoot_plain", "shoot_brute"]
 
+# The kernel's per-ray hit keys, where it merges triangle slabs: one int64
+# buffer per (device index, raw stream), filled with NO_HIT_KEY when made
+# or grown and left holding it by every launch, so a shoot needs no fill.
+_KEYS: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _keys(device: torch.device, n: int) -> torch.Tensor:
+    key = (device.index, torch._C._cuda_getCurrentRawStream(device.index))
+    buf = _KEYS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _KEYS[key] = torch.full((n,), NO_HIT_KEY, dtype=torch.int64, device=device)
+    return buf
+
 
 def brute_shoot(
     scene: Scene,
@@ -49,9 +66,11 @@ def brute_shoot(
     """B1: nearest accepted hit over all triangles, ``(best_t (N,) f32 — inf
     on miss, best_tri (N,) i32 — -1 on miss)``.
 
-    CUDA tensors launch ``kernels/csrc/brute_shoot.cu``; CPU tensors take
+    CUDA tensors launch ``kernels/csrc/brute_shoot.cu`` (one ctypes call:
+    the kernel, and where it split the triangles into slabs, a small one
+    that reads the merged keys out); CPU tensors take
     :func:`brute_shoot_plain`, whose tiles ``tri_tile`` sizes (the kernel's
-    shared-memory tile is its own constant).
+    shared-memory tile and slabs are its own).
     """
     check_kernel(kernel)
     check_rays(rays)
@@ -84,13 +103,14 @@ def brute_shoot_args(
     top_index: Optional[int] = None,
 ) -> tuple:
     """The arguments of the C entry point ``hare_brute_shoot`` up to the
-    outputs (tensors as tensors, for :func:`~..kernels.build.launch`); the
-    stream follows."""
+    outputs (tensors as tensors, for :func:`~..kernels.build.launch`),
+    the cached hit keys of ``best_t``'s device and the current stream
+    included; the stream follows."""
     o, d, ex = rays.origin, rays.direction, rays.exclude_poly
     return (o.contiguous(), d.contiguous(), ex.contiguous(), o.shape[0],
             scene.tri_geom.contiguous(), scene.tri_meta.contiguous(), scene.tri_geom.shape[0],
             float(min_t), -1 if top_index is None else int(top_index),
-            int(kernel == "mt"), best_t, best_tri)
+            int(kernel == "mt"), _keys(best_t.device, o.shape[0]), best_t, best_tri)
 
 
 def brute_shoot_plain(

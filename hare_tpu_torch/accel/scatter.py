@@ -7,47 +7,67 @@ welded vertices (the transpose of ``vertices[iv[:, k]]``,
 polygons (the transpose of ``absorption[pid]``,
 ``hare_tpu/trace/bounce.py:194``).  On CUDA, PyTorch's own scatter-add is a
 float atomic, whose order, and so whose last bits, change from run to run.
-:func:`scatter_add_ordered` sums in an order fixed by the keys alone, on the
-card (``kernels/csrc/scatter.cu``) as on the CPU, so two runs give the same
-bits and the card gives the CPU's bits.
+:func:`scatter_add_ordered` sums in an order fixed by the positions alone,
+on the card (``kernels/csrc/scatter.cu``) as on the CPU, so two runs give
+the same bits and the card gives the CPU's bits.
 
-The order: a stable sort of the keys makes each key's values one run of
-sorted positions, in increasing index; the positions are cut into segments
-of ``SEGMENT``; each run's part in a segment is summed in index order from
-zero, and a run's parts are added in segment order.  A run inside one
-segment is summed exactly as ``index_add_`` sums it.  Cutting the runs
-keeps each chain of dependent adds on the card at most ``SEGMENT`` long:
-one chain a key made a wall hit by 147k rays cost milliseconds.
+The order: the original positions are cut into chunks of ``CHUNK``
+consecutive indices; inside a chunk each key's values are summed from +0.0
+in index order; a key's chunk sums are added, from +0.0, in chunk order.
+A fold from +0.0 never gives -0.0, so a chunk without the key adds an
+exact no-op, and a key whose values lie in one chunk is summed exactly as
+``index_add_`` sums it.  Cutting the positions keeps each chain of
+dependent adds on the card at most ``CHUNK`` long: one chain a key made a
+wall hit by 147k rays cost milliseconds.
 """
 
 from __future__ import annotations
+
+from typing import Dict, Tuple
 
 import torch
 
 from ..kernels import build
 from .common import check_device
 
-__all__ = ["gather_rows", "scatter_add_ordered", "scatter_add_plain"]
+__all__ = ["CHUNK", "gather_rows", "scatter_add_ordered", "scatter_add_plain"]
 
 # Value widths the kernel takes: (M,) or (M, 3).
 SCATTER_COLS = (1, 3)
-# Sorted positions summed apart before a run's parts are added; the kernel
-# takes it as an argument.
-SEGMENT = 1024
+# Original positions summed apart before a key's chunk sums are added.  The
+# kernel is passed it and refuses any chunk but its own.
+CHUNK = 1024
+
+# The kernel's scratch (per chunk its distinct keys, their sums and their
+# count), one int32 buffer per (device index, raw stream), grown on demand.
+# Every word the kernel reads it wrote in the same call, so it is never
+# reset.
+_SCRATCH: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def scatter_add_plain(keys: torch.Tensor, values: torch.Tensor, n_keys: int) -> torch.Tensor:
-    """Plain version, in the kernel's order: a stable sort of the keys, each
-    segment of ``SEGMENT`` sorted positions summed by key with
-    ``index_add_`` into zeros (on the CPU, in index order), the segments'
-    sums added in order.  Keys outside ``[0, n_keys)`` raise."""
-    order = torch.sort(keys, stable=True)[1]
-    k, v = keys[order].long(), values[order]
+    """Plain version, in the kernel's order: each chunk of ``CHUNK``
+    original positions summed by key with ``index_add_`` into zeros (on the
+    CPU, in index order), the chunks' sums added in order.  Keys outside
+    ``[0, n_keys)`` raise."""
+    k = keys.long()
+    if k.numel() and (int(k.min()) < 0 or int(k.max()) >= n_keys):
+        raise IndexError(f"scatter_add_plain: keys outside [0, {n_keys})")
     out = torch.zeros((n_keys,) + tuple(values.shape[1:]), dtype=values.dtype,
                       device=values.device)
-    for s in range(0, k.shape[0], SEGMENT):
-        out += torch.zeros_like(out).index_add_(0, k[s:s + SEGMENT], v[s:s + SEGMENT])
+    for s in range(0, k.shape[0], CHUNK):
+        out += torch.zeros_like(out).index_add_(0, k[s:s + CHUNK], values[s:s + CHUNK])
     return out
+
+
+def _scratch(device: torch.device, words: int) -> torch.Tensor:
+    key = (device.index, torch._C._cuda_getCurrentRawStream(device.index))
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < words:
+        # Launches on one stream run in turn, and the caching allocator
+        # hands a freed buffer only to later work of its stream.
+        buf = _SCRATCH[key] = torch.empty(words, dtype=torch.int32, device=device)
+    return buf
 
 
 def scatter_add_ordered(keys: torch.Tensor, values: torch.Tensor, n_keys: int) -> torch.Tensor:
@@ -55,11 +75,10 @@ def scatter_add_ordered(keys: torch.Tensor, values: torch.Tensor, n_keys: int) -
     above: ``(n_keys,)`` or ``(n_keys, 3)`` f32 from ``keys`` (M,) int32 and
     ``values`` (M,) or (M, 3) f32.
 
-    CUDA tensors sort the keys (``torch.sort(stable=True)``, which keeps
-    equal keys in index order) and launch ``kernels/csrc/scatter.cu`` for
-    the sums; CPU tensors take :func:`scatter_add_plain`.  The two agree to
-    the bit.  Keys outside ``[0, n_keys)`` raise on the CPU and are dropped
-    on the card.
+    CUDA tensors launch ``kernels/csrc/scatter.cu`` (one ctypes call, the
+    output the one allocation: no sort, no fill); CPU tensors take
+    :func:`scatter_add_plain`.  The two agree to the bit.  Keys outside
+    ``[0, n_keys)`` raise on the CPU and are dropped on the card.
     """
     if check_device(keys, values) == "cpu":
         return scatter_add_plain(keys, values, n_keys)
@@ -70,13 +89,14 @@ def scatter_add_ordered(keys: torch.Tensor, values: torch.Tensor, n_keys: int) -
     if keys.shape != (m,) or values.shape[0] != m or values.dim() > 2 or cols not in SCATTER_COLS:
         raise ValueError(f"keys (M,) and values (M,) or (M, 3); got {tuple(keys.shape)}, "
                          f"{tuple(values.shape)}")
-    sorted_keys, perm = torch.sort(keys, stable=True)
-    pieces = torch.empty(max(m * cols, 1), dtype=torch.float32, device=values.device)
-    out = torch.zeros((n_keys,) + tuple(values.shape[1:]), dtype=torch.float32,
+    # The words the kernel's scratch takes; it refuses fewer.
+    words = -(-m // CHUNK) * (CHUNK * (1 + cols) + 1)
+    buf = _scratch(values.device, words)
+    out = torch.empty((n_keys,) + tuple(values.shape[1:]), dtype=torch.float32,
                       device=values.device)
     scatter_add_ordered.launches += 1
-    build.launch("hare_scatter_add_ordered", sorted_keys, perm, values.contiguous(), m, cols,
-                 SEGMENT, n_keys, pieces, out)
+    build.launch("hare_scatter_add_ordered", keys.contiguous(), values.contiguous(), m, cols,
+                 n_keys, CHUNK, buf, buf.numel(), out)
     return out
 
 

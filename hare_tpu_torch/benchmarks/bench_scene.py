@@ -77,12 +77,11 @@ def profile_kernels(fn, reps: int) -> Dict[str, Tuple[float, int]]:
 
 
 def device_ms(fn, tag: str, reps: int) -> float:
-    """Device milliseconds of one launch of the kernel named ``*tag*`` that
-    ``fn()`` launches once a call: the mean over the launches the profiler
-    recorded in ``reps`` calls."""
+    """Device milliseconds of one call of ``fn()`` in the kernels named
+    ``*tag*``, each launched once a call: for each such name the mean over
+    the launches the profiler recorded in ``reps`` calls, summed."""
     times = profile_kernels(fn, reps)
-    us = sum(t for name, (t, _) in times.items() if tag in name)
-    n = sum(k for name, (_, k) in times.items() if tag in name)
-    if n == 0:
+    means = [t / k for name, (t, k) in times.items() if tag in name]
+    if not means:
         raise RuntimeError(f"the profiler recorded no launch of {tag!r}")
-    return us / n / 1e3
+    return sum(means) / 1e3

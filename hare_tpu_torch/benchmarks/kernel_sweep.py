@@ -8,7 +8,8 @@ K1, ``brute_shoot.cu`` B1, ``tree_shoot.cu`` B2, ``ropes_shoot.cu`` B3) with
 a few statements replaced (``CANDIDATES``: lanes per ray G, threads per
 block, one group per ray instead of the persistent launch, B2's stack in
 the group's registers, K1's next cell's meta loaded before this cell's
-test), or built with nvcc's default FMA contraction (``-fmad=true``); the
+test, B1's rays a thread and its triangle slabs), or built with nvcc's
+default FMA contraction (``-fmad=true``); the
 sources themselves stay as built.  With ``--parent``, the same kernel of
 another checkout of the repository is one more candidate, built with that
 checkout's flags and called through the parameters its own entry point
@@ -64,7 +65,7 @@ SPECS = {
                 "best_t", "best_tri")),
     "b1": Spec("brute_shoot.cu", "hare_brute_shoot", "brute_shoot_kernel",
                ("o", "d", "ex", "n", "tri_geom", "tri_meta", "n_tris", "min_t", "top_index",
-                "mt", "best_t", "best_tri")),
+                "mt", "keys", "best_t", "best_tri")),
     "b2": Spec("tree_shoot.cu", "hare_tree_shoot", "tree_shoot_kernel",
                ("o", "d", "ex", "n", "child_box", "child_info", "win_geom", "win_ids", "min_t",
                 "iparams", "best_t", "best_tri", "pops", "err")),
@@ -168,8 +169,13 @@ CANDIDATES = {
         ("G16 -fmad=true", (), FMA_FLAGS),
     ),
     "b1": (
-        ("built", (), None),
-        ("-fmad=true", (), FMA_FLAGS),
+        ("R2 slabs (built)", (), None),
+        ("R4", (("constexpr int kWideRays = 2;", "constexpr int kWideRays = 4;"),), None),
+        ("R2 8 blocks an SM", (("constexpr int kTargetBlocks = 132 * 16;",
+                                "constexpr int kTargetBlocks = 132 * 8;"),), None),
+        ("R2 one slab", (("constexpr int kTargetBlocks = 132 * 16;",
+                          "constexpr int kTargetBlocks = 1;"),), None),
+        ("R2 -fmad=true", (), FMA_FLAGS),
     ),
     "b2": (
         ("G8 (built)", (), None),

@@ -49,12 +49,12 @@ _F = ctypes.c_float
 # Every C entry point: argument types in order; each returns a cudaError_t.
 _SIGNATURES = {
     "hare_grid_shoot": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
-    "hare_brute_shoot": [_P, _P, _P, _I, _P, _P, _I, _F, _I, _I, _P, _P, _P],
+    "hare_brute_shoot": [_P, _P, _P, _I, _P, _P, _I, _F, _I, _I, _P, _P, _P, _P],
     "hare_tree_shoot": [_P, _P, _P, _I, _P, _P, _P, _P, _F, _P, _P, _P, _P, _P, _P, _P],
     "hare_ropes_shoot": [_P, _P, _P, _I] + [_P] * 7 + [_P, _P, _P, _P, _P, _P, _P, _P],
     "hare_finalize_hits": [_P, _P, _P, _P, _P, _P, _I, _I] + [_P] * 9 + [_P],
     "hare_finalize_hits_bwd": [_P] * 12 + [_I] + [_P] * 5,
-    "hare_scatter_add_ordered": [_P, _P, _P, _LL, _I, _LL, _I, _P, _P, _P],
+    "hare_scatter_add_ordered": [_P, _P, _LL, _I, _I, _I, _P, _LL, _P, _P],
     "hare_energy_histogram": [_P, _P, _P, _LL, _I, _F, _I, _P, _LL, _P, _P],
     "hare_soft_histogram_bwd": [_P, _P, _P, _P, _LL, _I, _F, _P, _P, _P],
     "hare_column_sum": [_P, _LL, _I, _I, _P, _P, _P],
@@ -119,6 +119,8 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call.  Raises where there
     is no CUDA device or no nvcc — never falls back."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             if not torch.cuda.is_available():
@@ -140,7 +142,10 @@ def launch(name: str, *args) -> None:
     """
     lib = library()
     conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    stream = torch.cuda.current_stream().cuda_stream
+    # The current device's current stream as a raw handle: what
+    # torch.cuda.current_stream().cuda_stream gives, without building the
+    # Stream object (microseconds a call, on a path the host bounds).
+    stream = torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
     rc = getattr(lib, name)(*conv, stream)
     if rc != 0:
         msg = lib.hare_error_string(rc).decode()

@@ -191,6 +191,43 @@ def test_tiling_invariance(rng):
     assert torch.isfinite(ta).sum() > 10
 
 
+def floor_tris(n):
+    """An n x n floor of unit squares at z = 0, two triangles each."""
+    out = []
+    for i in range(n):
+        for j in range(n):
+            q = np.array([[i, j, 0], [i + 1, j, 0], [i + 1, j + 1, 0], [i, j + 1, 0]], float)
+            out += [q[[0, 1, 2]], q[[2, 3, 0]]]
+    return out
+
+
+@pytest.mark.parametrize("kernel", ["watertight", "mt"])
+def test_tiling_keys_with_straddling_ties(rng, kernel):
+    """B1's slabs merge each ray's hit keys with a min, so the answer must
+    not depend on how the triangles are cut: the plain version gives the
+    same (t, tri) bits with tiles of 1, 7 and all triangles, where every ray
+    ends on an exact tie between twins in two topologies (the second in
+    reverse order), in different tiles; the lower id wins."""
+    floor = floor_tris(3)
+    tops = [th.Topology.build(floor), th.Topology.build(floor[::-1])]
+    sc = th.build_scene(tops, device=CPU)
+    n_first = tops[0].n_tris
+    o = np.stack([rng.uniform(0.5, 2.5, 512), rng.uniform(0.5, 2.5, 512),
+                  rng.uniform(0.5, 2.0, 512)], 1)
+    d = np.stack([rng.normal(0, 0.05, 512), rng.normal(0, 0.05, 512), -np.ones(512)], 1)
+    rays = t_rays(o, d / np.linalg.norm(d, axis=1, keepdims=True))
+    outs = [brute_shoot(sc, rays, kernel, tri_tile=tile) for tile in (1, 7, sc.tri_geom.shape[0])]
+    t, tri = outs[0]
+    assert bool(torch.isfinite(t).all()) and bool((tri < n_first).all())
+    for t_k, tri_k in outs[1:]:
+        assert torch.equal(t_k.view(torch.int32), t.view(torch.int32)) and torch.equal(tri_k, tri)
+    # Every ray's twin, with the winner's polygon excluded, lies at the same t.
+    poly = sc.tri_poly[tri.long()]
+    ex = torch.stack([poly, torch.full_like(poly, -1)], 1).int()
+    t2, tri2 = brute_shoot(sc, rays._replace(exclude_poly=ex), kernel, tri_tile=7)
+    assert torch.equal(t2, t) and bool((tri2 >= n_first).all())
+
+
 def test_hit_invariants(rng):
     """Hit point on the triangle's plane, t = |x - o|, u, v barycentric."""
     top = th.Topology.build(shapes.shoebox())

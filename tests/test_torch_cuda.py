@@ -22,13 +22,14 @@ from hare_tpu_torch.accel.common import (  # noqa: E402
 from hare_tpu_torch.accel.kdtree import build_kdtree  # noqa: E402
 from hare_tpu_torch.accel.octree import build_octree  # noqa: E402
 from hare_tpu_torch.accel.ropes import build_kdtree_ropes, ropes_shoot, ropes_shoot_plain  # noqa: E402
-from hare_tpu_torch.accel.scatter import scatter_add_ordered, scatter_add_plain  # noqa: E402
+from hare_tpu_torch.accel.scatter import CHUNK, scatter_add_ordered, scatter_add_plain  # noqa: E402
 from hare_tpu_torch.accel.tree import tree_shoot, tree_shoot_plain  # noqa: E402
 from hare_tpu_torch.accel.voxel import build_voxel_grid, grid_shoot, grid_shoot_plain  # noqa: E402
 from hare_tpu_torch.benchmarks import a3_check  # noqa: E402
 from hare_tpu_torch.benchmarks import pallas_probe as probes  # noqa: E402
 from hare_tpu_torch.benchmarks.bench_scene import bounce_rays  # noqa: E402
 from hare_tpu_torch.geom.intersect import ray_triangle_mt, ray_triangle_watertight  # noqa: E402
+from hare_tpu_torch.kernels import build  # noqa: E402
 from hare_tpu_torch.mesh import shapes  # noqa: E402
 from hare_tpu_torch.trace.bounce import (  # noqa: E402
     histogram_kernel,
@@ -266,22 +267,68 @@ def test_grid_shoot_exclusion_and_topology_filter(dev):
                          grid_shoot_plain(rays, sp.struct, top_index=top_index))
 
 
-@pytest.mark.parametrize("kernel", ["watertight", "mt"])
-@pytest.mark.parametrize("name, faces, kw, box", SCENES, ids=[s[0] for s in SCENES])
-def test_brute_shoot_matches_plain(dev, name, faces, kw, box, kernel):
-    """B1 against its plain version, to the bit, with and without
-    exclusions."""
-    sc = th.Topology.build(faces()).scene(device=dev)
-    rays = rays_of(np.random.default_rng(3), box[0], box[1], 4096, dev)
+def trimmed(sc, rows):
+    """The scene's first ``rows`` triangle rows, padding and all: n_tris
+    need not be a multiple of B1's tile."""
+    return sc._replace(tri_geom=sc.tri_geom[:rows].contiguous(),
+                       tri_meta=sc.tri_meta[:rows].contiguous(), tri_v=sc.tri_v[:rows].contiguous())
 
-    def agree(rays):
-        k = brute_shoot(sc, rays, kernel)
-        assert_bit_equal(k, brute_shoot_plain(sc, rays, kernel))
+
+def b1_scene(faces, box, n, rows=None):
+    def make(dev, seed):
+        sc = th.Topology.build(faces()).scene(device=dev)
+        return (sc if rows is None else trimmed(sc, rows)), rays_of(
+            np.random.default_rng(seed), box[0], box[1], n, dev)
+    return make
+
+
+def b1_twin_floors(dev, seed):
+    """Two topologies hold the same 66 x 66 floor, the second in reverse
+    order (17,424 triangles, 137 tiles): with 4,096 rays B1 cuts them into
+    slabs, and every ray ends on an exact tie between twins in two slabs."""
+    floor = floor_tris(66)
+    sc = th.build_scene([th.Topology.build(floor), th.Topology.build(floor[::-1])], device=dev)
+    rays = downward_rays(np.random.default_rng(seed), (1.0, 1.0), (65.0, 65.0), (0.5, 2.0), 4096,
+                         dev)
+    return sc, rays
+
+
+# B1's cases: the four scenes; n_tris 1, below one tile and not a multiple
+# of it (most rays miss); N of 1 (one ray block, a slab a tile) and 1M
+# (one slab); equal-t ties across slabs.
+B1_CASES = {name: b1_scene(faces, box, 4096) for name, faces, _, box in SCENES}
+B1_CASES.update({
+    "hall_1_row": b1_scene(shapes.concert_hall, (0.5, 17.5), 4096, rows=1),
+    "hall_100_rows": b1_scene(shapes.concert_hall, (0.5, 17.5), 4096, rows=100),
+    "hall_1000_rows": b1_scene(shapes.concert_hall, (0.5, 17.5), 4096, rows=1000),
+    "hall_1_ray": b1_scene(shapes.concert_hall, (0.5, 17.5), 1),
+    "shoebox_1M_rays": b1_scene(lambda: shapes.shoebox(4, 5, 3), (0.2, 4.8), 1_000_000),
+    "twin_floors": b1_twin_floors,
+})
+
+
+@pytest.mark.parametrize("kernel", ["watertight", "mt"])
+@pytest.mark.parametrize("case", list(B1_CASES))
+def test_brute_shoot_matches_plain(dev, case, kernel):
+    """B1 against its plain version, to the bit, with and without
+    exclusions, and with each top_index; on the twin floors, the lower
+    twin wins every ray."""
+    sc, rays = B1_CASES[case](dev, 3)
+
+    def agree(rays, top_index=None):
+        k = brute_shoot(sc, rays, kernel, top_index=top_index)
+        assert_bit_equal(k, brute_shoot_plain(sc, rays, kernel, tri_tile=256,
+                                              top_index=top_index))
         return k
 
     first = agree(rays)
+    for top_index in (0, 1):
+        agree(rays, top_index)
     poly = torch.where(first[1] >= 0, sc.tri_poly[first[1].clamp(min=0).long()], -1)
     agree(rays._replace(exclude_poly=torch.stack([poly, torch.full_like(poly, -1)], 1).int()))
+    if case == "twin_floors":
+        n_first = int((sc.tri_top == 0).sum())
+        assert bool(torch.isfinite(first[0]).all()) and bool((first[1] < n_first).all())
 
 
 # name -> builder of a B2 tree (K = 8, 2, 2, 8 and 4) or a B3 rope tree.
@@ -629,22 +676,56 @@ def test_soft_histogram_bwd_matches_plain(dev):
     torch.testing.assert_close(dk[1][0, :100], half, rtol=1e-5, atol=1e-3)
 
 
+# (m, n_keys, keys): zipf-skewed keys (long runs and many short ones,
+# unused keys), one key holding every value (eval config 3's wall), or keys
+# partly outside [0, n_keys).  5,000,000 keys take the sort's 64-bit pairs.
+SCATTER_CASES = [
+    (0, 4, "zipf"), (1, 4, "zipf"), (CHUNK - 1, 100, "zipf"), (CHUNK, 100, "zipf"),
+    (CHUNK + 1, 100, "zipf"), (5000, 3, "zipf"), (100_000, 1, "zipf"),
+    (98_304, 81_932, "zipf"), (98_304, 327_698, "zipf"), (300_000, 40_000, "zipf"),
+    (1_000_000, 200, "zipf"), (147_389, 1_608, "one"), (50_000, 1000, "outside"),
+    (100_000, 5_000_000, "zipf"),
+]
+
+
 @pytest.mark.parametrize("cols", [1, 3])
-@pytest.mark.parametrize("m, n_keys", [(1, 4), (5000, 3), (300_000, 40_000), (1_000_000, 200)])
-def test_scatter_matches_cpu(dev, m, n_keys, cols):
+@pytest.mark.parametrize("m, n_keys, keys", SCATTER_CASES)
+def test_scatter_matches_cpu(dev, m, n_keys, keys, cols):
     """The fixed-order scatter on the card equals its plain version on the
-    CPU to the bit (index_add_ a segment of sorted positions, the segments
-    in order), with long runs (few keys), many short ones and unused keys;
-    two launches give the same bits."""
+    CPU to the bit (index_add_ a chunk of original positions, the chunks in
+    order); keys outside [0, n_keys) are dropped, as a +0.0 added to key 0
+    would be; two launches give the same bits."""
     rng = np.random.default_rng(m + cols)
-    keys = (rng.zipf(1.5, m) % n_keys).astype(np.int32)  # skewed: long runs
+    if keys == "one":
+        k = np.full(m, n_keys - 1, np.int32)
+    elif keys == "outside":
+        k = rng.integers(-5, n_keys + 5, m).astype(np.int32)
+    else:
+        k = (rng.zipf(1.5, m) % n_keys).astype(np.int32)  # skewed: long runs
     values = rng.normal(size=(m,) if cols == 1 else (m, cols)).astype(np.float32)
-    k_t, v_t = torch.from_numpy(keys), torch.from_numpy(values)
-    want = scatter_add_plain(k_t, v_t, n_keys)
+    k_t, v_t = torch.from_numpy(k), torch.from_numpy(values)
+    inside = (k_t >= 0) & (k_t < n_keys)
+    want = scatter_add_plain(torch.where(inside, k_t, 0),
+                             torch.where(inside.view((m,) + (1,) * (cols > 1)), v_t, 0.0), n_keys)
     got = scatter_add_ordered(k_t.to(dev), v_t.to(dev), n_keys)
     assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
     again = scatter_add_ordered(k_t.to(dev), v_t.to(dev), n_keys)
     assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
+@pytest.mark.parametrize("chunk, short", [(CHUNK // 2, 0), (CHUNK, 1)])
+def test_scatter_refuses_another_layout(dev, chunk, short):
+    """The kernel owns the scratch layout: a chunk size other than its own,
+    or a scratch one word short, is refused before anything launches."""
+    m, cols, n_keys = 3000, 3, 50
+    keys = torch.zeros(m, dtype=torch.int32, device=dev)
+    values = torch.ones(m, cols, device=dev)
+    words = -(-m // CHUNK) * (CHUNK * (1 + cols) + 1) - short
+    scratch = torch.empty(words, dtype=torch.int32, device=dev)
+    out = torch.empty(n_keys, cols, device=dev)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        build.launch("hare_scatter_add_ordered", keys, values, m, cols, n_keys, chunk, scratch,
+                     words, out)
 
 
 def bwd_inputs(dev, kernel, n=4096, seed=5):

@@ -16,7 +16,7 @@ import jax.numpy as jnp  # noqa: E402
 import hare_tpu as jh  # noqa: E402
 
 import hare_tpu_torch as th  # noqa: E402
-from hare_tpu_torch.accel.scatter import SEGMENT, gather_rows, scatter_add_ordered  # noqa: E402
+from hare_tpu_torch.accel.scatter import CHUNK, gather_rows, scatter_add_ordered  # noqa: E402
 from hare_tpu_torch.trace.bounce import soft_histogram_bwd_plain  # noqa: E402
 
 # Bin sums and their gradients: the same f32 products, summed in another
@@ -120,13 +120,26 @@ def test_soft_histogram_matches_jax():
     assert np.array_equal(de.numpy(), got[1]) and np.array_equal(dt.numpy(), got[2])
 
 
+def chunk_fold(keys, values, n_keys):
+    """The fixed order in numpy: each chunk of CHUNK original positions, a
+    key's values added in index order to a float32 zero, then the chunks'
+    sums added in order to a float32 zero."""
+    fold = np.zeros((n_keys,) + values.shape[1:], np.float32)
+    for s in range(0, keys.shape[0], CHUNK):
+        part = np.zeros_like(fold)
+        for i in range(s, min(s + CHUNK, keys.shape[0])):
+            part[keys[i]] = part[keys[i]] + values[i]
+        fold = fold + part
+    return fold
+
+
 @pytest.mark.parametrize("cols", [1, 3])
 def test_scatter_add_ordered_plain(cols):
     """The fixed-order scatter's plain version against JAX's segment_sum on
-    random keys with repeats and unused keys; to the bit, each key's values
-    in a segment of SEGMENT sorted positions added in increasing index order
-    (a float32 left fold from zero), then the segments' sums in order; and
-    the gather whose gradient it is."""
+    random keys with repeats and unused keys, over three chunks; to the bit,
+    each key's values in a chunk of CHUNK original positions added in
+    increasing index order (a float32 left fold from zero), then the
+    chunks' sums in order; and the gather whose gradient it is."""
     rng = np.random.default_rng(5)
     m, n_keys = 3000, 40
     keys = rng.choice(np.arange(0, n_keys, 2), m).astype(np.int32)  # odd keys unused
@@ -139,15 +152,49 @@ def test_scatter_add_ordered_plain(cols):
     np.testing.assert_allclose(got, want, rtol=SCATTER_RTOL,
                                atol=SCATTER_RTOL * float(np.abs(want).max()))
     assert (got[1::2] == 0).all()
-    order = np.argsort(keys, kind="stable")
-    fold = np.zeros((n_keys,) + shape[1:], np.float32)
-    for s in range(0, m, SEGMENT):
-        part = np.zeros_like(fold)
-        for i in order[s:s + SEGMENT]:
-            part[keys[i]] = part[keys[i]] + values[i]
-        fold = fold + part
-    assert np.array_equal(got.view(np.uint32), fold.view(np.uint32))
+    assert np.array_equal(got.view(np.uint32), chunk_fold(keys, values, n_keys).view(np.uint32))
     table = torch.from_numpy(rng.normal(size=(n_keys,) + shape[1:]).astype(np.float32))
     table.requires_grad_()
     gather_rows(table, torch.from_numpy(keys)).backward(torch.from_numpy(values))
     assert np.array_equal(table.grad.numpy(), got)
+
+
+def _one_key_across_chunks(rng):
+    """One key's run across three chunks, its last value alone in a chunk."""
+    m = 2 * CHUNK + 1
+    return np.full(m, 3, np.int32), rng.normal(size=m).astype(np.float32), 5
+
+
+def _unused_keys(rng):
+    """Most keys never used: every 97th of 10,000, over two chunks."""
+    m = CHUNK + 700
+    return (rng.integers(0, 40, m) * 97).astype(np.int32), rng.normal(size=m).astype(
+        np.float32), 10_000
+
+
+def _signed_zeros(rng):
+    """Values of -0.0 and +0.0 only, and runs of -0.0 alone, across chunks:
+    every sum, even of -0.0s, is +0.0."""
+    m = CHUNK + 10
+    keys = rng.integers(0, 6, m).astype(np.int32)
+    keys[-10:] = 7  # a run of -0.0 alone, in the second chunk
+    values = np.where(rng.uniform(size=m) < 0.5, -0.0, 0.0).astype(np.float32)
+    values[keys == 7] = -0.0
+    return keys, values, 8
+
+
+@pytest.mark.parametrize("case", [_one_key_across_chunks, _unused_keys, _signed_zeros],
+                         ids=["run_across_chunks", "unused_keys", "signed_zeros"])
+def test_scatter_add_ordered_plain_chunks(case):
+    """The chunk order on edges: a run that crosses chunks, unused keys
+    (zero), signed zeros (no -0.0 out); to the bit against the numpy fold,
+    and against JAX's segment_sum within SCATTER_RTOL."""
+    keys, values, n_keys = case(np.random.default_rng(11))
+    got = scatter_add_ordered(torch.from_numpy(keys), torch.from_numpy(values), n_keys).numpy()
+    assert np.array_equal(got.view(np.uint32), chunk_fold(keys, values, n_keys).view(np.uint32))
+    assert not np.signbit(got[got == 0]).any()
+    assert (got[np.setdiff1d(np.arange(n_keys), keys)] == 0).all()
+    want = np.asarray(jax.ops.segment_sum(jnp.asarray(values), jnp.asarray(keys),
+                                          num_segments=n_keys))
+    np.testing.assert_allclose(got, want, rtol=SCATTER_RTOL,
+                               atol=SCATTER_RTOL * max(float(np.abs(want).max()), 1e-30))
