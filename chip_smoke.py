@@ -95,6 +95,9 @@ SCATTER_REL_TOL = 1e-4
 # The soft backward against autograd through the plain soft histogram:
 # the same operations, relative to the largest gradient.
 SOFT_BWD_REL_TOL = 1e-6
+# What the profiler's names of K3's forward kernels hold: hist_rows_kernel
+# (hard and soft instances) and hist_fold_kernel, each launched once a call.
+K3_TAG = "hist_"
 # The small-input reference: the plain versions on the CPU, which the CPU
 # tests hold against the JAX package.  Summed energies and gradients over
 # thousands of lanes, in another order.
@@ -907,7 +910,7 @@ def gradients_phase(dev, sp, rays, batches, absorption):
     check(bwd_rel <= SOFT_BWD_REL_TOL, f"the soft backward differs by {bwd_rel:.3e}")
     check(all(same_floats(x, y) for x, y in zip(gk, soft_bwd())),
           "the soft backward: two launches differ")
-    k3s = dict(ms=cuda_time(soft, 100), device_ms=launch_ms(soft, 10, "_partials"),
+    k3s = dict(ms=cuda_time(soft, 100), device_ms=launch_ms(soft, 10, K3_TAG),
                plain_ms=cuda_time(lambda: bounce.soft_histogram_plain(*lanes, N_BINS, BIN_DT), 20),
                max_abs_err=soft_err, library_ms=None,
                **{k: bounds.histogram_bound(res.hit, N_BINS, soft=True)[k]
@@ -968,9 +971,9 @@ def gradients_phase(dev, sp, rays, batches, absorption):
           f"CPU reference agrees; fwd+bwd {fb_ms:.3f} ms, {N_RAYS * N_BOUNCES / fb_ms / 1e3:.4f} "
           f"Mrays/s; device busy {busy:.4f} ms a step (A3 "
           f"{kernel_ms(per_name, 'finalize_bwd_kernel'):.4f}, scatter "
-          f"{kernel_ms(per_name, 'scatter_ordered'):.4f}, K3 {kernel_ms(per_name, '_partials'):.4f}, "
-          f"soft backward {kernel_ms(per_name, 'soft_bwd_kernel'):.4f} ms), idle share "
-          f"{1 - busy / fb_ms:.3f}")
+          f"{kernel_ms(per_name, 'scatter_ordered'):.4f}, K3 {kernel_ms(per_name, K3_TAG):.4f}, "
+          f"soft backward {kernel_ms(per_name, 'soft_bwd_kernel'):.4f}, fill kernels "
+          f"{kernel_ms(per_name, 'FillFunctor'):.4f} ms), idle share {1 - busy / fb_ms:.3f}")
 
     # ---- 8.6 eval config 4 at full size.
     c4 = configs.config4_setup(dev)
@@ -1030,7 +1033,7 @@ def gradients_phase(dev, sp, rays, batches, absorption):
         busy, per_name = step_ms(fn, 2)
         parts = ", ".join(f"{part} {kernel_ms(per_name, tag):.4f}" for part, tag in (
             ("B2", "tree_shoot_kernel"), ("K2", "finalize_kernel"), ("A3", "finalize_bwd_kernel"),
-            ("scatter", "scatter_ordered"), ("K3", "_partials"), ("soft backward", "soft_bwd")))
+            ("scatter", "scatter_ordered"), ("K3", K3_TAG), ("soft backward", "soft_bwd")))
         print(f"phase 8 config 4 {label}: launches {launches4}; "
               f"hit share {float(h.detach().sum()) / (n4 * sum(0.7 ** k for k in (1, 2))):.4f} of the "
               f"closed-room energy; vertex gradient finite, max |g| {float(g.abs().max()):.4e}"
@@ -1199,7 +1202,7 @@ def main():
 
     check(same_floats(hist_k, k3()), "K3: two launches differ")
     ms = cuda_time(k3, 100)
-    dev_ms = launch_ms(k3, 10, "_partials")
+    dev_ms = launch_ms(k3, 10, K3_TAG)
     plain_ms = cuda_time(
         lambda: bounce.histogram_plain(res.energy, res.time, res.hit, N_BINS, BIN_DT), 100)
     bnd = bounds.histogram_bound(res.hit, N_BINS)
@@ -1287,7 +1290,7 @@ def main():
     # Where one fwd+bwd step's device time goes, and how idle the card is.
     busy, per_name = step_ms(fwd_bwd, 3)
     parts = {k: kernel_ms(per_name, tag) for k, tag in (
-        ("K1", "grid_shoot_kernel"), ("K2", "finalize_kernel"), ("K3", "_partials"))}
+        ("K1", "grid_shoot_kernel"), ("K2", "finalize_kernel"), ("K3", K3_TAG))}
     print(f"phase 5 device time per fwd+bwd step: busy {busy:.4f} ms of {fb_ms:.3f} ms "
           f"(idle share {1 - busy / fb_ms:.3f}); K1 {parts['K1']:.4f} ms, K2 "
           f"{parts['K2']:.4f} ms, K3 {parts['K3']:.4f} ms, other kernels "

@@ -470,8 +470,13 @@ def finalize_hits_bwd_plain(
     normal.  Returns ``(d_origin (N, 3), d_direction (N, 3), keys (3N,)
     i32, d_corner (3N, 3))``: each corner's cotangent beside its vertex id.
     ``t`` is unused: the live t has the forward's bits where ``tri_geom``
-    holds the live vertices (``Scene.with_vertices``)."""
+    holds the live vertices (``Scene.with_vertices``).  An absent (``None``)
+    cotangent reads as zeros."""
     del t
+    n = o.shape[0]
+    cotangents = tuple(
+        torch.zeros(shape, dtype=o.dtype, device=o.device) if g is None else g
+        for g, shape in zip(cotangents, ((n,), (n,), (n,), (n, 3), (n, 3))))
     iv = tri_meta[torch.clamp(best_tri, min=0).long(), 4:7]
     with torch.enable_grad():
         corners = vertices.detach()[iv.long()].requires_grad_()
@@ -496,15 +501,17 @@ def finalize_hits_bwd(
     kernel: str = "watertight",
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """A3: the finalize backward per ray, as :func:`finalize_hits_bwd_plain`
-    returns it.  CUDA tensors launch ``kernels/csrc/finalize_bwd.cu``, whose
-    closed form serves both triangle tests; CPU tensors take the plain
-    version."""
-    if check_device(vertices, tri_meta, best_tri, t, hit, o, d, *cotangents) == "cpu":
+    returns it; an absent (``None``) cotangent reads as zeros.  CUDA tensors
+    launch ``kernels/csrc/finalize_bwd.cu``, whose closed form serves both
+    triangle tests; CPU tensors take the plain version."""
+    given = [g for g in cotangents if g is not None]
+    if check_device(vertices, tri_meta, best_tri, t, hit, o, d, *given) == "cpu":
         return finalize_hits_bwd_plain(vertices, tri_meta, best_tri, t, hit, o, d,
                                        cotangents, kernel)
     n = o.shape[0]
     shapes = [(n,)] * 3 + [(n, 3)] * 2
-    if (len(cotangents) != 5 or any(g.shape != sh for g, sh in zip(cotangents, shapes))
+    if (len(cotangents) != 5
+            or any(g is not None and g.shape != sh for g, sh in zip(cotangents, shapes))
             or o.shape != (n, 3) or d.shape != (n, 3) or not best_tri.shape == t.shape
             == hit.shape == (n,) or vertices.shape[1:] != (3,) or tri_meta.shape[1:] != (8,)):
         raise ValueError("finalize_hits_bwd: ray, winner, table or cotangent (t, u, v, "
@@ -518,7 +525,8 @@ def finalize_hits_bwd(
         "hare_finalize_hits_bwd", _contig(vertices, torch.float32),
         _contig(tri_meta, torch.int32), _contig(best_tri, torch.int32), _contig(t, torch.float32),
         _contig(hit, torch.bool), _contig(o, torch.float32), _contig(d, torch.float32),
-        *(_contig(g, torch.float32) for g in cotangents), n, d_o, d_d, keys, d_corner,
+        *(None if g is None else _contig(g, torch.float32) for g in cotangents), n, d_o, d_d,
+        keys, d_corner,
     )
     return d_o, d_d, keys, d_corner
 
@@ -532,11 +540,14 @@ class _FinalizeHits(torch.autograd.Function):
     point around it).  Forward: K2 from ``scene.tri_geom``; backward: A3 at
     the live ``vertices``, its corner cotangents summed onto them by
     :func:`~.scatter.scatter_add_ordered`.  ``tri_geom`` gets no cotangent,
-    so the gradient reaches the vertices exactly once."""
+    so the gradient reaches the vertices exactly once.  Cotangents no loss
+    reaches (u and v on every loss of the bounce loop) arrive as ``None``
+    and A3 reads them as zeros, so autograd fills no zeros for them."""
 
     @staticmethod
     def forward(ctx, vertices, o, d, scene, exclude, best_t, best_tri, kernel):
         hr = _finalize_forward(scene, Ray(o, d, exclude), best_t, best_tri, kernel)
+        ctx.set_materialize_grads(False)
         ctx.mark_non_differentiable(hr.hit, hr.poly_id, hr.tri_id, hr.edge_nbr)
         ctx.save_for_backward(vertices, scene.tri_meta, best_tri, hr.t, hr.hit, o, d)
         ctx.kernel = kernel

@@ -33,8 +33,9 @@ import torch
 
 from ..kernels import build
 
-__all__ = ["A3_PARAMS", "A3_TOL", "FAULTS", "agreement", "condition", "corner_errors",
-           "input_sensitivity", "jacobian_mass", "ray_bounds", "seeded_cotangents"]
+__all__ = ["A3_PARAMS", "A3_TOL", "FAULTS", "a3_given", "agreement", "condition",
+           "corner_errors", "input_sensitivity", "jacobian_mass", "ray_bounds",
+           "seeded_cotangents"]
 
 # A3's closed form against the plain version (autograd through the
 # watertight shear form) in float64: the kernel's f32 rounding.  A3 sums
@@ -56,7 +57,7 @@ FAULTS = (
     ("det's cotangent dropped",
      (("const float a_det = -((gt * t + gu * u) + gv * v) * inv;", "const float a_det = 0.f;"),)),
     ("the point's cotangent kept from t",
-     (("const float gt = g_t[i] + dot(gp, rd);", "const float gt = g_t[i];"),)),
+     (("const float gt = g_t_i + dot(gp, rd);", "const float gt = g_t_i;"),)),
     ("the normal's e1 partial negated",
      (("V3 ge1 = cross(e2, gn), ge2 = cross(gn, e1);",
        "V3 ge1 = cross(gn, e2), ge2 = cross(gn, e1);"),)),
@@ -239,18 +240,27 @@ def corner_errors(outs, ref, vertices, tri_meta, best_tri, d) -> dict:
     return out
 
 
-def _fault_call(fn, params, args):
-    """One fault's A3 on ``args`` (``finalize_hits_bwd``'s), as the
-    wrapper calls the built one."""
-    from .kernel_sweep import _caller
-
+def a3_given(args):
+    """The parameters of ``hare_finalize_hits_bwd`` (by the names its
+    source declares) for ``args`` (``finalize_hits_bwd``'s), a ``None``
+    cotangent as a null pointer, and the fresh outputs they name:
+    ``(given, (d_o, d_d, keys, d_corner))``."""
     vertices, tri_meta, best_tri, t, hit, o, d, cts = args
     n = o.shape[0]
     f = dict(dtype=torch.float32, device=o.device)
     outs = (torch.empty(n, 3, **f), torch.empty(n, 3, **f),
             torch.empty(3 * n, dtype=torch.int32, device=o.device), torch.empty(3 * n, 3, **f))
     given = dict(zip(A3_PARAMS, (vertices, tri_meta, best_tri, t, hit, o, d, *cts, n, *outs)))
-    given = {k: v.contiguous() if isinstance(v, torch.Tensor) else v for k, v in given.items()}
+    return {k: v.contiguous() if isinstance(v, torch.Tensor) else v
+            for k, v in given.items()}, outs
+
+
+def _fault_call(fn, params, args):
+    """One fault's A3 on ``args`` (``finalize_hits_bwd``'s), as the
+    wrapper calls the built one."""
+    from .kernel_sweep import _caller
+
+    given, outs = a3_given(args)
     _caller(fn, params, dict(given, stream=torch.cuda.current_stream().cuda_stream))()
     return outs
 

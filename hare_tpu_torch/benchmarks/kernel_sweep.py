@@ -1,32 +1,49 @@
-"""Design candidates of the traversal kernels, side by side on one GPU.
+"""Design candidates of the port's kernels, side by side on one GPU.
 
-    python -m hare_tpu_torch.benchmarks.kernel_sweep [--kernels k1,b1,b2,b3]
+    python -m hare_tpu_torch.benchmarks.kernel_sweep [--kernels k1,b1,b2,b3,a3,k3]
         [--parent DIR] [--reps N]
 
 Each candidate is a kernel's built source (``kernels/csrc/grid_shoot.cu``
-K1, ``brute_shoot.cu`` B1, ``tree_shoot.cu`` B2, ``ropes_shoot.cu`` B3) with
-a few statements replaced (``CANDIDATES``: lanes per ray G, threads per
-block, one group per ray instead of the persistent launch, B2's stack in
-the group's registers, K1's next cell's meta loaded before this cell's
-test, B1's rays a thread and its triangle slabs), or built with nvcc's
-default FMA contraction (``-fmad=true``); the
-sources themselves stay as built.  With ``--parent``, the same kernel of
-another checkout of the repository is one more candidate, built with that
-checkout's flags and called through the parameters its own entry point
-declares.  Each is compiled by its own ``nvcc -Xptxas -v`` (registers and
-spills are printed), all at once, into a shared library loaded with ctypes.
+K1, ``brute_shoot.cu`` B1, ``tree_shoot.cu`` B2, ``ropes_shoot.cu`` B3,
+``finalize_bwd.cu`` A3, ``energy_histogram.cu`` K3) with a few statements
+replaced (``CANDIDATES``: lanes per ray G, threads per block, one group per
+ray instead of the persistent launch, B2's stack in the group's registers,
+K1's next cell's meta loaded before this cell's test, B1's rays a thread
+and its triangle slabs, A3's block size and its rows moved per ray instead
+of through shared memory, K3's chunk of lanes a block, its blocks, its
+groups' sums, its fold's loads, and the fold in the same launch, by the
+last blocks to finish or behind a cooperative grid-wide barrier, in place
+of the second launch), or built with nvcc's default FMA contraction
+(``-fmad=true``); the sources themselves stay as built.  With ``--parent``,
+the same kernel of another checkout of the repository is one more
+candidate, built with that checkout's flags and called through the
+parameters its own entry point declares.  Each is compiled by its own
+``nvcc -Xptxas -v`` (registers and spills are printed), all at once, into
+a shared library loaded with ctypes; a candidate that does not compile is
+reported and left out.
 
 The cases: K1 on the bench scene's grid, B2 on its octree and SAH KD tree,
 B3 on its rope tree (bench scene of ``bench.py``: 82k triangles, 32,768
 rays, the rays of each of 3 bounces of one grid trace), B1 on eval config 1
 (the 12-triangle shoebox, 10,000 rays, each of 3 bounces of its own trace)
-and on the bench scene's first bounce (the referee's shoot).
-Every candidate is checked against the built kernel on each bounce's rays
-(bit-equal, pops or steps included, where it is built with the same flags;
-otherwise the rays that differ are counted) and timed on the device with
-torch.profiler, in the order A B ... B A per bounce, so that every
-candidate is measured before and after the others.  Prints one line per
-case, candidate and bounce, then all of it as one JSON line.
+and on the bench scene's first bounce (the referee's shoot); A3 on the rays
+of each of the bench vertex step's 3 bounces (grid) and of eval config 4's
+2 (655k triangles, SAH KD tree), with the seeded cotangents of
+``chip_smoke.py`` phase 8; K3, hard and soft, on the trace records of the
+bench scene (98,304 lanes, 1024 bins), eval config 4 (65,536 lanes, 512
+bins) and eval config 3 (the concert hall, octree, 1M rays, 3 bounces:
+3,000,000 lanes, 1024 bins).
+Every candidate is checked against the built kernel on each batch: a
+traversal bit-equal, pops or steps included, where it is built with the
+same flags (otherwise the rays that differ are counted); A3 bit-equal on
+every output element where built with the same flags, a parent's
+included; K3 within ``HIST_REL_TOL`` of the histogram's total (its bits
+depend on the chunking), its bins that differ counted; A3 and K3 also
+bitwise equal over two launches.  Each is timed on the device with
+torch.profiler (every kernel a call launches: a parent's K3 is two), in the
+order A B ... B A per batch, so that every candidate is measured before and
+after the others.  Prints one line per case, candidate and batch, then all
+of it as one JSON line.
 """
 
 from __future__ import annotations
@@ -44,12 +61,18 @@ from typing import Callable, Dict, List, NamedTuple, Tuple
 import torch
 
 from ..kernels import build
-from .bench_scene import N_RAYS, bench_setup, bounce_rays, device_ms
+from .bench_scene import N_BOUNCES, N_RAYS, bench_setup, bounce_rays, device_ms
 
-__all__ = ["CANDIDATES", "FMA_FLAGS", "SPECS", "variant_source"]
+__all__ = ["CANDIDATES", "FMA_FLAGS", "HIST_REL_TOL", "SPECS", "k3_given", "variant_source"]
+
+BIN_DT = 1e-3  # the bench's and eval configs' bin width (s)
 
 # The built flags with nvcc's default contraction of a * b + c into FMAs.
 FMA_FLAGS = tuple(f for f in build.NVCC_FLAGS if f != "-fmad=false")
+# K3 candidates against the built K3: the same lanes summed in another
+# order where the chunking differs, relative to the histogram's total
+# (chip_smoke.py's HIST_REL_TOL).
+HIST_REL_TOL = 1e-5
 
 
 class Spec(NamedTuple):
@@ -72,6 +95,10 @@ SPECS = {
     "b3": Spec("ropes_shoot.cu", "hare_ropes_shoot", "ropes_shoot_kernel",
                ("o", "d", "ex", "n", "node_tab", "split", "box", "leaf_win", "ropes", "win_geom",
                 "win_ids", "fparams", "iparams", "best_t", "best_tri", "steps", "err")),
+    # A3 and K3 are timed over every kernel a call launches (tag ""), and
+    # called with the parameters their case gives by name (args unused).
+    "a3": Spec("finalize_bwd.cu", "hare_finalize_hits_bwd", "", ()),
+    "k3": Spec("energy_histogram.cu", "hare_energy_histogram", "", ()),
 }
 
 
@@ -154,6 +181,221 @@ _B2_REGISTER_STACK = (
 """),
 )
 
+# K3's statements that the fold candidates replace: the kernel's last
+# parameter, its end (the block's row written), the helpers' place and the
+# launches.
+_K3_PARAM = "                                 int n_bins, float bin_dt, float* __restrict__ partials) {"
+_K3_PARAM_HIST = ("                                 int n_bins, float bin_dt, float* __restrict__ partials,"
+                  " int* __restrict__ counters, float* __restrict__ hist) {")
+_K3_ROW_END = """    reinterpret_cast<float4*>(out)[q] = s;
+  }
+}
+"""
+_K3_HELPERS = "// Rows of a segment of R blocks' rows: ceil(R / kSegs)."
+_K3_ENTRY = """                                     float* partials, long long n_partials, float* hist,
+                                     void* stream) {"""
+_K3_ENTRY_COUNTERS = """                                     float* partials, long long n_partials, int* counters,
+                                     long long n_counters, float* hist, void* stream) {"""
+_K3_CHECK = """  if (tiles * blocks * kTile > n_partials) return static_cast<int>(cudaErrorInvalidValue);"""
+_K3_CHECK_COUNTERS = """  if (tiles * (blocks + kSegs) * kTile > n_partials || tiles * (1 + kSegs) > n_counters)
+    return static_cast<int>(cudaErrorInvalidValue);"""
+_K3_LAUNCHES = """  if (soft)
+    hist_rows_kernel<true><<<grid, kThreads, 0, s>>>(energy, time, hit, n, chunk, n_bins, bin_dt,
+                                                      partials);
+  else
+    hist_rows_kernel<false><<<grid, kThreads, 0, s>>>(energy, time, hit, n, chunk, n_bins, bin_dt,
+                                                       partials);
+  hist_fold_kernel<<<(n_bins + 31) / 32, kThreads, 0, s>>>(partials, static_cast<int>(blocks),
+                                                           n_bins, hist);
+"""
+# K3 in one launch: the last block of each segment to finish adds the
+# segment's rows, and the last segment to finish adds the segment sums (a
+# counter per segment and tile, left at zero); the same order and bits.
+_K3_ONE_LAUNCH = (
+    (_K3_PARAM, _K3_PARAM_HIST),
+    (_K3_HELPERS, """// Adds rows[k * kTile] for k < count in order from +0.0, four bins (the
+// q-th 16 bytes of a row) a thread, eight loads in flight.
+__device__ __forceinline__ float4 fold_rows(const float* rows, int count, int q) {
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int k0 = 0; k0 < count; k0 += 8) {
+    float4 r[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      if (k0 + k < count)
+        r[k] = __ldcg(reinterpret_cast<const float4*>(rows + static_cast<long long>(k0 + k) *
+                                                      kTile) + q);
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      if (k0 + k < count) {
+        s.x += r[k].x;
+        s.y += r[k].y;
+        s.z += r[k].z;
+        s.w += r[k].w;
+      }
+  }
+  return s;
+}
+
+// The last of `members` blocks to reach *counter (true on all its
+// threads), which sets it back to 0; every block's writes before the call
+// are visible to the last after it.
+__device__ __forceinline__ bool last_to_arrive(int* counter, int members) {
+  __shared__ bool last;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    last = atomicAdd(counter, 1) == members - 1;
+    if (last) {
+      atomicExch(counter, 0);
+      __threadfence();
+    }
+  }
+  __syncthreads();
+  return last;
+}
+
+""" + _K3_HELPERS),
+    (_K3_ROW_END, """    reinterpret_cast<float4*>(out)[q] = s;
+  }
+  const int blocks = gridDim.x, per = seg_rows(blocks), segs = (blocks + per - 1) / per;
+  const int g = blockIdx.x / per, first = g * per, members = min(per, blocks - first);
+  const float* tile_rows = partials + static_cast<long long>(blockIdx.y) * blocks * kTile;
+  float* seg_sums = partials + (static_cast<long long>(gridDim.y) * blocks +
+                                static_cast<long long>(blockIdx.y) * kSegs) * kTile;
+  int* tile_counters = counters + blockIdx.y * (1 + kSegs);
+  if (!last_to_arrive(tile_counters + 1 + g, members)) return;
+  for (int q = threadIdx.x; q < kTile / 4; q += kThreads)
+    reinterpret_cast<float4*>(seg_sums + static_cast<long long>(g) * kTile)[q] =
+        fold_rows(tile_rows + static_cast<long long>(first) * kTile, members, q);
+  if (!last_to_arrive(tile_counters, segs)) return;
+  for (int q = threadIdx.x; q < kTile / 4; q += kThreads) {
+    const float4 v = fold_rows(seg_sums, segs, q);
+    const int b = 4 * q;
+    if (b < tile) hist[b0 + b] = v.x;
+    if (b + 1 < tile) hist[b0 + b + 1] = v.y;
+    if (b + 2 < tile) hist[b0 + b + 2] = v.z;
+    if (b + 3 < tile) hist[b0 + b + 3] = v.w;
+  }
+}
+"""),
+    (_K3_ENTRY, _K3_ENTRY_COUNTERS),
+    (_K3_CHECK, _K3_CHECK_COUNTERS),
+    (_K3_LAUNCHES, """  if (soft)
+    hist_rows_kernel<true><<<grid, kThreads, 0, s>>>(energy, time, hit, n, chunk, n_bins, bin_dt,
+                                                      partials, counters, hist);
+  else
+    hist_rows_kernel<false><<<grid, kThreads, 0, s>>>(energy, time, hit, n, chunk, n_bins, bin_dt,
+                                                       partials, counters, hist);
+"""),
+)
+# K3 in one cooperative launch (every block resident at once, or it is
+# refused): all blocks meet at a grid-wide barrier, then fold the bins 32
+# at a time as the second launch does; the same order and bits.
+_K3_GRID_BARRIER = (
+    (_K3_PARAM, _K3_PARAM_HIST),
+    ("template <bool SOFT>\n__global__ void hist_rows_kernel(", """// All `blocks` blocks of a cooperative launch meet: counter[0] counts the
+// arrivals, counter[1] is the barrier's generation.
+__device__ void grid_barrier(int* counter, int blocks) {
+  __shared__ int gen;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    gen = *reinterpret_cast<volatile int*>(&counter[1]);
+    __threadfence();
+    if (atomicAdd(&counter[0], 1) == blocks - 1) {
+      atomicExch(&counter[0], 0);
+      __threadfence();
+      atomicAdd(&counter[1], 1);
+    } else {
+      while (*reinterpret_cast<volatile int*>(&counter[1]) == gen) {
+      }
+      __threadfence();
+    }
+  }
+  __syncthreads();
+}
+
+// Bins 32 fg .. 32 fg + 31 folded as the second launch's block fg does.
+__device__ void fold32(const float* partials, int blocks, int n_bins, int fg, float* hist) {
+  __shared__ float seg_sum[kSegs][32];
+  const int col = threadIdx.x % 32, seg = threadIdx.x / 32;
+  const int b = fg * 32 + col;
+  const float* rows = partials + static_cast<long long>(b / kTile) * blocks * kTile + b % kTile;
+  const int per = seg_rows(blocks), k0 = seg * per, count = max(0, min(per, blocks - k0));
+  float s = 0.f;
+  if (b < n_bins) {
+#pragma unroll 8
+    for (int k = 0; k < count; ++k) s += rows[static_cast<long long>(k0 + k) * kTile];
+  }
+  seg_sum[seg][col] = s;
+  __syncthreads();
+  if (seg == 0 && b < n_bins) {
+    float t = 0.f;
+    for (int j = 0; j < kSegs; ++j) t += seg_sum[j][col];
+    hist[b] = t;
+  }
+  __syncthreads();
+}
+
+template <bool SOFT>
+__global__ void hist_rows_kernel("""),
+    (_K3_ROW_END, """    reinterpret_cast<float4*>(out)[q] = s;
+  }
+  grid_barrier(counters, gridDim.x * gridDim.y);
+  const int flat = blockIdx.y * gridDim.x + blockIdx.x;
+  for (int fg = flat; fg < (n_bins + 31) / 32; fg += gridDim.x * gridDim.y)
+    fold32(partials, gridDim.x, n_bins, fg, hist);
+}
+"""),
+    (_K3_ENTRY, _K3_ENTRY_COUNTERS),
+    (_K3_CHECK, _K3_CHECK_COUNTERS),
+    (_K3_LAUNCHES, """  const void* fn = soft ? reinterpret_cast<const void*>(hist_rows_kernel<true>)
+                        : reinterpret_cast<const void*>(hist_rows_kernel<false>);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads, 0);
+  if (blocks * tiles > static_cast<long long>(per_sm) * sms)
+    return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  long long chunk_arg = chunk;
+  void* args[] = {&energy, &time, &hit, &n, &chunk_arg, &n_bins, &bin_dt, &partials, &counters,
+                  &hist};
+  cudaLaunchCooperativeKernel(fn, grid, dim3(kThreads), args, 0, s);
+"""),
+)
+# K3 with the leader walking its peers' set bits, one dependent read of a
+# slot each (the design first tried): the same adds in the same order.
+_K3_WALK = ((
+    """    float acc = 0.f;
+#pragma unroll
+    for (int k = 0; k < 32; k += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(slots + k);
+      acc += (peers >> k) & 1u ? v.x : 0.f;
+      acc += (peers >> (k + 1)) & 1u ? v.y : 0.f;
+      acc += (peers >> (k + 2)) & 1u ? v.z : 0.f;
+      acc += (peers >> (k + 3)) & 1u ? v.w : 0.f;
+    }
+""", """    float acc = 0.f;
+    for (unsigned m = peers; m != 0; m &= m - 1) acc += slots[__ffs(m) - 1];
+"""),)
+# K3's fold with all of a segment's rows loaded at once, one round trip
+# where the loop takes one for every eight rows.
+_K3_FOLD_AT_ONCE = ((
+    """  float s = 0.f;
+  if (b < n_bins) {
+#pragma unroll 8
+    for (int k = 0; k < count; ++k) s += rows[static_cast<long long>(k0 + k) * kTile];
+  }
+""", """  constexpr int kSegRows = (kMaxBlocks + kSegs - 1) / kSegs;
+  float r[kSegRows];
+#pragma unroll
+  for (int k = 0; k < kSegRows; ++k)
+    if (b < n_bins && k < count) r[k] = __ldcg(rows + static_cast<long long>(k0 + k) * kTile);
+  float s = 0.f;
+#pragma unroll
+  for (int k = 0; k < kSegRows; ++k)
+    if (b < n_bins && k < count) s += r[k];
+"""),)
+
 # kernel -> ((label, (old, new) replacements applied in order, each old text
 # occurring exactly once; nvcc flags, None for the built ones), ...); the
 # first candidate of each is the built source.
@@ -191,6 +433,23 @@ CANDIDATES = {
         ("G16 block 256", (("constexpr int kBlock = 128;", "constexpr int kBlock = 256;"),), None),
         ("G16 one group per ray", (_one_group_per_ray("ropes_shoot_kernel<MT>", "0"),), None),
         ("G16 -fmad=true", (), FMA_FLAGS),
+    ),
+    "a3": (
+        ("block 128, staged rows (built)", (), None),
+        ("block 64", (("constexpr int kBlock = 128;", "constexpr int kBlock = 64;"),), None),
+        ("block 256", (("constexpr int kBlock = 128;", "constexpr int kBlock = 256;"),), None),
+        ("block 128, per-ray rows", (("const bool vec = n - base >= kBlock",
+                                      "const bool vec = false && n - base >= kBlock"),), None),
+        ("block 128 -fmad=true", (), FMA_FLAGS),
+    ),
+    "k3": (
+        ("two launches, chunk 512 (built)", (), None),
+        ("one launch", _K3_ONE_LAUNCH, None),
+        ("grid barrier", _K3_GRID_BARRIER, None),
+        ("leader walks its peers' bits", _K3_WALK, None),
+        ("fold loads a segment at once", _K3_FOLD_AT_ONCE, None),
+        ("chunk 1024", (("kMinChunk = 512;", "kMinChunk = 1024;"),), None),
+        ("at most 264 blocks", (("kMaxBlocks = 528;", "kMaxBlocks = 264;"),), None),
     ),
 }
 
@@ -244,10 +503,12 @@ class Variant(NamedTuple):
     flags: Tuple[str, ...]
 
 
-def _build(entry: str, variants: List[Variant], out_dir: Path, prefix: str):
+def _build(entry: str, variants: List[Variant], out_dir: Path, prefix: str,
+           leave_out_failed: bool = False):
     """Compile every variant into its own shared library, all nvcc
     processes at once; returns ``{label: (C function, C parameters, ptxas
-    report)}``."""
+    report)}``.  A variant that does not compile raises, or, with
+    ``leave_out_failed``, is printed and left out."""
     nvcc = build._nvcc()
     procs = []
     for k, v in enumerate(variants):
@@ -261,7 +522,11 @@ def _build(entry: str, variants: List[Variant], out_dir: Path, prefix: str):
     out = {}
     for v, lib, cmd, _, err, rc in done:
         if rc != 0:
-            raise RuntimeError(f"nvcc failed ({rc}) for {v.label}:\n{' '.join(cmd)}\n{err}")
+            msg = f"nvcc failed ({rc}) for {v.label}:\n{' '.join(cmd)}\n{err}"
+            if not leave_out_failed:
+                raise RuntimeError(msg)
+            print(f"sweep left out: {msg}")
+            continue
         fn = getattr(ctypes.CDLL(str(lib)), entry)
         params = _c_params(v.text, entry)
         fn.argtypes = [t for _, t in params]
@@ -315,6 +580,148 @@ def _cases(dev, kernels) -> List[Case]:
     return cases
 
 
+class CallCase(NamedTuple):
+    """A3 or K3 on some batches: ``(label, make)`` pairs, where ``make()``
+    gives the entry point's parameters by name and the fresh outputs they
+    name."""
+
+    name: str
+    kernel: str  # "a3" or "k3"
+    batches: list
+
+
+def k3_given(lanes, n_bins: int, bin_dt: float, soft: bool):
+    """K3's parameters on ``lanes`` (energy, time, hit), with scratch and
+    zeroed fold counters (the one-launch candidates') enough for any
+    candidate and a parent, and the histogram they name: ``(given,
+    (hist,))``."""
+    from ..trace.bounce import HIST_MAX_BLOCKS, HIST_TILE
+
+    energy, time, hit = (x.contiguous() for x in lanes)
+    dev = energy.device
+    tiles = -(-n_bins // HIST_TILE)
+    # A row for every block and for each segment of them.
+    partials = torch.empty(tiles * 2 * HIST_MAX_BLOCKS * HIST_TILE, device=dev)
+    counters = torch.zeros(tiles * 64, dtype=torch.int32, device=dev)
+    hist = torch.empty(n_bins, device=dev)
+    return dict(energy=energy, time=time, hit=hit, n=energy.numel(), n_bins=n_bins,
+                bin_dt=bin_dt, soft=int(soft), partials=partials, n_partials=partials.numel(),
+                counters=counters, n_counters=counters.numel(), hist=hist), (hist,)
+
+
+def _call_cases(dev, kernels) -> List[CallCase]:
+    import hare_tpu_torch as th
+    from hare_tpu_torch.accel import common, tree, voxel
+    from hare_tpu_torch.mesh import shapes
+
+    from . import a3_check, configs
+
+    _, sp, rays, absorption = bench_setup(dev)
+    c4 = configs.config4_setup(dev)
+    cases = []
+    if "a3" in kernels:
+        def a3_batches(part, shoot, rays_, absorption_, n_bounces, seed0):
+            out = []
+            for b, r in enumerate(bounce_rays(part, rays_, absorption_, n_bounces), 1):
+                best_t, best_tri = shoot(r, part.struct)
+                hr = common.finalize_hits(part.scene, r, best_t, best_tri)
+                args = (part.scene.vertices, part.scene.tri_meta, best_tri, hr.t, hr.hit,
+                        r.origin, r.direction,
+                        a3_check.seeded_cotangents(r.origin.shape[0], seed0 + b, dev))
+                out.append((f"bounce {b}", lambda args=args: a3_check.a3_given(args)))
+            return out
+
+        # chip_smoke.py phase 8's seeds: bounce b takes b, config 4's 10 + b.
+        cases.append(CallCase("A3 bench vertex step", "a3",
+                              a3_batches(sp, voxel.grid_shoot, rays, absorption, N_BOUNCES, 0)))
+        cases.append(CallCase("A3 config 4", "a3",
+                              a3_batches(c4.partition, tree.tree_shoot, c4.rays, c4.absorption,
+                                         c4.n_bounces, 10)))
+    if "k3" in kernels:
+        def lanes(part, rays_, absorption_, n_bounces):
+            with torch.no_grad():
+                res = th.trace_rays(part.scene, rays_, absorption_, n_bounces, part.shoot_fn,
+                                    aux=part.aux)
+            return res.energy, res.time, res.hit
+
+        # Eval config 3 (benchmarks/configs.py): the concert hall, octree,
+        # 1M rays from (15, 24, 8), absorption 0.3, 3 bounces.
+        hall = th.Topology.build(shapes.concert_hall())
+        sp3 = th.SpatialPartition(hall, accel="octree", device=dev)
+        d3 = th.uniform_sphere(1_000_000, torch.Generator().manual_seed(0), device=dev)
+        r3 = th.Ray.make(torch.tensor((15.0, 24.0, 8.0), device=dev).expand(d3.shape).contiguous(),
+                         d3)
+        a3v = torch.full((hall.n_polys,), 0.3, device=dev)
+        for name, lanes_, n_bins in (
+                ("K3 bench", lanes(sp, rays, absorption, N_BOUNCES), 1024),
+                ("K3 config 4", lanes(c4.partition, c4.rays, c4.absorption, c4.n_bounces),
+                 c4.n_bins),
+                ("K3 config 3", lanes(sp3, r3, a3v, N_BOUNCES), 1024)):
+            cases.append(CallCase(name, "k3", [
+                (mode, lambda lanes_=lanes_, n_bins=n_bins, soft=soft:
+                 k3_given(lanes_, n_bins, BIN_DT, soft))
+                for mode, soft in (("hard", False), ("soft", True))]))
+    return cases
+
+
+def _bits_differ(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Elements of two like tensors whose bits differ."""
+    if a.element_size() == 4:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return int((a != b).sum())
+
+
+def _run_call_case(case: CallCase, built_libs, variants, reps: int, rec: dict) -> None:
+    """Check every candidate of ``case`` against the built kernel and
+    itself, then time each, A B ... B A per batch."""
+    c_rec = rec[case.name] = {v.label: {"ptxas": built_libs[v.label][2],
+                                        "flags": " ".join(v.flags)}
+                              for v in variants}
+    built = next(v for v in variants if v.label == CANDIDATES[case.kernel][0][0])
+    stream = torch.cuda.current_stream().cuda_stream
+    for label_b, make in case.batches:
+        outs, ref = {}, None
+        for v in [built] + [v for v in variants if v is not built]:
+            fn, params, _ = built_libs[v.label]
+            runs = []
+            for _ in range(2):
+                given, out = make()
+                call = _caller(fn, params, dict(given, stream=stream))
+                call()
+                torch.cuda.synchronize()
+                runs.append(out)
+            again = sum(_bits_differ(x, y) for x, y in zip(*runs))
+            if again:
+                raise AssertionError(f"{case.name} {label_b} {v.label}: two launches differ in "
+                                     f"{again} elements")
+            got = runs[0]
+            if ref is None:
+                ref = got
+            differ = sum(_bits_differ(x, y) for x, y in zip(got, ref))
+            err = max((float((x.double() - y.double()).abs().max()) if x.numel() else 0.0)
+                      for x, y in zip(got, ref))
+            if case.kernel == "a3" and v.flags == built.flags and differ:
+                raise AssertionError(f"{case.name} {label_b} {v.label}: {differ} elements differ "
+                                     "from the built kernel")
+            total = float(ref[0].double().sum()) if case.kernel == "k3" else 0.0
+            if case.kernel == "k3" and err > HIST_REL_TOL * total:
+                raise AssertionError(f"{case.name} {label_b} {v.label}: differs by {err} of the "
+                                     f"total {total}")
+            outs[v.label] = (call, differ, err, got[0].numel())
+        order = [v.label for v in variants]
+        times = {label: [] for label in order}
+        for label in order + order[::-1]:
+            times[label].append(device_ms(outs[label][0], SPECS[case.kernel].tag, reps))
+        for label in order:
+            ms = sum(times[label]) / len(times[label])
+            _, differ, err, size = outs[label]
+            c_rec[label][label_b] = dict(ms=ms, ms_each=times[label], elements_differ=differ,
+                                         max_abs_diff=err)
+            print(f"sweep {case.name} {label_b} {label}: {ms:.5f} ms on the device "
+                  f"({', '.join(f'{x:.5f}' for x in times[label])}); elements differing from the "
+                  f"built kernel {differ} (max |diff| {err:.3e}), two launches bitwise equal")
+
+
 def _caller(fn, params, given):
     missing = [name for name, _ in params if name not in given]
     if missing:
@@ -332,7 +739,7 @@ def _caller(fn, params, given):
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--kernels", default="k1,b1,b2,b3",
+    ap.add_argument("--kernels", default="k1,b1,b2,b3,a3,k3",
                     help="comma-separated, of " + ", ".join(SPECS))
     ap.add_argument("--parent", type=Path, default=None,
                     help="another checkout whose kernels are candidates too")
@@ -360,10 +767,14 @@ def main(argv=None) -> dict:
                 parent = args.parent / "hare_tpu_torch/kernels/csrc"
                 variants.insert(0, Variant("parent", (parent / spec.source).read_text(), parent,
                                            _nvcc_flags(args.parent)))
-            libs[key] = (_build(spec.entry, variants, Path(tmp), key), variants)
-            for label, (_, _, report) in libs[key][0].items():
+            built_libs = _build(spec.entry, variants, Path(tmp), key, leave_out_failed=True)
+            libs[key] = (built_libs, [v for v in variants if v.label in built_libs])
+            for label, (_, _, report) in built_libs.items():
                 print(f"sweep ptxas {key} {label}: " + " | ".join(report))
 
+        calls = [k for k in kernels if k in ("a3", "k3")]
+        for case in _call_cases(dev, calls) if calls else []:
+            _run_call_case(case, *libs[case.kernel], args.reps, rec)
         stream = torch.cuda.current_stream().cuda_stream
         for case in _cases(dev, kernels):
             spec = SPECS[case.kernel]

@@ -12,7 +12,9 @@ the first step's — 0 where every sum has a fixed order — and the wall
 milliseconds a step over ``REPS`` more steps, the card synchronised before
 and after.  Where the checkout's port takes vertex gradients
 (``Scene.with_vertices``), it does the same w.r.t. the vertices with the
-soft histogram.  Prints one JSON line.
+soft histogram, and counts the fill kernels (``FillFunctor``: zeros that
+autograd or a wrapper writes) one such step launches, with their device
+time, by torch.profiler.  Prints one JSON line.
 
 The loss is the first moment ``sum(h * arange(n_bins))``, not the
 histogram's sum: under the sum every ray of a bounce sends the same
@@ -91,6 +93,17 @@ def step_ms(step, reps: int) -> float:
     return (time.perf_counter() - t) / reps * 1e3
 
 
+def fill_kernels(step, reps: int = 3) -> dict:
+    """Launches and device milliseconds a call of ``step()`` spends in fill
+    kernels (torch's ``FillFunctor``), over ``reps`` profiled calls."""
+    from hare_tpu_torch.benchmarks.bench_scene import profile_kernels
+
+    fills = [(us, k) for name, (us, k) in profile_kernels(step, reps).items()
+             if "FillFunctor" in name]
+    return {"launches": sum(k for _, k in fills) / reps,
+            "device_ms": sum(us for us, _ in fills) / reps / 1e3, "reps": reps}
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tree", type=Path, default=Path(__file__).resolve().parents[2])
@@ -114,7 +127,8 @@ def main(argv=None) -> dict:
         vstep = vertex_step(th, sp, rays, absorption, N_BOUNCES)
         hist_diff, grad_diff = max_diffs(vstep, STEPS)
         rec["vertices_soft"] = {"hist_max_abs_diff": hist_diff, "grad_max_abs_diff": grad_diff,
-                                "step_ms": step_ms(vstep, REPS), "reps": REPS}
+                                "step_ms": step_ms(vstep, REPS), "reps": REPS,
+                                "fill_kernels": fill_kernels(vstep)}
     print(json.dumps({"repeat_check": rec}))
     return rec
 

@@ -15,39 +15,43 @@
 //   - a block takes `chunk` consecutive lanes, each of its warps a fixed
 //     slice of them, 32 lanes a step (chunk_lanes: at least kMinChunk
 //     lanes a block, at most kMaxBlocks blocks);
-//   - in a step, lanes with the same bin are grouped (__match_any_sync)
-//     and each group's values are added in lane order, then into the
-//     warp's private row of bins in shared memory by the group's leader;
-//   - the block folds its warps' rows in warp order into one partial row
-//     in device memory, and a second launch folds the blocks' rows: eight
-//     threads a bin each sum a fixed segment of the rows in order, then
-//     one adds the eight in order.
+//   - in a step, lanes with the same bin form a group (__match_any_sync);
+//     its values are added from +0.0 in lane order, and its leader (lowest
+//     lane) adds the sum into the warp's private row of bins in shared
+//     memory (soft: every lane's low share first, then every high share);
+//   - the block adds its warps' rows in warp order into one row in device
+//     memory;
+//   - a second launch folds the blocks' rows, R of them: kSegs segments of
+//     ceil(R / kSegs) consecutive rows, each added from +0.0 in row order,
+//     then the segment sums from +0.0 in segment order.
 // Bins come in tiles of kTile (blockIdx.y), so any n_bins fits the shared
 // memory; a block reads its lanes once for each tile.
 //
 // What bounds it on the H100: bytes, the lanes' energy, time and hit (9 B
-// a lane) read once and the bins written once.  The partial rows add 4 B a
-// bin a block, written once and read once by the fold, within the 50 MB L2
-// (at most kMaxBlocks rows).  A step's match, shuffles and adds are a
-// dependent chain, so the kernel is latency-bound and wants many warps in
-// flight: small chunks up to two blocks a multiprocessor, and a fold that
-// spreads each bin's rows over eight threads.
-//
-// histogram_partials carries no __launch_bounds__: with it, ptxas of CUDA
-// 12.8 fails on the soft instantiation (C7600, "Register allocation failed
-// with register count of '7'"); without it the kernel takes 32 registers.
+// a lane) read once and the bins written once; at the main paths' sizes, a
+// few dependent round trips to memory and the launches.  What the design
+// does (PERF.md §6; kernel_sweep.py case k3 holds the candidates):
+//   - a warp loads kAhead steps of lanes, unconditionally, before it adds
+//     any of them: one round trip to memory for kAhead steps;
+//   - a group's leader alone sums it, by a scan of the step's 32 values
+//     (eight 16-byte reads, a peer's value or +0.0 added in lane order):
+//     no dependent chain of shuffles on every lane;
+//   - two launches, not one: folding the rows in the same launch, by the
+//     last blocks to finish (counters, fences and a second level of
+//     segments) or behind a grid-wide barrier, reads slower on the device
+//     than the second launch at the bench's and config 4's sizes.
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 1024;                   // bins a block holds
-constexpr long long kMinChunk = 1024;         // lanes a block sums, at least
-constexpr long long kMaxBlocks = 264;         // two blocks a multiprocessor
-                                              // (bounce.py's HIST_MAX_BLOCKS)
-constexpr int kFoldBins = 32;                 // bins a fold block sums
-constexpr int kFoldSegs = kThreads / kFoldBins;  // threads a bin in the fold
+constexpr int kTile = 1024;            // bins a block holds
+constexpr long long kMinChunk = 512;   // lanes a block sums, at least
+constexpr long long kMaxBlocks = 528;  // blocks along the lanes, at most
+constexpr int kSegs = 8;               // segments of the blocks' rows
+constexpr int kAhead = 4;              // steps a warp loads at once
+constexpr unsigned kFull = 0xffffffffu;
 
 // Lanes a block sums: at least kMinChunk, few enough for kMaxBlocks blocks,
 // a multiple of kThreads so each warp's slice is whole steps of 32.
@@ -56,7 +60,6 @@ __host__ __device__ inline long long chunk_lanes(long long n) {
   const long long chunk = (want + kThreads - 1) / kThreads * kThreads;
   return chunk > kMinChunk ? chunk : kMinChunk;
 }
-constexpr unsigned kFull = 0xffffffffu;
 
 // The hard bin, clip(int(time / bin_dt), 0, n_bins - 1): clamping before
 // the truncating conversion gives the same bin and keeps it in range.
@@ -80,83 +83,133 @@ __device__ __forceinline__ Tent tent(float time, int n_bins, float bin_dt) {
   return Tent{max(i, 0), min(i + 1, n_bins - 1), x, fminf(fmaxf(x, 0.f), 1.f)};
 }
 
-// Adds each lane's value into row[bin] (bin -1: nothing), the lanes of one
-// bin summed in lane order by their group, then added by its leader.
-__device__ __forceinline__ void add_in_lane_order(float* row, int bin, float val, int lane) {
+// Adds each lane's value into row[bin] (bin -1: nothing): the group of
+// lanes with one bin is summed from +0.0 in lane order by its leader, its
+// lowest lane, which reads the step's 32 values from the warp's slots and
+// adds each peer's, +0.0 for every other lane.  A sum from +0.0 is never
+// -0.0, so adding +0.0 leaves it unchanged: the bits are those of the
+// peers' values alone, added in lane order.
+__device__ __forceinline__ void add_grouped(float* row, float* slots, int bin, float val,
+                                            int lane) {
   const unsigned peers = __match_any_sync(kFull, bin);
-  float acc = 0.f;
-  for (int k = 0; k < 32; ++k) {
-    const float v = __shfl_sync(kFull, val, k);
-    if ((peers >> k) & 1u) acc += v;
+  slots[lane] = val;
+  __syncwarp();
+  if (bin >= 0 && lane == __ffs(peers) - 1) {
+    float acc = 0.f;
+#pragma unroll
+    for (int k = 0; k < 32; k += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(slots + k);
+      acc += (peers >> k) & 1u ? v.x : 0.f;
+      acc += (peers >> (k + 1)) & 1u ? v.y : 0.f;
+      acc += (peers >> (k + 2)) & 1u ? v.z : 0.f;
+      acc += (peers >> (k + 3)) & 1u ? v.w : 0.f;
+    }
+    row[bin] += acc;
   }
-  if (bin >= 0 && lane == __ffs(peers) - 1) row[bin] += acc;
+  __syncwarp();
 }
 
+// Rows of a segment of R blocks' rows: ceil(R / kSegs).
+__host__ __device__ inline int seg_rows(int blocks) { return (blocks + kSegs - 1) / kSegs; }
+
+// No __launch_bounds__: with it, ptxas of CUDA 12.8 failed on the soft
+// instantiation of the earlier kernel (C7600, "Register allocation failed
+// with register count of '7'"), as it does on that kernel's shuffle chain.
 template <bool SOFT>
-__global__ void histogram_partials(const float* __restrict__ energy, const float* __restrict__ time,
-                   const bool* __restrict__ hit, long long n, long long chunk, int n_bins,
-                   float bin_dt, float* __restrict__ partials) {
-  __shared__ float priv[kWarps * kTile];
+__global__ void hist_rows_kernel(const float* __restrict__ energy, const float* __restrict__ time,
+                                 const bool* __restrict__ hit, long long n, long long chunk,
+                                 int n_bins, float bin_dt, float* __restrict__ partials) {
+  __shared__ __align__(16) float priv[kWarps * kTile];
+  __shared__ __align__(16) float slots[kWarps][32];  // a step's values, for the leaders
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int b0 = blockIdx.y * kTile;
   const int tile = min(kTile, n_bins - b0);
-  for (int b = threadIdx.x; b < kWarps * kTile; b += kThreads) priv[b] = 0.f;
+  for (int q = threadIdx.x; q < kWarps * kTile / 4; q += kThreads)
+    reinterpret_cast<float4*>(priv)[q] = make_float4(0.f, 0.f, 0.f, 0.f);
   __syncthreads();
   float* row = priv + warp * kTile;
   const long long begin = blockIdx.x * chunk + warp * (chunk / kWarps);
   const long long end = min(begin + chunk / kWarps, n);
-  for (long long base = begin; base < end; base += 32) {
-    const long long i = base + lane;
-    int bin_a = -1, bin_b = -1;
-    float val_a = 0.f, val_b = 0.f;
-    if (i < end && hit[i]) {
-      const float e = energy[i];
-      if (SOFT) {
-        const Tent s = tent(time[i], n_bins, bin_dt);
-        const float e_hi = e * s.frac;
-        bin_a = s.lo;
-        val_a = e - e_hi;
-        bin_b = s.hi;
-        val_b = e_hi;
-      } else {
-        bin_a = hard_bin(time[i], n_bins, bin_dt);
-        val_a = e;
+  for (long long base = begin; base < end; base += 32 * kAhead) {
+    float e[kAhead], t[kAhead];
+    bool h[kAhead];
+#pragma unroll
+    for (int s = 0; s < kAhead; ++s) {
+      const long long i = base + 32 * s + lane;
+      h[s] = false;
+      e[s] = t[s] = 0.f;
+      if (i < end) {
+        h[s] = hit[i];
+        e[s] = energy[i];
+        t[s] = time[i];
       }
     }
-    // Bins outside this block's tile: none here.
-    bin_a = bin_a >= b0 && bin_a < b0 + tile ? bin_a - b0 : -1;
-    add_in_lane_order(row, bin_a, val_a, lane);
-    if (SOFT) {
-      bin_b = bin_b >= b0 && bin_b < b0 + tile ? bin_b - b0 : -1;
-      add_in_lane_order(row, bin_b, val_b, lane);
+#pragma unroll
+    for (int s = 0; s < kAhead; ++s) {
+      if (base + 32 * s >= end) break;  // warp-uniform
+      int bin_a = -1, bin_b = -1;
+      float val_a = 0.f, val_b = 0.f;
+      if (h[s]) {
+        if (SOFT) {
+          const Tent ts = tent(t[s], n_bins, bin_dt);
+          const float e_hi = e[s] * ts.frac;
+          bin_a = ts.lo;
+          val_a = e[s] - e_hi;
+          bin_b = ts.hi;
+          val_b = e_hi;
+        } else {
+          bin_a = hard_bin(t[s], n_bins, bin_dt);
+          val_a = e[s];
+        }
+      }
+      // Bins outside this block's tile: none here.
+      bin_a = bin_a >= b0 && bin_a < b0 + tile ? bin_a - b0 : -1;
+      add_grouped(row, slots[warp], bin_a, val_a, lane);
+      if (SOFT) {
+        bin_b = bin_b >= b0 && bin_b < b0 + tile ? bin_b - b0 : -1;
+        add_grouped(row, slots[warp], bin_b, val_b, lane);
+      }
     }
   }
   __syncthreads();
-  for (int b = threadIdx.x; b < tile; b += kThreads) {
-    float s = 0.f;
-    for (int w = 0; w < kWarps; ++w) s += priv[w * kTile + b];
-    partials[static_cast<long long>(blockIdx.x) * n_bins + b0 + b] = s;
+
+  // ---- this block's row: its warps' rows in warp order.
+  float* out = partials + (static_cast<long long>(blockIdx.y) * gridDim.x + blockIdx.x) * kTile;
+  for (int q = threadIdx.x; q < kTile / 4; q += kThreads) {
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int w = 0; w < kWarps; ++w) {
+      const float4 r = reinterpret_cast<const float4*>(priv + w * kTile)[q];
+      s.x += r.x;
+      s.y += r.y;
+      s.z += r.z;
+      s.w += r.w;
+    }
+    reinterpret_cast<float4*>(out)[q] = s;
   }
 }
 
+// The blocks' rows folded into the histogram, 32 bins a block: kSegs
+// threads a bin each add one segment's rows in order from +0.0; then one
+// adds the segment sums in order.
 __global__ void __launch_bounds__(kThreads)
-fold_partials(const float* __restrict__ partials, int n_blocks, int n_bins,
-              float* __restrict__ hist) {
-  __shared__ float seg_sum[kFoldSegs][kFoldBins];
-  const int col = threadIdx.x % kFoldBins, seg = threadIdx.x / kFoldBins;
-  const int b = blockIdx.x * kFoldBins + col;
-  const int per = (n_blocks + kFoldSegs - 1) / kFoldSegs;
-  const int k1 = min((seg + 1) * per, n_blocks);
+hist_fold_kernel(const float* __restrict__ partials, int blocks, int n_bins,
+                 float* __restrict__ hist) {
+  static_assert(kThreads == 32 * kSegs, "a thread for each bin and segment");
+  __shared__ float seg_sum[kSegs][32];
+  const int col = threadIdx.x % 32, seg = threadIdx.x / 32;
+  const int b = blockIdx.x * 32 + col;
+  const float* rows = partials + static_cast<long long>(b / kTile) * blocks * kTile + b % kTile;
+  const int per = seg_rows(blocks), k0 = seg * per, count = max(0, min(per, blocks - k0));
   float s = 0.f;
   if (b < n_bins) {
 #pragma unroll 8
-    for (int k = seg * per; k < k1; ++k) s += partials[static_cast<long long>(k) * n_bins + b];
+    for (int k = 0; k < count; ++k) s += rows[static_cast<long long>(k0 + k) * kTile];
   }
   seg_sum[seg][col] = s;
   __syncthreads();
   if (seg == 0 && b < n_bins) {
     float t = 0.f;
-    for (int j = 0; j < kFoldSegs; ++j) t += seg_sum[j][col];
+    for (int j = 0; j < kSegs; ++j) t += seg_sum[j][col];
     hist[b] = t;
   }
 }
@@ -193,9 +246,11 @@ soft_bwd_kernel(const float* __restrict__ energy, const float* __restrict__ time
 }  // namespace
 
 // The histogram of n lanes into n_bins bins (soft: 0 hard, 1 tent), into
-// hist.  partials is scratch of n_partials floats, at least
-// min(ceil(n / 1024), 264) * n_bins.  Launches on `stream`; returns
-// cudaGetLastError().
+// hist.  partials is scratch of n_partials floats, at least tiles blocks
+// kTile, with blocks = max(1, ceil(n / chunk)) (at most kMaxBlocks) and
+// tiles = ceil(n_bins / kTile).  Launches on `stream`; returns
+// cudaGetLastError(), or cudaErrorInvalidValue before any launch where the
+// scratch is short.
 extern "C" int hare_energy_histogram(const float* energy, const float* time, const bool* hit,
                                      long long n, int n_bins, float bin_dt, int soft,
                                      float* partials, long long n_partials, float* hist,
@@ -203,20 +258,18 @@ extern "C" int hare_energy_histogram(const float* energy, const float* time, con
   if (n_bins <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long chunk = chunk_lanes(n);
-  const long long blocks = (n + chunk - 1) / chunk;
-  if (blocks * n_bins > n_partials)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (blocks > 0) {
-    const dim3 grid(static_cast<unsigned>(blocks), (n_bins + kTile - 1) / kTile);
-    if (soft)
-      histogram_partials<true><<<grid, kThreads, 0, s>>>(energy, time, hit, n, chunk, n_bins,
-                                                         bin_dt, partials);
-    else
-      histogram_partials<false><<<grid, kThreads, 0, s>>>(energy, time, hit, n, chunk, n_bins,
-                                                          bin_dt, partials);
-  }
-  fold_partials<<<(n_bins + kFoldBins - 1) / kFoldBins, kThreads, 0, s>>>(
-      partials, static_cast<int>(blocks), n_bins, hist);
+  const long long blocks = n > 0 ? (n + chunk - 1) / chunk : 1;  // n = 0: one block writes zeros
+  const long long tiles = (n_bins + kTile - 1) / kTile;
+  if (tiles * blocks * kTile > n_partials) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(tiles));
+  if (soft)
+    hist_rows_kernel<true><<<grid, kThreads, 0, s>>>(energy, time, hit, n, chunk, n_bins, bin_dt,
+                                                      partials);
+  else
+    hist_rows_kernel<false><<<grid, kThreads, 0, s>>>(energy, time, hit, n, chunk, n_bins, bin_dt,
+                                                       partials);
+  hist_fold_kernel<<<(n_bins + 31) / 32, kThreads, 0, s>>>(partials, static_cast<int>(blocks),
+                                                           n_bins, hist);
   return static_cast<int>(cudaGetLastError());
 }
 

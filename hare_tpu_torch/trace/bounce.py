@@ -190,9 +190,11 @@ def soft_histogram_plain(
     )[:n_bins]
 
 
-# K3's most blocks (energy_histogram.cu's kMaxBlocks): its scratch holds one
-# row of bins for each; the kernel checks that the rows suffice.
-HIST_MAX_BLOCKS = 264
+# energy_histogram.cu's layout, which sizes K3's scratch (the kernel checks
+# that it suffices): a row of bins for each of at most HIST_MAX_BLOCKS
+# blocks along the lanes (its kMaxBlocks), bins in tiles of HIST_TILE
+# (kTile).
+HIST_MAX_BLOCKS, HIST_TILE = 528, 1024
 
 
 def _check_lanes(energy: torch.Tensor, time: torch.Tensor, hit: torch.Tensor) -> None:
@@ -212,7 +214,8 @@ def histogram_kernel(
     hard or soft bins, summed in an order fixed by the lane count."""
     _check_lanes(energy, time, hit)
     n = energy.numel()
-    partials = torch.empty(max(HIST_MAX_BLOCKS * n_bins, 1), dtype=torch.float32,
+    tiles = -(-n_bins // HIST_TILE)
+    partials = torch.empty(max(tiles * HIST_MAX_BLOCKS * HIST_TILE, 1), dtype=torch.float32,
                            device=energy.device)
     hist = torch.empty(n_bins, dtype=torch.float32, device=energy.device)
     energy_histogram.launches += 1

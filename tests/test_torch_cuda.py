@@ -775,6 +775,179 @@ def test_finalize_backward_matches_plain(dev, kernel):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
+def unaligned(x):
+    """``x``'s values in a contiguous tensor whose storage starts one
+    element past a 16-byte boundary (a view at an odd storage offset)."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    assert out.data_ptr() % 16 != 0
+    return out
+
+
+# A3 at the edges of its launch: one ray, a ray count that is not a whole
+# number of blocks, every ray a miss, rays lying in their triangle's plane
+# (det exactly 0), (N, 3) rows at an unaligned storage offset, and absent
+# cotangents (an output no loss reaches).
+A3_EDGES = ["n = 1", "n = 1000", "all misses", "zero det", "unaligned rows", "absent u and v",
+            "all absent"]
+
+
+def a3_edge_args(dev, case):
+    """``finalize_hits_bwd``'s arguments for one case of ``A3_EDGES``."""
+    if case == "zero det":
+        # Every ray hits the floor triangle; every other ray lies in its plane.
+        sc = th.Topology.build(shapes.shoebox(4, 5, 3)).scene(device=dev)
+        floor = int(torch.nonzero((sc.vertices[sc.tri_v.long()][..., 2] == 0).all(1))[0])
+        n = 512
+        rng = np.random.default_rng(9)
+        o = torch.tensor(rng.uniform((0.3, 0.3, 0.3), (3.7, 4.7, 2.7), (n, 3)),
+                         dtype=torch.float32, device=dev)
+        d = torch.tensor(rng.normal(size=(n, 3)), dtype=torch.float32, device=dev)
+        d[:, 2] = -d[:, 2].abs() - 0.1
+        d[::2] = torch.tensor((0.6, 0.8, 0.0), device=dev)
+        d = d / d.norm(dim=1, keepdim=True)
+        best_tri = torch.full((n,), floor, dtype=torch.int32, device=dev)
+        return (sc.vertices, sc.tri_meta, best_tri, o[:, 2] / d[:, 2].abs(),
+                torch.ones(n, dtype=torch.bool, device=dev), o, d,
+                a3_check.seeded_cotangents(n, 9, dev))
+    n = {"n = 1": 1, "n = 1000": 1000}.get(case, 4096)
+    scene, rays, best_tri, hr, cts = bwd_inputs(dev, "watertight", n=n, seed=7)
+    t, hit, o, d = hr.t, hr.hit, rays.origin, rays.direction
+    if case == "all misses":
+        best_tri = torch.full_like(best_tri, -1)
+        t, hit = torch.full_like(t, float("inf")), torch.zeros_like(hit)
+    elif case == "unaligned rows":
+        o, d = unaligned(o), unaligned(d)
+        cts = cts[:3] + tuple(unaligned(g) for g in cts[3:])
+    elif case == "absent u and v":
+        cts = (cts[0], None, None, cts[3], cts[4])
+    elif case == "all absent":
+        cts = (None,) * 5
+    return scene.vertices, scene.tri_meta, best_tri, t, hit, o, d, cts
+
+
+def zero_filled(args):
+    """``args`` with each absent cotangent as zeros."""
+    *inputs, cts = args
+    n = inputs[5].shape[0]
+    return (*inputs, tuple(torch.zeros(sh, device=inputs[5].device) if g is None else g
+                           for g, sh in zip(cts, ((n,), (n,), (n,), (n, 3), (n, 3)))))
+
+
+def a3_whole_blocks(args):
+    """A3 on the same rays padded with misses to a multiple of 1024 rays
+    (whole blocks at any block size up to 1024), every input in a fresh
+    16-byte-aligned tensor, an absent cotangent as zeros: the launch whose
+    blocks all move their rows through shared memory."""
+    vertices, tri_meta, best_tri, t, hit, o, d, cts = zero_filled(args)
+    n = o.shape[0]
+    m = -(-n // 1024) * 1024
+
+    def pad(x, fill):
+        out = torch.full((m,) + tuple(x.shape[1:]), fill, dtype=x.dtype, device=x.device)
+        out[:n] = x
+        return out
+
+    out = finalize_hits_bwd(vertices, tri_meta, pad(best_tri, -1), pad(t, float("inf")),
+                            pad(hit, False), pad(o, 0.0), pad(d, 0.0),
+                            tuple(pad(g, 0.0) for g in cts))
+    return out[0][:n], out[1][:n], out[2][:3 * n], out[3][:3 * n]
+
+
+@pytest.mark.parametrize("case", A3_EDGES)
+def test_finalize_backward_edge_cases(dev, case):
+    """A3 on each edge case: every element within a3_check's bound of the
+    plain version in float64, the vertex ids equal; bit-equal to itself
+    over two launches and to the same rays launched as one aligned batch
+    of whole blocks (so the per-ray path and the staged one agree to the
+    bit, and an absent cotangent reads as zeros)."""
+    args = a3_edge_args(dev, case)
+    k = finalize_hits_bwd(*args)
+    for x, y, z in zip(k, finalize_hits_bwd(*args), a3_whole_blocks(args)):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+        assert torch.equal(x.view(torch.int32), z.view(torch.int32))
+    full = zero_filled(args)
+    p64 = finalize_hits_bwd_plain(
+        *(x.double() if x.is_floating_point() else x for x in full[:-1]),
+        tuple(g.double() for g in full[-1]))
+    assert torch.equal(k[2], p64[2].to(torch.int32))
+    bounds = a3_check.ray_bounds(full)
+    if case == "zero det":
+        # A ray in its triangle's plane meets it at t = inf: its d(direction),
+        # t d(point), need not be finite, in the plain version or the
+        # kernel (and its condition number is inf).  Every other element
+        # is held as in every other case.
+        flat = torch.isinf(a3_check.condition(*full[:3], full[6]))
+        bad = ~(torch.isfinite(k[1]) & torch.isfinite(p64[1]))
+        assert bool(bad.any()) and not bool(bad[~flat].any())
+        k = (k[0], torch.where(bad, 0.0, k[1]), k[2], k[3])
+        p64 = (p64[0], torch.where(bad, 0.0, p64[1]), p64[2], p64[3])
+        bounds = tuple(torch.where(torch.isnan(b), torch.inf, b) for b in bounds)
+    agree = a3_check.agreement(k, p64, full, bounds)
+    assert all(r["outside"] == 0 for r in agree.values()), agree
+    if case == "all absent":
+        assert not any(bool(x.any()) for x in (k[0], k[1], k[3]))
+
+
+# K3 at the edges of its launch: (lanes, n_bins, kind): no lane, fewer or
+# a few more than a warp's 32, every lane in one bin (a group of 32 in
+# every step), every lane dead, one bin, bins around one tile of 1024 and
+# many tiles, and 3,145,728 lanes (three bounces of 2^20 rays, past eval
+# config 3's 3,000,000).
+K3_EDGES = [(0, 1024, "random"), (1, 1024, "random"), (31, 1024, "random"),
+            (33, 1024, "random"), (50_000, 1024, "one bin"), (50_000, 1024, "dead"),
+            (50_000, 1, "random"), (50_000, 1000, "random"), (50_000, 1024, "random"),
+            (50_000, 1025, "random"), (50_000, 20_000, "random"), (3_145_728, 1024, "random")]
+
+
+def k3_lanes(dev, n, n_bins, kind):
+    """Seeded (energy, time, hit) lanes: times spread over the window and
+    a little beyond it on both sides, a tenth of the lanes dead."""
+    rng = np.random.default_rng(n + n_bins)
+    energy = rng.uniform(0, 1, n).astype(np.float32)
+    time = (rng.uniform(-0.1, 1.1, n) * n_bins * 1e-3).astype(np.float32)
+    hit = rng.uniform(size=n) < 0.9
+    if kind == "one bin":
+        time[:], hit[:] = 7.5e-3, True
+    elif kind == "dead":
+        hit[:] = False
+    return tuple(torch.from_numpy(x).to(dev) for x in (energy, time, hit))
+
+
+@pytest.mark.parametrize("soft", [False, True], ids=["hard", "soft"])
+@pytest.mark.parametrize("n, n_bins, kind", K3_EDGES)
+def test_histogram_edge_cases(dev, n, n_bins, kind, soft):
+    """K3 on each edge case: two launches give the same bits, every bin
+    within 1e-5 of the total of its plain version (the same values summed
+    in another order; exactly where the total is 0), and the total the
+    live lanes' energy."""
+    energy, time, hit = k3_lanes(dev, n, n_bins, kind)
+    hk = histogram_kernel(energy, time, hit, n_bins, 1e-3, soft=soft)
+    again = histogram_kernel(energy, time, hit, n_bins, 1e-3, soft=soft)
+    assert torch.equal(hk.view(torch.int32), again.view(torch.int32))
+    hp = (soft_histogram_plain if soft else histogram_plain)(energy, time, hit, n_bins, 1e-3)
+    total = float(hp.double().sum())
+    assert float((hk - hp).abs().max()) <= 1e-5 * total
+    live = float(energy[hit].double().sum())
+    assert abs(float(hk.double().sum()) - live) <= 1e-5 * live
+
+
+def test_histogram_on_two_streams(dev):
+    """K3 in turn on two streams gives the bits of the default stream's
+    launch, hard and soft."""
+    lanes = k3_lanes(dev, 200_000, 1024, "random")
+    want = [histogram_kernel(*lanes, 1024, 1e-3, soft=soft) for soft in (False, True)]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams + streams:
+        with torch.cuda.stream(s):
+            got = [histogram_kernel(*lanes, 1024, 1e-3, soft=soft) for soft in (False, True)]
+        s.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
 @pytest.mark.parametrize("accel", ["brute", "grid", "octree", "kdtree", "kdtree_ropes"])
 def test_vertex_grads_on_card_match_cpu(dev, accel):
     """d/d(vertices) of the soft histogram's first moment and of sum(t *

@@ -68,12 +68,62 @@ def centre_time(k, bin_dt):
     raise AssertionError("no f32 time at the bin centre")
 
 
-def test_soft_histogram_matches_jax():
+# Edge cases of a trace record's lanes beside the documented one (K3's
+# tests on the card take the same ones).
+SOFT_CASES = ["documented", "one bin", "1025 bins", "every lane in one bin", "every lane dead",
+              "outside the window", "on bin edges"]
+
+
+def soft_lanes(rng, case):
+    """``(hit, energy, time, n_bins, bin_dt)`` of a 3 x 400 trace record
+    for one edge case of ``SOFT_CASES``: one bin, 1025 bins (past one tile
+    of K3), every lane at one time, every lane dead, every time before or
+    past the window, every time exactly on a bin edge (the tent's frac
+    1/2)."""
+    shape, n_bins, bin_dt = (3, 400), 32, 1e-3
+    hit = rng.uniform(size=shape) < 0.8
+    energy = rng.uniform(0.1, 1.0, shape).astype(np.float32)
+    time = rng.uniform(-0.005, 0.05, shape).astype(np.float32)
+    if case == "one bin":
+        n_bins = 1
+    elif case == "1025 bins":
+        n_bins = 1025
+        time = rng.uniform(-0.01, 1.04, shape).astype(np.float32)
+    elif case == "every lane in one bin":
+        time[:] = np.float32(7.3 * bin_dt)
+        hit[:] = True
+    elif case == "every lane dead":
+        hit[:] = False
+    elif case == "outside the window":
+        late = rng.uniform(size=shape) < 0.5
+        time = np.where(late, n_bins * bin_dt + rng.uniform(0, 1, shape),
+                        -rng.uniform(1e-6, 1, shape)).astype(np.float32)
+    elif case == "on bin edges":
+        bin_dt = 2.0 ** -10  # every k bin_dt exact in f32, and time / bin_dt exactly k
+        time = (rng.integers(-2, n_bins + 3, shape) * bin_dt).astype(np.float32)
+    return hit, energy, time, n_bins, bin_dt
+
+
+@pytest.mark.parametrize("case", SOFT_CASES)
+def test_soft_histogram_matches_jax(case):
     """test_soft_histogram_conserves_and_differentiates on the port: totals
     conserved (the clamped overflow included), the 0.2 / 0.3 split, the dead
     lane dropped, d(moment)/dt = energy / bin_dt; a time exactly at a bin
     centre takes JAX's clip gradient (1/2); and a random 3 x 512 trace's bins
-    and d/d(energy), d/d(time) equal JAX's."""
+    and d/d(energy), d/d(time) equal JAX's.  Each edge case of SOFT_CASES:
+    the bins and both gradients equal JAX's, and the total the live
+    energy."""
+    if case != "documented":
+        hit, energy, time, n_bins, bin_dt = soft_lanes(np.random.default_rng(23), case)
+        weight = np.random.default_rng(5).normal(size=n_bins).astype(np.float32)
+        jres, (h_t, e_t, t_t) = traces(hit, energy, time)
+        got = port_soft(h_t, e_t, t_t, n_bins, bin_dt, weight)
+        want = jax_soft(jres, n_bins, bin_dt, weight)
+        for what, g, w in zip(("bins", "d/d(energy)", "d/d(time)"), got, want):
+            np.testing.assert_allclose(g, w, rtol=RTOL, atol=RTOL * float(np.abs(w).max()),
+                                       err_msg=what)
+        np.testing.assert_allclose(got[0].sum(), energy[hit].sum(), rtol=RTOL)
+        return
     c = centre_time(3, 1e-3)
     hit = np.array([[True, True, True, False, True]])
     energy = np.array([[0.5, 0.25, 1.0, 7.0, 0.75]], np.float32)

@@ -101,33 +101,69 @@ def test_slice_histogram_and_grad_parity(slice_runs):
     np.testing.assert_allclose(gt, gj, rtol=GRAD_RTOL)
 
 
-def test_energy_histogram_parity(rng):
-    """Hard binning with dead lanes, negative and past-window times, and its
-    backward, against JAX on the same synthetic trace record."""
-    b, n, bins = 3, 400, 32
+# Edge cases of a trace record's lanes, beside the random one (K3's tests
+# on the card take the same ones).
+HIST_CASES = ["random", "one bin", "1025 bins", "every lane in one bin", "every lane dead",
+              "outside the window", "on bin edges"]
+
+
+def histogram_lanes(rng, case):
+    """``(energy, time, hit, n_bins, bin_dt)`` of a 3 x 400 trace record:
+    random times around a 32-bin window with dead lanes, or one edge case
+    of ``HIST_CASES``."""
+    b, n, bins, bin_dt = 3, 400, 32, BIN_DT
     energy = rng.uniform(0, 1, (b, n)).astype(np.float32)
     time = rng.uniform(-0.005, 0.05, (b, n)).astype(np.float32)
     hit = rng.uniform(size=(b, n)) < 0.8
+    if case == "one bin":
+        bins = 1
+    elif case == "1025 bins":
+        bins = 1025
+        time = rng.uniform(-0.01, 1.04, (b, n)).astype(np.float32)
+    elif case == "every lane in one bin":
+        time[:] = np.float32(7.5 * bin_dt)
+        hit[:] = True
+    elif case == "every lane dead":
+        hit[:] = False
+    elif case == "outside the window":
+        late = rng.uniform(size=(b, n)) < 0.5
+        time = np.where(late, bins * bin_dt + rng.uniform(0, 1, (b, n)),
+                        -rng.uniform(1e-6, 1, (b, n))).astype(np.float32)
+    elif case == "on bin edges":
+        bin_dt = 2.0 ** -10  # every k bin_dt exact in f32, and time / bin_dt exactly k
+        time = (rng.integers(-2, bins + 3, (b, n)) * bin_dt).astype(np.float32)
+    return energy, time, hit, bins, bin_dt
+
+
+@pytest.mark.parametrize("case", HIST_CASES)
+def test_energy_histogram_parity(rng, case):
+    """Hard binning with dead lanes, negative and past-window times, and its
+    backward, against JAX on the same synthetic trace record; and on each
+    edge case: one bin, 1025 bins (past one tile of K3), every lane in one
+    bin, every lane dead, every time outside the window, every time exactly
+    on a bin edge."""
+    energy, time, hit, bins, bin_dt = histogram_lanes(rng, case)
+    b, n = energy.shape
     ct = rng.normal(size=bins).astype(np.float32)
     zeros = np.zeros((b, n), np.float32)
 
     def jhist(e):
         res = jh.trace.TraceResult(jnp.asarray(hit), e, jnp.asarray(time),
                                    zeros.astype(np.int32), zeros[..., None], zeros)
-        return jh.energy_histogram(res, bins, BIN_DT)
+        return jh.energy_histogram(res, bins, bin_dt)
 
     hj, vjp = jax.vjp(jhist, jnp.asarray(energy))
     (gj,) = vjp(jnp.asarray(ct))
     e_t = torch.tensor(energy, requires_grad=True)
     res = th.TraceResult(torch.from_numpy(hit), e_t, torch.from_numpy(time),
                          None, None, None)
-    ht = th.energy_histogram(res, bins, BIN_DT)
+    ht = th.energy_histogram(res, bins, bin_dt)
     ht.backward(torch.from_numpy(ct))
     # Per-bin sums of the same values in another order.
     np.testing.assert_allclose(ht.detach().numpy(), np.asarray(hj), rtol=RTOL, atol=1e-5)
     np.testing.assert_array_equal(e_t.grad.numpy(), np.asarray(gj))
     np.testing.assert_allclose(
-        histogram_plain(e_t.detach(), res.time, res.hit, bins, BIN_DT).sum().item(),
+        histogram_plain(e_t.detach(), res.time, res.hit, bins, bin_dt).sum().item(),
         energy[hit].sum(), rtol=RTOL,
     )
 

@@ -82,12 +82,16 @@ def test_with_vertices_matches_jax():
     assert np.array_equal(te.tri_geom.numpy(), np.asarray(je.tri_geom)[:, :9])
 
 
+@pytest.mark.parametrize("batch", ["mixed", "all misses", "zero det"])
 @pytest.mark.parametrize("kernel", ["watertight", "mt"])
-def test_finalize_backward_matches_jax(kernel):
+def test_finalize_backward_matches_jax(kernel, batch):
     """A3's plain version against jax.vjp of the JAX finalize w.r.t.
     (vertices, origin, direction), with seeded cotangents for t, u, v,
     point and normal, on a room with a sphere; an eighth of the rays made
-    misses (only their normal's cotangent reaches triangle 0)."""
+    misses (only their normal's cotangent reaches triangle 0).  Also every
+    ray a miss, and an eighth of the rays made hits on a floor triangle
+    that their direction lies in (det exactly 0: t, u and v give no
+    gradient)."""
     n = 256
     jfaces = jshapes.shoebox(*ROOM) + jshapes.icosphere(1, radius=0.8, center=SOURCE)
     js = jh.Topology.build(jfaces).scene()
@@ -98,8 +102,14 @@ def test_finalize_backward_matches_jax(kernel):
     best_t = np.asarray(hr.t).copy()
     best_tri = np.asarray(hr.tri_id).copy()
     assert np.isfinite(best_t).all()
-    miss = np.arange(n) % 8 == 5
+    miss = np.arange(n) % 8 == 5 if batch != "all misses" else np.ones(n, bool)
     best_t[miss], best_tri[miss] = np.inf, -1
+    if batch == "zero det":
+        flat = np.arange(n) % 8 == 3
+        floor = int(np.nonzero(np.all(np.asarray(js.vertices)[np.asarray(js.tri_v)[:, :3]][..., 2]
+                                      == 0.0, axis=1))[0][0])
+        d[flat] = (0.6, 0.8, 0.0)  # in the floor's plane: d x e2 is normal to e1
+        best_t[flat], best_tri[flat] = 1.0, floor
     cts = [rng.normal(size=s).astype(np.float32) for s in ((n,), (n,), (n,), (n, 3), (n, 3))]
     v0 = np.array(js.vertices)
 
@@ -120,6 +130,8 @@ def test_finalize_backward_matches_jax(kernel):
     outs = (torch.where(h.hit, h.t, 0.0), h.u, h.v, h.point, h.normal)
     torch.autograd.backward(outs, [torch.from_numpy(c) for c in cts])
     assert not bool(h.hit[torch.from_numpy(miss)].any())
+    if batch == "all misses":
+        assert not bool(h.hit.any())
     for what, got, ref in zip(("vertices", "origin", "direction"), (v.grad, ot.grad, dt.grad), want):
         scale = float(np.abs(ref).max())
         np.testing.assert_allclose(got.numpy(), ref, rtol=FIN_RTOL, atol=FIN_ATOL * scale,

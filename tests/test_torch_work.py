@@ -385,6 +385,49 @@ def test_signatures_match_the_sources(entry):
     assert params[-1][0] == "stream"
 
 
+CALL_CANDIDATES = [(k, *c) for k in ("a3", "k3") for c in kernel_sweep.CANDIDATES[k]]
+
+
+@pytest.mark.parametrize("kernel, label, replacements, flags", CALL_CANDIDATES,
+                         ids=[f"{c[0]}-{c[1]}" for c in CALL_CANDIDATES])
+def test_call_sweep_candidates_apply(kernel, label, replacements, flags):
+    """Every design candidate of A3 and K3 is the built source with its
+    statements replaced, each found exactly once, or the built source
+    under nvcc's default FMA contraction; each declares the built entry
+    point's parameters."""
+    from hare_tpu_torch.kernels import build
+
+    spec = kernel_sweep.SPECS[kernel]
+    src = (build.CSRC / spec.source).read_text()
+    out = kernel_sweep.variant_source(src, replacements)
+    assert (out == src) == (not replacements)
+    assert flags in (None, kernel_sweep.FMA_FLAGS)
+    built = label == kernel_sweep.CANDIDATES[kernel][0][0]
+    assert built == (not replacements and flags is None) and not (replacements and flags)
+    if kernel == "a3":
+        assert kernel_sweep._c_params(out, spec.entry) == kernel_sweep._c_params(src, spec.entry)
+    if replacements:
+        with pytest.raises(ValueError):
+            kernel_sweep.variant_source("", replacements)
+
+
+def test_k3_sweep_names_every_parameter():
+    """The sweep gives every K3 candidate (one launch and the grid barrier
+    take fold counters too) every parameter its source declares but the
+    stream, and hands back the histogram it names."""
+    from hare_tpu_torch.kernels import build
+
+    lanes = (torch.zeros(10), torch.zeros(10), torch.zeros(10, dtype=torch.bool))
+    given, (hist,) = kernel_sweep.k3_given(lanes, 1025, 1e-3, True)
+    assert given["hist"] is hist and hist.shape == (1025,) and given["soft"] == 1
+    src = (build.CSRC / "energy_histogram.cu").read_text()
+    for _, replacements, _ in kernel_sweep.CANDIDATES["k3"]:
+        out = kernel_sweep.variant_source(src, replacements)
+        names = {n for n, _ in kernel_sweep._c_params(out, "hare_energy_histogram")}
+        assert names - set(given) == {"stream"}
+    assert given["n_counters"] == given["counters"].numel() and not bool(given["counters"].any())
+
+
 @pytest.mark.parametrize("label, replacements", a3_check.FAULTS,
                          ids=[f[0] for f in a3_check.FAULTS])
 def test_a3_faults_apply(label, replacements):
