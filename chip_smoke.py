@@ -19,10 +19,11 @@ per-polygon absorption, on the card.  Phases, one line each:
    bounce; on the rays where the two differ later, the float64 oracle must
    side with K1 at least as often as with B1), with the cells and triangle slots its
    march visits (``voxel.grid_work``), its bound and its share of it, and
-   the wrapper's host cost per call;
+   the wrapper's host cost per call; K2, K3 and K3's backward in its hard
+   mode (bit-equal to the torch glue it replaced);
 4. the main path end to end, with its launch counts and invariants;
 5. forward and forward+backward step times, Mrays/s, and where one step's
-   device time goes (idle share of the card);
+   device time goes (idle share of the card, kernels a step);
 6. the four Pallas probe kernels of ``benchmarks/`` (P1 ``column_sum``,
    P2-P4 ``gather_sum``) through the port's probes
    (``hare_tpu_torch.benchmarks``) at the JAX probes' shapes: each probe
@@ -41,7 +42,10 @@ per-polygon absorption, on the card.  Phases, one line each:
    fwd+bwd) and ``brute`` on eval config 1 (shoebox, 10k rays, fwd), each
    counted, checked and held against the plain versions on the CPU for a
    sub-batch; their shoot times, pops or steps per ray, step times,
-   Mrays/s and idle shares; stack against ropes.
+   Mrays/s, idle shares and kernels a step; on config 3, K2 on each
+   bounce's 1M rays and K3's hard backward on its 3M lanes against their
+   plain versions on the card, and K2's time a call inside the step beside
+   its bound; stack against ropes.
 8. vertex gradients and the soft histogram: A3 ``finalize_hits_bwd`` on
    the rays of each bench bounce against its plain version (autograd
    through the triangle test), element by element; the fixed-order
@@ -155,13 +159,14 @@ def all_kernels_ms(fn, reps):
 
 def step_ms(fn, reps):
     """Device ms of one step ``fn()``: all the kernel time the profiler
-    recorded in ``reps`` steps, over ``reps``; and the same for each kernel
-    name."""
+    recorded in ``reps`` steps, over ``reps``; the same for each kernel
+    name; and the kernels a step, the launches it recorded over ``reps``."""
     from hare_tpu_torch.benchmarks.bench_scene import profile_kernels
 
     times = profile_kernels(fn, reps)
     return sum(t for t, _ in times.values()) / reps / 1e3, {
-        name: t / reps / 1e3 for name, (t, _) in times.items()}
+        name: t / reps / 1e3 for name, (t, _) in times.items()}, sum(
+        k for _, k in times.values()) / reps
 
 
 def kernel_ms(per_name_ms, tag):
@@ -465,9 +470,10 @@ def backends_phase(dev, top, grid_sp, rays, batches, absorption, grid_hist):
     three kernels' records."""
     import hare_tpu_torch as th
     from hare_tpu_torch.accel import brute, common, ropes, tree
-    from hare_tpu_torch.benchmarks import bounds
+    from hare_tpu_torch.benchmarks import bench_scene, bounds, configs
     from hare_tpu_torch.mesh import shapes
     from hare_tpu_torch.oracle import oracle_shoot
+    from hare_tpu_torch.trace import bounce
 
     # ---- 7.1 host builds through the facade (the scene's own build apart).
     t0 = time.perf_counter()
@@ -597,7 +603,8 @@ def backends_phase(dev, top, grid_sp, rays, batches, absorption, grid_hist):
     per_shoot = {}
     fb_mrays = {}
     for accel, sp in sps.items():
-        counters = (walk_fn[accel], common.finalize_hits, th.energy_histogram)
+        counters = (walk_fn[accel], common.finalize_hits, th.energy_histogram,
+                    bounce.hard_histogram_bwd)
         _, hist, launches, g = drive(th, sp, rays, absorption, N_BINS, counters, True, True)
         rec_launch["ropes" if accel == "kdtree_ropes" else "tree"] += launches[0]
         # An equal-t tie resolved another way sends that ray down another
@@ -625,7 +632,7 @@ def backends_phase(dev, top, grid_sp, rays, batches, absorption, grid_hist):
         # bounce's rays, one profiled window a bounce).
         rec = walk_rec[walk_label[accel]]
         first, mean = rec["bounces"][0]["device_ms"], rec["device_ms"]
-        busy, _ = step_ms(fwd_bwd, 3)
+        busy, _, n_kernels = step_ms(fwd_bwd, 3)
         per_shoot[accel] = (first, mean)
         fb_mrays[accel] = N_RAYS * N_BOUNCES / fb_ms / 1e3
         print(f"phase 7 {accel} main path: launches {launches}; all {N_RAYS} rays hit on "
@@ -633,8 +640,8 @@ def backends_phase(dev, top, grid_sp, rays, batches, absorption, grid_hist):
               f"grad sum {float(g.sum()):.4f}; {REF_RAYS}-ray CPU reference agrees")
         print(f"phase 7 {accel} metric: shoot {first:.4f} ms on the device (bounce 1, 7.2), "
               f"{mean:.4f} ms (mean of {N_BOUNCES}); fwd {fwd_ms:.3f} ms, fwd+bwd {fb_ms:.3f} ms; "
-              f"{fb_mrays[accel]:.4f} Mrays/s fwd+bwd; device busy {busy:.4f} ms a fwd+bwd step, "
-              f"idle share {1 - busy / fb_ms:.3f}")
+              f"{fb_mrays[accel]:.4f} Mrays/s fwd+bwd; device busy {busy:.4f} ms a fwd+bwd step "
+              f"({n_kernels:.1f} kernels), idle share {1 - busy / fb_ms:.3f}")
 
     print(f"phase 7 stack vs ropes (bench scene, same SAH KD tree): B2 stack {per_shoot['kdtree'][0]:.4f} "
           f"ms, B3 ropes {per_shoot['kdtree_ropes'][0]:.4f} ms per first-bounce shoot on the device "
@@ -643,10 +650,8 @@ def backends_phase(dev, top, grid_sp, rays, batches, absorption, grid_hist):
           f"ms; fwd+bwd {fb_mrays['kdtree']:.4f} vs {fb_mrays['kdtree_ropes']:.4f} Mrays/s")
 
     # Config 3: concert hall, octree, 1M rays, fwd+bwd w.r.t. absorption.
-    hall = th.Topology.build(shapes.concert_hall())
-    sp3 = th.SpatialPartition(hall, accel="octree", device=dev)
-    r3 = config_rays(th, (15.0, 24.0, 8.0), 1_000_000, dev)
-    a3 = torch.full((hall.n_polys,), ABSORPTION, device=dev)
+    c3 = configs.config3_setup(dev)
+    hall, sp3, r3, a3 = c3.topology, c3.partition, c3.rays, c3.absorption
     # B2 against its plain version on the path's own first-bounce rays: the
     # hall's coplanar stage, balcony and wall faces are where ties happen.
     k3 = tree.tree_shoot(r3, sp3.struct, with_stats=True)
@@ -655,7 +660,8 @@ def backends_phase(dev, top, grid_sp, rays, batches, absorption, grid_hist):
     print(f"phase 7 B2 tree_shoot config 3 (concert hall octree, max_depth "
           f"{sp3.struct.max_depth}, stack bound {sp3.struct.stack}, 1M rays): bit-equal to its "
           f"plain version, pops included; plain {p3_ms:.3f} ms")
-    counters = (tree.tree_shoot, common.finalize_hits, th.energy_histogram)
+    counters = (tree.tree_shoot, common.finalize_hits, th.energy_histogram,
+                bounce.hard_histogram_bwd)
     res3, _, launches, g3 = drive(th, sp3, r3, a3, N_BINS, counters, True, False)
     rec_launch["tree"] += launches[0]
     cpu_reference(th, sp3, r3, a3, N_BINS)
@@ -668,8 +674,40 @@ def backends_phase(dev, top, grid_sp, rays, batches, absorption, grid_hist):
     fb3 = host_time(fwd_bwd3, 3)
     # The absorption gradient's fixed-order scatter on the hall's long runs
     # (a polygon hit by many of the 1M rays is one serial chain of adds).
-    busy3, per_name3 = step_ms(fwd_bwd3, 2)
+    busy3, per_name3, kernels3 = step_ms(fwd_bwd3, 2)
     runs3 = torch.unique(torch.clamp(res3.poly_id[0], min=0), return_counts=True)[1]
+    # K2 on each bounce's rays and winners against its plain version on the
+    # same card tensors; its time a call inside the step, beside its bound
+    # (bytes from memory: the step's rays and winners may sit in L2).
+    k2_bound3, k2_err3 = [], 0.0
+    for b, r in enumerate(bench_scene.bounce_rays(sp3, r3, a3), 1):
+        best_t, best_tri = tree.tree_shoot(r, sp3.struct)
+        hk = common.finalize_hits(sp3.scene, r, best_t, best_tri)
+        hp = common.finalize_hits_plain(sp3.scene, r, best_t, best_tri)
+        for f in ("hit", "poly_id", "tri_id", "edge_nbr"):
+            check(torch.equal(getattr(hk, f), getattr(hp, f)), f"K2 config 3 bounce {b}: {f} differs")
+        for f in ("t", "u", "v", "point", "normal"):
+            x, y = getattr(hk, f), getattr(hp, f)
+            check(torch.allclose(x, y, rtol=RTOL, atol=ATOL),
+                  f"K2 config 3 bounce {b}: {f} differs")
+            k2_err3 = max(k2_err3, float(torch.where(x == y, 0.0, (x - y).abs()).max()))
+        k2_bound3.append(bounds.finalize_hits_bound(best_tri))
+    k2_ms3 = kernel_ms(per_name3, "finalize_kernel") / N_BOUNCES
+    k2_b3 = sum(b["bound_ms"] for b in k2_bound3) / N_BOUNCES
+    # K3's hard backward on the step's 3M lanes, from a seeded gradient of
+    # the bins: bit-equal to its plain version (the torch glue it replaced)
+    # and to itself over two launches.
+    g3_bins = torch.randn(N_BINS, generator=torch.Generator().manual_seed(3)).to(dev)
+    lanes3 = (res3.time.detach(), res3.hit, g3_bins, N_BINS, BIN_DT)
+    hb3 = bounce.hard_histogram_bwd(*lanes3)
+    check(same_floats(hb3, bounce.hard_histogram_bwd_plain(*lanes3)),
+          "K3's hard backward differs from its plain version on config 3")
+    check(same_floats(hb3, bounce.hard_histogram_bwd(*lanes3)),
+          "K3's hard backward on config 3: two launches differ")
+    print(f"phase 7 config 3 checks: K2 on each of the {N_BOUNCES} bounces' {r3.origin.shape[0]} "
+          f"rays: ids equal to its plain version's, floats within {RTOL:g} (max |diff| "
+          f"{k2_err3:.3e}); K3's hard backward on {res3.hit.numel()} lanes bit-equal to its plain "
+          f"version, two launches bitwise equal")
     print(f"phase 7 config 3 (concert hall {hall.n_tris} tris, octree, 1M rays, "
           f"{N_BOUNCES} bounces, fwd+bwd): launches {launches}; hit share "
           f"{float(res3.hit.float().mean()):.4f}; grad sum {float(g3.sum()):.4f}; "
@@ -677,8 +715,11 @@ def backends_phase(dev, top, grid_sp, rays, batches, absorption, grid_hist):
           f"{1e6 * N_BOUNCES / fb3 / 1e3:.4f} Mrays/s fwd+bwd; device busy {busy3:.4f} ms a "
           f"step, of which the absorption gradient's scatter_add_ordered "
           f"{kernel_ms(per_name3, 'scatter_ordered'):.4f} ms (3 calls; bounce 1's longest run "
-          f"{int(runs3.max())} of {runs3.numel()} polygons) and B2 "
-          f"{kernel_ms(per_name3, 'tree_shoot_kernel'):.4f} ms")
+          f"{int(runs3.max())} of {runs3.numel()} polygons), B2 "
+          f"{kernel_ms(per_name3, 'tree_shoot_kernel'):.4f} ms, K2 {k2_ms3:.5f} ms a call (bound "
+          f"{k2_b3:.5f} ms, {k2_bound3[0]['bound_by']} from memory: {k2_b3 / k2_ms3:.1%} of it), K3 "
+          f"{kernel_ms(per_name3, K3_TAG):.4f} ms, the hard backward "
+          f"{kernel_ms(per_name3, 'hard_bwd_kernel'):.5f} ms; {kernels3:.1f} kernels a step")
 
     # Config 1: shoebox, brute, 10k rays, 256 bins, forward.
     sp1 = th.SpatialPartition(room, accel="brute", device=dev)
@@ -947,9 +988,10 @@ def gradients_phase(dev, sp, rays, batches, absorption):
 
     # ---- 8.5 the bench scene's fwd+bwd w.r.t. the vertices, soft bins.
     counters = (voxel.grid_shoot, common.finalize_hits, th.energy_histogram,
-                common.finalize_hits_bwd, scatter.scatter_add_ordered, bounce.soft_histogram_bwd)
+                common.finalize_hits_bwd, scatter.scatter_add_ordered, bounce.soft_histogram_bwd,
+                bounce.hard_histogram_bwd)
     names = ("grid_shoot", "finalize_hits", "energy_histogram", "finalize_hits_bwd",
-             "scatter_add_ordered", "soft_histogram_bwd")
+             "scatter_add_ordered", "soft_histogram_bwd", "hard_histogram_bwd")
     vstep = repeat_check.vertex_step(th, sp, rays, absorption, N_BOUNCES)
     for fn in counters:
         fn.launches = 0
@@ -958,14 +1000,15 @@ def gradients_phase(dev, sp, rays, batches, absorption):
     launches = dict(zip(names, (fn.launches for fn in counters)))
     check(launches["finalize_hits_bwd"] == N_BOUNCES and launches["scatter_add_ordered"] >= N_BOUNCES
           and launches["energy_histogram"] == 1 and launches["soft_histogram_bwd"] == 1
-          and launches["grid_shoot"] == N_BOUNCES, f"vertex path launches {launches}")
+          and launches["hard_histogram_bwd"] == 0 and launches["grid_shoot"] == N_BOUNCES,
+          f"vertex path launches {launches}")
     check(bool(torch.isfinite(grad).all()) and float(grad.abs().max()) > 0,
           "bench vertex gradient not finite and non-zero")
     check(math.isclose(float(hist.detach().sum()), float(N_RAYS * sum(0.7 ** k for k in (1, 2, 3))),
                        rel_tol=1e-4), "bench soft histogram total")
     vertex_reference(th, sp, rays, absorption, N_BOUNCES, N_BINS, repeat_check.vertex_step)
     fb_ms = host_time(vstep, 5)
-    busy, per_name = step_ms(vstep, 3)
+    busy, per_name, n_kernels = step_ms(vstep, 3)
     print(f"phase 8 bench vertex path (grid, soft, loss sum(h * arange({N_BINS}))): launches "
           f"{launches}; gradient finite, max |g| {float(grad.abs().max()):.4e}; {REF_RAYS}-ray "
           f"CPU reference agrees; fwd+bwd {fb_ms:.3f} ms, {N_RAYS * N_BOUNCES / fb_ms / 1e3:.4f} "
@@ -973,7 +1016,8 @@ def gradients_phase(dev, sp, rays, batches, absorption):
           f"{kernel_ms(per_name, 'finalize_bwd_kernel'):.4f}, scatter "
           f"{kernel_ms(per_name, 'scatter_ordered'):.4f}, K3 {kernel_ms(per_name, K3_TAG):.4f}, "
           f"soft backward {kernel_ms(per_name, 'soft_bwd_kernel'):.4f}, fill kernels "
-          f"{kernel_ms(per_name, 'FillFunctor'):.4f} ms), idle share {1 - busy / fb_ms:.3f}")
+          f"{kernel_ms(per_name, 'FillFunctor'):.4f} ms; {n_kernels:.1f} kernels), idle share "
+          f"{1 - busy / fb_ms:.3f}")
 
     # ---- 8.6 eval config 4 at full size.
     c4 = configs.config4_setup(dev)
@@ -993,6 +1037,12 @@ def gradients_phase(dev, sp, rays, batches, absorption):
         best_t, best_tri = tree.tree_shoot(r, st)
         hr = common.finalize_hits(sp4.scene, r, best_t, best_tri)
         _, k, _, _ = a3_phase(f"config 4 bounce {b}", sp4.scene, r, best_tri, hr, 10 + b, dev)
+        a3b = bounds.finalize_hits_bwd_bound(best_tri, hr.hit, sp4.scene.tri_meta)
+        k2b = bounds.finalize_hits_bound(best_tri)
+        print(f"phase 8 config 4 bounce {b} bounds (the rays' bytes and their distinct rows'): "
+              f"A3 finalize_hits_bwd {a3b['bound_ms']:.5f} ms ({a3b['bound_by']}: "
+              f"{a3b['bytes'] / 1e6:.2f} MB), K2 finalize_hits {k2b['bound_ms']:.5f} ms "
+              f"({k2b['bound_by']}: {k2b['bytes'] / 1e6:.2f} MB)")
         scatter_exact(f"config 4 A3 bounce {b} corners", k[2], k[3], n_v4)
 
     def hard_step():
@@ -1008,9 +1058,11 @@ def gradients_phase(dev, sp, rays, batches, absorption):
     names4 = names + ("tree_shoot",)
     nb4 = c4.n_bounces
     # Launches a step.  The hard loss gives time no cotangent, yet autograd
-    # runs A3 (on zero cotangents) and its scatter all the same.
+    # runs A3 (on zero cotangents) and its scatter all the same; the
+    # energies need no gradient w.r.t. the vertices, so the hard backward
+    # does not launch.
     want = dict(grid_shoot=0, tree_shoot=nb4, finalize_hits=nb4, finalize_hits_bwd=nb4,
-                energy_histogram=1)
+                energy_histogram=1, hard_histogram_bwd=0)
     for label, fn, want_zero in (("(a) hard histogram sum", hard_step, True),
                                  ("(b) soft, first moment", soft_step, False)):
         for f in counters4:
@@ -1030,7 +1082,7 @@ def gradients_phase(dev, sp, rays, batches, absorption):
             vertex_reference(th, sp4, c4.rays, c4.absorption, c4.n_bounces, c4.n_bins,
                              repeat_check.vertex_step)
         fb_ms = host_time(fn, 3)
-        busy, per_name = step_ms(fn, 2)
+        busy, per_name, n_kernels = step_ms(fn, 2)
         parts = ", ".join(f"{part} {kernel_ms(per_name, tag):.4f}" for part, tag in (
             ("B2", "tree_shoot_kernel"), ("K2", "finalize_kernel"), ("A3", "finalize_bwd_kernel"),
             ("scatter", "scatter_ordered"), ("K3", K3_TAG), ("soft backward", "soft_bwd")))
@@ -1039,7 +1091,8 @@ def gradients_phase(dev, sp, rays, batches, absorption):
               f"closed-room energy; vertex gradient finite, max |g| {float(g.abs().max()):.4e}"
               f"{'' if want_zero else f'; {REF_RAYS}-ray CPU reference agrees'}; fwd+bwd "
               f"{fb_ms:.3f} ms, {n4 * c4.n_bounces / fb_ms / 1e3:.4f} Mrays/s fwd+bwd(vertices); "
-              f"device busy {busy:.4f} ms ({parts} ms), idle share {1 - busy / fb_ms:.3f}")
+              f"device busy {busy:.4f} ms ({parts} ms; {n_kernels:.1f} kernels), idle share "
+              f"{1 - busy / fb_ms:.3f}")
 
     return [
         dict(name="finalize_hits_bwd", route="cuda", source=src + "finalize_bwd.cu",
@@ -1217,8 +1270,37 @@ def main():
                         ms=ms, plain_ms=plain_ms, bound_ms=bnd["bound_ms"],
                         bound_by=bnd["bound_by"], library_ms=None, device_ms=dev_ms))
 
+    # K3's backward, hard mode, on the same lanes from a seeded gradient of
+    # the bins: bit-equal to the torch glue it replaced (its plain version).
+    g_bins = torch.randn(N_BINS, generator=torch.Generator().manual_seed(3)).to(dev)
+
+    def hb():
+        return bounce.hard_histogram_bwd(res.time, res.hit, g_bins, N_BINS, BIN_DT)
+
+    def hb_plain():
+        return bounce.hard_histogram_bwd_plain(res.time, res.hit, g_bins, N_BINS, BIN_DT)
+
+    hb_k = hb()
+    check(same_floats(hb_k, hb_plain()), "K3's hard backward differs from its plain version")
+    check(same_floats(hb_k, hb()), "K3's hard backward: two launches differ")
+    ms, dev_ms, plain_ms = cuda_time(hb, 100), launch_ms(hb, 10, "hard_bwd_kernel"), cuda_time(
+        hb_plain, 100)
+    plain_dev_ms = all_kernels_ms(hb_plain, 10)
+    bnd = bounds.hard_histogram_bwd_bound(res.hit, N_BINS)
+    print(f"phase 3 K3 hard_histogram_bwd ({res.hit.numel()} lanes, {N_BINS} bins): bit-equal to "
+          f"its plain version (the torch glue), two launches bitwise equal; kernel {ms:.4f} ms per "
+          f"call ({dev_ms:.5f} ms on the device), plain {plain_ms:.4f} ms ({plain_dev_ms:.5f} ms on "
+          f"the device); bound {bnd['bound_ms']:.5f} ms ({bnd['bound_by']}: "
+          f"{bnd['bytes'] / 1e6:.2f} MB), {bnd['bound_ms'] / dev_ms:.1%} of it")
+    records.append(dict(name="hard_histogram_bwd", route="cuda",
+                        source="hare_tpu_torch/kernels/csrc/energy_histogram.cu",
+                        replaces="hare_tpu/trace/bounce.py:294", max_abs_err=0.0, ms=ms,
+                        plain_ms=plain_ms, bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"],
+                        library_ms=None, device_ms=dev_ms, plain_device_ms=plain_dev_ms))
+
     # ---- phase 4: the main path end to end, counted.
-    counters = (voxel.grid_shoot, common.finalize_hits, th.energy_histogram)
+    counters = (voxel.grid_shoot, common.finalize_hits, th.energy_histogram,
+                bounce.hard_histogram_bwd)
 
     def step(a):
         res = th.trace_rays(sp.scene, rays, a, N_BOUNCES, sp.shoot_fn, aux=sp.aux)
@@ -1263,7 +1345,8 @@ def main():
         check(torch.allclose(x, y, rtol=REF_RTOL, atol=REF_RTOL * float(y.abs().max())),
               f"{what} differs from the CPU reference")
     print(f"phase 4 main path: launches grid_shoot {launches[0]}, finalize_hits "
-          f"{launches[1]}, energy_histogram {launches[2]}; all {N_RAYS} rays hit on "
+          f"{launches[1]}, energy_histogram {launches[2]}, hard_histogram_bwd {launches[3]}; all "
+          f"{N_RAYS} rays hit on "
           f"{N_BOUNCES} bounces; hist total {total:.6f} = bounce energies "
           f"{e_sum:.6f}; grad sum {float(g.sum()):.4f}, max {float(g.max()):.4e}; "
           f"{REF_RAYS}-ray CPU reference agrees")
@@ -1288,13 +1371,14 @@ def main():
           f"(82k-tri scene, grid DDA, 3-bounce, {N_RAYS} rays)")
 
     # Where one fwd+bwd step's device time goes, and how idle the card is.
-    busy, per_name = step_ms(fwd_bwd, 3)
+    busy, per_name, n_kernels = step_ms(fwd_bwd, 3)
     parts = {k: kernel_ms(per_name, tag) for k, tag in (
-        ("K1", "grid_shoot_kernel"), ("K2", "finalize_kernel"), ("K3", K3_TAG))}
+        ("K1", "grid_shoot_kernel"), ("K2", "finalize_kernel"), ("K3", K3_TAG),
+        ("hard backward", "hard_bwd_kernel"))}
     print(f"phase 5 device time per fwd+bwd step: busy {busy:.4f} ms of {fb_ms:.3f} ms "
-          f"(idle share {1 - busy / fb_ms:.3f}); K1 {parts['K1']:.4f} ms, K2 "
-          f"{parts['K2']:.4f} ms, K3 {parts['K3']:.4f} ms, other kernels "
-          f"{busy - sum(parts.values()):.4f} ms")
+          f"(idle share {1 - busy / fb_ms:.3f}); " + ", ".join(
+              f"{k} {v:.4f} ms" for k, v in parts.items()) +
+          f", other kernels {busy - sum(parts.values()):.4f} ms; {n_kernels:.1f} kernels a step")
 
     # ---- phase 6: the Pallas probe kernels.
     records += probe_phase(dev)

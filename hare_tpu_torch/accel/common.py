@@ -35,6 +35,7 @@ __all__ = [
     "check_kernel",
     "check_rays",
     "detach_rays",
+    "empty_hit_record",
     "finalize_hits",
     "finalize_hits_bwd",
     "finalize_hits_bwd_plain",
@@ -385,6 +386,24 @@ def finalize_hits_plain(
     )
 
 
+def empty_hit_record(n: int, device) -> HitRecord:
+    """An uninitialised record of ``n`` rays, as K2 writes it: nine
+    contiguous tensors."""
+    f = dict(dtype=torch.float32, device=device)
+    i = dict(dtype=torch.int32, device=device)
+    return HitRecord(
+        hit=torch.empty(n, dtype=torch.bool, device=device),
+        t=torch.empty(n, **f),
+        u=torch.empty(n, **f),
+        v=torch.empty(n, **f),
+        point=torch.empty(n, 3, **f),
+        poly_id=torch.empty(n, **i),
+        tri_id=torch.empty(n, **i),
+        normal=torch.empty(n, 3, **f),
+        edge_nbr=torch.empty(n, 3, **i),
+    )
+
+
 def _finalize_kernel(
     scene: Scene,
     rays: Ray,
@@ -400,19 +419,7 @@ def _finalize_kernel(
             or best_tri.shape != (n,) or scene.tri_geom.shape != (t_rows, 9)
             or scene.tri_meta.shape != (t_rows, 8)):
         raise ValueError("finalize_hits: ray, winner or scene table shapes disagree")
-    f = dict(dtype=torch.float32, device=o.device)
-    i = dict(dtype=torch.int32, device=o.device)
-    out = HitRecord(
-        hit=torch.empty(n, dtype=torch.bool, device=o.device),
-        t=torch.empty(n, **f),
-        u=torch.empty(n, **f),
-        v=torch.empty(n, **f),
-        point=torch.empty(n, 3, **f),
-        poly_id=torch.empty(n, **i),
-        tri_id=torch.empty(n, **i),
-        normal=torch.empty(n, 3, **f),
-        edge_nbr=torch.empty(n, 3, **i),
-    )
+    out = empty_hit_record(n, o.device)
     finalize_hits.launches += 1
     build.launch(
         "hare_finalize_hits",

@@ -42,6 +42,7 @@ __all__ = [
     "finalize_hits_bwd_bound",
     "gather_sum_bound",
     "grid_shoot_bound",
+    "hard_histogram_bwd_bound",
     "histogram_bound",
     "rows_work",
     "runs_work",
@@ -77,6 +78,8 @@ EXIT_OPS = 6
 # pos = time / bin_dt - 0.5 (2), x = pos - i0 (1), e_hi = e frac (1),
 # e_lo = e - e_hi (1), the adds into two bins (2).
 HISTOGRAM_OPS = {False: 2, True: 7}
+# The hard backward per hit lane: time / bin_dt (1); the rest is a gather.
+HARD_BWD_OPS = 1
 # The soft backward per hit lane: pos (2), x (1), G[hi] - G[lo] (1), times
 # frac (1), plus G[lo] (1), times e (1), over bin_dt (1).
 SOFT_BWD_OPS = 8
@@ -221,6 +224,13 @@ def soft_histogram_bwd_bound(hit: torch.Tensor, n_bins: int) -> Dict[str, object
     gradient in, d(energy) and d(time) out."""
     n = hit.numel()
     return bound(int(hit.sum()) * SOFT_BWD_OPS, n * (9 + 8) + n_bins * 4)
+
+
+def hard_histogram_bwd_bound(hit: torch.Tensor, n_bins: int) -> Dict[str, object]:
+    """The hard backward: every lane's time and hit and the bins' gradient
+    in, d(energy) out."""
+    n = hit.numel()
+    return bound(int(hit.sum()) * HARD_BWD_OPS, n * (4 + 1 + 4) + n_bins * 4)
 
 
 def finalize_hits_bwd_bound(best_tri: torch.Tensor, hit: torch.Tensor,

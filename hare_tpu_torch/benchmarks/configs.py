@@ -4,9 +4,9 @@ the same distributions.  The ray directions come from torch's generator
 (seed 0), not JAX's ``PRNGKey(0)``: the same distribution, not the same
 rays.
 
-Copies, not imports: that file imports the JAX package.  Config 4 is here;
-configs 1, 2, 3, 5 and ``deep`` are queued (``chip_smoke.py`` builds
-configs 1 and 3 itself).
+Copies, not imports: that file imports the JAX package.  Configs 3 and 4
+are here; configs 1, 2, 5 and ``deep`` are queued (``chip_smoke.py``
+builds config 1 itself).
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ from typing import List, NamedTuple
 import numpy as np
 import torch
 
-__all__ = ["Config4", "big_scene", "config4_setup"]
+__all__ = ["Config3", "Config4", "big_scene", "config3_setup", "config4_setup"]
 
 
 def big_scene(n_target: str = "650k") -> List[np.ndarray]:
@@ -39,6 +39,33 @@ def big_scene(n_target: str = "650k") -> List[np.ndarray]:
     for c, r, sub in specs:
         faces.append(np.stack(shapes.icosphere(sub, radius=r, center=c)))
     return faces
+
+
+class Config3(NamedTuple):
+    topology: object
+    partition: object
+    rays: object
+    absorption: torch.Tensor
+    n_bounces: int
+    n_bins: int
+
+
+def config3_setup(device="cuda") -> Config3:
+    """Eval config 3 (``benchmarks/configs.py:106-136``): ``concert_hall()``
+    (1,608 triangles), an octree with the builder's defaults, 1,000,000
+    uniform rays (torch's seed 0) from (15, 24, 8), absorption 0.3, 3
+    bounces, 1024 bins of 1 ms; its loss is the histogram's sum,
+    differentiated w.r.t. the absorption."""
+    import hare_tpu_torch as th
+    from ..mesh import shapes
+
+    top = th.Topology.build(shapes.concert_hall())
+    sp = th.SpatialPartition(top, accel="octree", device=device)
+    n = 1_000_000
+    d = th.uniform_sphere(n, torch.Generator().manual_seed(0), device=device)
+    o = torch.tensor([15.0, 24.0, 8.0], device=d.device).expand(n, 3).contiguous()
+    absorption = torch.full((top.n_polys,), 0.3, device=d.device)
+    return Config3(top, sp, th.Ray.make(o, d), absorption, 3, 1024)
 
 
 class Config4(NamedTuple):

@@ -1,11 +1,12 @@
 """Design candidates of the port's kernels, side by side on one GPU.
 
-    python -m hare_tpu_torch.benchmarks.kernel_sweep [--kernels k1,b1,b2,b3,a3,k3]
+    python -m hare_tpu_torch.benchmarks.kernel_sweep [--kernels k1,b1,b2,b3,a3,k3,k2,hb]
         [--parent DIR] [--reps N]
 
 Each candidate is a kernel's built source (``kernels/csrc/grid_shoot.cu``
 K1, ``brute_shoot.cu`` B1, ``tree_shoot.cu`` B2, ``ropes_shoot.cu`` B3,
-``finalize_bwd.cu`` A3, ``energy_histogram.cu`` K3) with a few statements
+``finalize_bwd.cu`` A3, ``energy_histogram.cu`` K3 and its backward HB,
+``finalize_hits.cu`` K2) with a few statements
 replaced (``CANDIDATES``: lanes per ray G, threads per block, one group per
 ray instead of the persistent launch, B2's stack in the group's registers,
 K1's next cell's meta loaded before this cell's test, B1's rays a thread
@@ -13,11 +14,17 @@ and its triangle slabs, A3's block size and its rows moved per ray instead
 of through shared memory, K3's chunk of lanes a block, its blocks, its
 groups' sums, its fold's loads, and the fold in the same launch, by the
 last blocks to finish or behind a cooperative grid-wide barrier, in place
-of the second launch), or built with nvcc's default FMA contraction
+of the second launch; K2's block size; HB's block sizes, the lane count
+from which a thread takes four lanes, and its four lanes moved one at a
+time), or built with nvcc's default FMA contraction
 (``-fmad=true``); the sources themselves stay as built.  With ``--parent``,
 the same kernel of another checkout of the repository is one more
 candidate, built with that checkout's flags and called through the
-parameters its own entry point declares.  Each is compiled by its own
+parameters its own entry point declares (an older checkout's soft
+backward, ``hare_soft_histogram_bwd``, on the soft batches only).  HB's
+hard batches also run the torch glue that was the hard backward before it
+had a kernel (``trace.bounce.hard_histogram_bwd_plain``).  Each is
+compiled by its own
 ``nvcc -Xptxas -v`` (registers and spills are printed), all at once, into
 a shared library loaded with ctypes; a candidate that does not compile is
 reported and left out.
@@ -32,18 +39,27 @@ of each of the bench vertex step's 3 bounces (grid) and of eval config 4's
 ``chip_smoke.py`` phase 8; K3, hard and soft, on the trace records of the
 bench scene (98,304 lanes, 1024 bins), eval config 4 (65,536 lanes, 512
 bins) and eval config 3 (the concert hall, octree, 1M rays, 3 bounces:
-3,000,000 lanes, 1024 bins).
+3,000,000 lanes, 1024 bins); K2 on the rays and winners of each bounce of
+the bench (3, grid), eval config 4 (2, SAH KD tree) and eval config 3 (3,
+octree, 1M rays); HB on the bench's lanes (hard and soft), config 4's
+(soft) and config 3's (hard), with a seeded gradient of the bins.
 Every candidate is checked against the built kernel on each batch: a
 traversal bit-equal, pops or steps included, where it is built with the
 same flags (otherwise the rays that differ are counted); A3 bit-equal on
 every output element where built with the same flags, a parent's
-included; K3 within ``HIST_REL_TOL`` of the histogram's total (its bits
-depend on the chunking), its bins that differ counted; A3 and K3 also
-bitwise equal over two launches.  Each is timed on the device with
-torch.profiler (every kernel a call launches: a parent's K3 is two), in the
-order A B ... B A per batch, so that every candidate is measured before and
-after the others.  Prints one line per case, candidate and batch, then all
-of it as one JSON line.
+included; K2 and HB the same, the torch glue included; K3 within
+``HIST_REL_TOL`` of the histogram's total (its bits depend on the
+chunking), its bins that differ counted; A3, K2, K3 and HB also bitwise
+equal over two launches; the elements that differ from the parent (or the
+glue) are reported.  Each is timed on the device with torch.profiler
+(every kernel a call launches: K3 is two, the glue several, and the
+kernels a call are reported), in the order A B ... B A per batch, so that
+every candidate is measured before and after the others.  Config 3's
+inputs (27-89 MB a call) fit in the card's 50 MB L2 and stay there from
+call to call, so its cases are also timed with L2 flushed before each call
+(a 256 MB buffer rewritten, its kernel not counted): the time against
+which the bound, bytes from memory, is a bound.  Prints one line per case,
+candidate and batch, then all of it as one JSON line.
 """
 
 from __future__ import annotations
@@ -61,9 +77,11 @@ from typing import Callable, Dict, List, NamedTuple, Tuple
 import torch
 
 from ..kernels import build
-from .bench_scene import N_BOUNCES, N_RAYS, bench_setup, bounce_rays, device_ms
+from .bench_scene import (N_BOUNCES, N_RAYS, bench_setup, bounce_rays, device_ms,
+                          profile_kernels)
 
-__all__ = ["CANDIDATES", "FMA_FLAGS", "HIST_REL_TOL", "SPECS", "k3_given", "variant_source"]
+__all__ = ["CANDIDATES", "FMA_FLAGS", "GLUE", "HIST_REL_TOL", "SPECS", "hb_given", "k2_given",
+           "k3_given", "variant_source"]
 
 BIN_DT = 1e-3  # the bench's and eval configs' bin width (s)
 
@@ -73,6 +91,14 @@ FMA_FLAGS = tuple(f for f in build.NVCC_FLAGS if f != "-fmad=false")
 # order where the chunking differs, relative to the histogram's total
 # (chip_smoke.py's HIST_REL_TOL).
 HIST_REL_TOL = 1e-5
+# The hard backward as torch ops, a candidate of HB's hard batches.
+GLUE = "torch glue (the parent's hard backward)"
+# Bytes rewritten before each flushed call, five times the H100's L2, and
+# the name of the kernel that rewrites them (left out of the times).
+FLUSH_BYTES, FLUSH_TAG = 256 << 20, "bitwise_not"
+# The kernels held bit-equal to the built one, a parent's and the glue
+# included, where built with the same flags.
+BIT_EQUAL = ("a3", "k2", "hb")
 
 
 class Spec(NamedTuple):
@@ -80,6 +106,7 @@ class Spec(NamedTuple):
     entry: str  # its C entry point
     tag: str  # the device kernel's name, as the profiler records it
     args: Tuple[str, ...]  # C names of what the wrapper's *_args function returns
+    older: str = ""  # the entry point an older checkout declares in its place
 
 
 SPECS = {
@@ -95,11 +122,15 @@ SPECS = {
     "b3": Spec("ropes_shoot.cu", "hare_ropes_shoot", "ropes_shoot_kernel",
                ("o", "d", "ex", "n", "node_tab", "split", "box", "leaf_win", "ropes", "win_geom",
                 "win_ids", "fparams", "iparams", "best_t", "best_tri", "steps", "err")),
-    # A3 and K3 are timed over every kernel a call launches (tag ""), and
-    # called with the parameters their case gives by name (args unused).
+    # A3, K3, K2 and HB are timed over every kernel a call launches (tag
+    # ""), and called with the parameters their case gives by name (args
+    # unused).
     "a3": Spec("finalize_bwd.cu", "hare_finalize_hits_bwd", "", ()),
     "k3": Spec("energy_histogram.cu", "hare_energy_histogram", "", ()),
+    "k2": Spec("finalize_hits.cu", "hare_finalize_hits", "", ()),
+    "hb": Spec("energy_histogram.cu", "hare_histogram_bwd", "", (), "hare_soft_histogram_bwd"),
 }
+CALL_KERNELS = ("a3", "k3", "k2", "hb")
 
 
 def _one_group_per_ray(kernel: str, smem: str) -> Tuple[str, str]:
@@ -396,6 +427,11 @@ _K3_FOLD_AT_ONCE = ((
     if (b < n_bins && k < count) s += r[k];
 """),)
 
+# HB's lane count from which a thread takes four lanes, and its four lanes
+# moved one at a time, never as 16-byte words.
+_HB_WIDE = "kWideMin = 1 << 20;"
+_HB_VEC = ("if (vec && i0 + LANES <= n) {", "if (false && vec && i0 + LANES <= n) {")
+
 # kernel -> ((label, (old, new) replacements applied in order, each old text
 # occurring exactly once; nvcc flags, None for the built ones), ...); the
 # first candidate of each is the built source.
@@ -451,6 +487,21 @@ CANDIDATES = {
         ("chunk 1024", (("kMinChunk = 512;", "kMinChunk = 1024;"),), None),
         ("at most 264 blocks", (("kMaxBlocks = 528;", "kMaxBlocks = 264;"),), None),
     ),
+    "k2": (
+        ("block 128 (built)", (), None),
+        ("block 64", (("constexpr int kBlock = 128;", "constexpr int kBlock = 64;"),), None),
+        ("block 256", (("constexpr int kBlock = 128;", "constexpr int kBlock = 256;"),), None),
+        ("block 128 -fmad=true", (), FMA_FLAGS),
+    ),
+    "hb": (
+        ("1 lane a thread below 2^20 lanes, 4 above (built)", (), None),
+        ("4 lanes a thread always", ((_HB_WIDE, "kWideMin = 0;"),), None),
+        ("1 lane a thread always", ((_HB_WIDE, "kWideMin = 1LL << 62;"),), None),
+        ("1 lane a thread in blocks of 128", (("kNarrowBlock = 256;", "kNarrowBlock = 128;"),),
+         None),
+        ("4 lanes a thread in blocks of 256", (("kWideBlock = 128;", "kWideBlock = 256;"),), None),
+        ("4 lanes a thread, moved lane by lane", (_HB_VEC,), None),
+    ),
 }
 
 _C_TYPES = {"int": ctypes.c_int, "float": ctypes.c_float, "long": ctypes.c_longlong}
@@ -501,6 +552,7 @@ class Variant(NamedTuple):
     text: str  # the source
     include: Path  # its headers' directory
     flags: Tuple[str, ...]
+    entry: str = ""  # its entry point, where not the spec's
 
 
 def _build(entry: str, variants: List[Variant], out_dir: Path, prefix: str,
@@ -527,8 +579,8 @@ def _build(entry: str, variants: List[Variant], out_dir: Path, prefix: str,
                 raise RuntimeError(msg)
             print(f"sweep left out: {msg}")
             continue
-        fn = getattr(ctypes.CDLL(str(lib)), entry)
-        params = _c_params(v.text, entry)
+        fn = getattr(ctypes.CDLL(str(lib)), v.entry or entry)
+        params = _c_params(v.text, v.entry or entry)
         fn.argtypes = [t for _, t in params]
         fn.restype = ctypes.c_int
         # Registers and spills of each instance (watertight and MT, each K).
@@ -581,13 +633,14 @@ def _cases(dev, kernels) -> List[Case]:
 
 
 class CallCase(NamedTuple):
-    """A3 or K3 on some batches: ``(label, make)`` pairs, where ``make()``
-    gives the entry point's parameters by name and the fresh outputs they
-    name."""
+    """A3, K3, K2 or HB on some batches: ``(label, make)`` pairs, where
+    ``make()`` gives the entry point's parameters by name and the fresh
+    outputs they name; ``flushed``: timed with L2 flushed too."""
 
     name: str
-    kernel: str  # "a3" or "k3"
+    kernel: str  # a key of SPECS in CALL_KERNELS
     batches: list
+    flushed: bool = False
 
 
 def k3_given(lanes, n_bins: int, bin_dt: float, soft: bool):
@@ -609,15 +662,50 @@ def k3_given(lanes, n_bins: int, bin_dt: float, soft: bool):
                 counters=counters, n_counters=counters.numel(), hist=hist), (hist,)
 
 
+def k2_given(scene, rays, best_t, best_tri):
+    """K2's parameters on one shoot's rays and winners (watertight), into a
+    fresh record allocated as the wrapper allocates it, and the record's
+    nine fields: ``(given, fields)``."""
+    from ..accel.common import empty_hit_record
+
+    n = rays.origin.shape[0]
+    out = empty_hit_record(n, rays.origin.device)
+    return dict(tri_geom=scene.tri_geom, tri_meta=scene.tri_meta, best_t=best_t,
+                best_tri=best_tri, o=rays.origin.contiguous(), d=rays.direction.contiguous(),
+                n=n, mt=0, hit=out.hit, t=out.t, u=out.u, v=out.v, point=out.point,
+                poly=out.poly_id, tri=out.tri_id, normal=out.normal, nbr=out.edge_nbr), tuple(out)
+
+
+def hb_given(lanes, grad_hist, n_bins: int, bin_dt: float, soft: bool):
+    """HB's parameters on ``lanes`` (energy, time, hit) and the bins'
+    gradient, with fresh d(energy) and d(time) (an older soft entry point
+    writes both), and the outputs of the mode: ``(given, (d_energy,[
+    d_time]))``."""
+    energy, time, hit = (x.contiguous() for x in lanes)
+    d_energy, d_time = torch.empty_like(energy), torch.empty_like(energy)
+    given = dict(energy=energy, time=time, hit=hit, grad_hist=grad_hist,
+                 grad_stride=grad_hist.stride(0), n=energy.numel(), n_bins=n_bins, bin_dt=bin_dt,
+                 soft=int(soft), d_energy=d_energy, d_time=d_time)
+    return given, (d_energy, d_time) if soft else (d_energy,)
+
+
+def _glue(given):
+    """The hard backward as the parent's torch ops, on HB's parameters."""
+    from ..trace.bounce import hard_histogram_bwd_plain
+
+    return (hard_histogram_bwd_plain(given["time"], given["hit"], given["grad_hist"],
+                                     given["n_bins"], given["bin_dt"]),)
+
+
 def _call_cases(dev, kernels) -> List[CallCase]:
     import hare_tpu_torch as th
     from hare_tpu_torch.accel import common, tree, voxel
-    from hare_tpu_torch.mesh import shapes
 
     from . import a3_check, configs
 
     _, sp, rays, absorption = bench_setup(dev)
     c4 = configs.config4_setup(dev)
+    c3 = configs.config3_setup(dev) if {"k2", "k3", "hb"} & set(kernels) else None
     cases = []
     if "a3" in kernels:
         def a3_batches(part, shoot, rays_, absorption_, n_bounces, seed0):
@@ -637,30 +725,52 @@ def _call_cases(dev, kernels) -> List[CallCase]:
         cases.append(CallCase("A3 config 4", "a3",
                               a3_batches(c4.partition, tree.tree_shoot, c4.rays, c4.absorption,
                                          c4.n_bounces, 10)))
-    if "k3" in kernels:
+    if "k2" in kernels:
+        def k2_batches(part, shoot, rays_, absorption_, n_bounces):
+            out = []
+            for b, r in enumerate(bounce_rays(part, rays_, absorption_, n_bounces), 1):
+                best_t, best_tri = shoot(r, part.struct)
+                out.append((f"bounce {b}", lambda part=part, r=r, t=best_t, i=best_tri:
+                            k2_given(part.scene, r, t, i)))
+            return out
+
+        cases.append(CallCase("K2 bench", "k2",
+                              k2_batches(sp, voxel.grid_shoot, rays, absorption, N_BOUNCES)))
+        cases.append(CallCase("K2 config 4", "k2",
+                              k2_batches(c4.partition, tree.tree_shoot, c4.rays, c4.absorption,
+                                         c4.n_bounces)))
+        cases.append(CallCase("K2 config 3", "k2",
+                              k2_batches(c3.partition, tree.tree_shoot, c3.rays, c3.absorption,
+                                         c3.n_bounces), flushed=True))
+    if {"k3", "hb"} & set(kernels):
         def lanes(part, rays_, absorption_, n_bounces):
             with torch.no_grad():
                 res = th.trace_rays(part.scene, rays_, absorption_, n_bounces, part.shoot_fn,
                                     aux=part.aux)
             return res.energy, res.time, res.hit
 
-        # Eval config 3 (benchmarks/configs.py): the concert hall, octree,
-        # 1M rays from (15, 24, 8), absorption 0.3, 3 bounces.
-        hall = th.Topology.build(shapes.concert_hall())
-        sp3 = th.SpatialPartition(hall, accel="octree", device=dev)
-        d3 = th.uniform_sphere(1_000_000, torch.Generator().manual_seed(0), device=dev)
-        r3 = th.Ray.make(torch.tensor((15.0, 24.0, 8.0), device=dev).expand(d3.shape).contiguous(),
-                         d3)
-        a3v = torch.full((hall.n_polys,), 0.3, device=dev)
-        for name, lanes_, n_bins in (
-                ("K3 bench", lanes(sp, rays, absorption, N_BOUNCES), 1024),
-                ("K3 config 4", lanes(c4.partition, c4.rays, c4.absorption, c4.n_bounces),
-                 c4.n_bins),
-                ("K3 config 3", lanes(sp3, r3, a3v, N_BOUNCES), 1024)):
-            cases.append(CallCase(name, "k3", [
+        trace = {"bench": (lanes(sp, rays, absorption, N_BOUNCES), 1024),
+                 "config 4": (lanes(c4.partition, c4.rays, c4.absorption, c4.n_bounces),
+                              c4.n_bins),
+                 "config 3": (lanes(c3.partition, c3.rays, c3.absorption, c3.n_bounces),
+                              c3.n_bins)}
+    if "k3" in kernels:
+        for where, (lanes_, n_bins) in trace.items():
+            cases.append(CallCase(f"K3 {where}", "k3", [
                 (mode, lambda lanes_=lanes_, n_bins=n_bins, soft=soft:
                  k3_given(lanes_, n_bins, BIN_DT, soft))
-                for mode, soft in (("hard", False), ("soft", True))]))
+                for mode, soft in (("hard", False), ("soft", True))], where == "config 3"))
+    if "hb" in kernels:
+        # The main paths' modes: hard on every absorption path, soft on the
+        # vertex paths (the bench vertex step and config 4 (b)).
+        for where, modes in (("bench", ("hard", "soft")), ("config 4", ("soft",)),
+                             ("config 3", ("hard",))):
+            lanes_, n_bins = trace[where]
+            grad = torch.randn(n_bins, generator=torch.Generator().manual_seed(n_bins)).to(dev)
+            cases.append(CallCase(f"HB {where}", "hb", [
+                (mode, lambda lanes_=lanes_, grad=grad, n_bins=n_bins, soft=mode == "soft":
+                 hb_given(lanes_, grad, n_bins, BIN_DT, soft))
+                for mode in modes], where == "config 3"))
     return cases
 
 
@@ -669,6 +779,39 @@ def _bits_differ(a: torch.Tensor, b: torch.Tensor) -> int:
     if a.element_size() == 4:
         a, b = a.view(torch.int32), b.view(torch.int32)
     return int((a != b).sum())
+
+
+def _max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The largest |a - b| of two like tensors, 0 where they are equal (so
+    equal infinities, K2's t of a miss, count 0)."""
+    diff = torch.where(a == b, 0.0, (a.double() - b.double()).abs())
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def _takes(params, given) -> bool:
+    """Whether a candidate takes a batch: an entry point without a ``soft``
+    parameter (an older checkout's soft backward) the soft batches only,
+    the torch glue (``params`` None) the hard ones only."""
+    if "soft" not in given:
+        return True
+    if params is None:
+        return given["soft"] == 0
+    return given["soft"] == 1 or any(name == "soft" for name, _ in params)
+
+
+def _bind(entry, given, out):
+    """A call of a built entry point on ``given`` that returns ``out``, or
+    of the torch glue (``params`` None), which returns its own."""
+    fn, params, _ = entry
+    if params is None:
+        return lambda: fn(given)
+    call = _caller(fn, params, given)
+
+    def run():
+        call()
+        return out
+
+    return run
 
 
 def _run_call_case(case: CallCase, built_libs, variants, reps: int, rec: dict) -> None:
@@ -682,14 +825,17 @@ def _run_call_case(case: CallCase, built_libs, variants, reps: int, rec: dict) -
     for label_b, make in case.batches:
         outs, ref = {}, None
         for v in [built] + [v for v in variants if v is not built]:
-            fn, params, _ = built_libs[v.label]
+            entry = built_libs[v.label]
             runs = []
             for _ in range(2):
                 given, out = make()
-                call = _caller(fn, params, dict(given, stream=stream))
-                call()
+                if not _takes(entry[1], given):
+                    break
+                call = _bind(entry, dict(given, stream=stream), out)
+                runs.append(call())
                 torch.cuda.synchronize()
-                runs.append(out)
+            if not runs:
+                continue
             again = sum(_bits_differ(x, y) for x, y in zip(*runs))
             if again:
                 raise AssertionError(f"{case.name} {label_b} {v.label}: two launches differ in "
@@ -698,28 +844,50 @@ def _run_call_case(case: CallCase, built_libs, variants, reps: int, rec: dict) -
             if ref is None:
                 ref = got
             differ = sum(_bits_differ(x, y) for x, y in zip(got, ref))
-            err = max((float((x.double() - y.double()).abs().max()) if x.numel() else 0.0)
-                      for x, y in zip(got, ref))
-            if case.kernel == "a3" and v.flags == built.flags and differ:
+            err = max(_max_abs_diff(x, y) for x, y in zip(got, ref))
+            if case.kernel in BIT_EQUAL and v.flags == built.flags and differ:
                 raise AssertionError(f"{case.name} {label_b} {v.label}: {differ} elements differ "
                                      "from the built kernel")
             total = float(ref[0].double().sum()) if case.kernel == "k3" else 0.0
             if case.kernel == "k3" and err > HIST_REL_TOL * total:
                 raise AssertionError(f"{case.name} {label_b} {v.label}: differs by {err} of the "
                                      f"total {total}")
-            outs[v.label] = (call, differ, err, got[0].numel())
-        order = [v.label for v in variants]
+            outs[v.label] = (call, differ, err, got)
+        parent = next((outs[label][3] for label in ("parent", GLUE) if label in outs), None)
+        order = [v.label for v in variants if v.label in outs]
         times = {label: [] for label in order}
+        cold = {label: [] for label in order}
+        launched = {}
+        flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=ref[0].device)
         for label in order + order[::-1]:
-            times[label].append(device_ms(outs[label][0], SPECS[case.kernel].tag, reps))
+            call = outs[label][0]
+            # Per kernel name, the mean launch times its launches a call (the
+            # profiler now and then drops one; the glue's elementwise
+            # kernels may share a name), summed.
+            kernels = profile_kernels(call, reps)
+            times[label].append(sum(t / k * round(k / reps) for t, k in kernels.values()) / 1e3)
+            launched[label] = sum(round(k / reps) for _, k in kernels.values())
+            if case.flushed:
+                kernels = profile_kernels(lambda call=call: (flush.bitwise_not_(), call()), reps)
+                cold[label].append(sum(t / k * round(k / reps) for name, (t, k) in
+                                       kernels.items() if FLUSH_TAG not in name) / 1e3)
+        del flush
         for label in order:
             ms = sum(times[label]) / len(times[label])
-            _, differ, err, size = outs[label]
-            c_rec[label][label_b] = dict(ms=ms, ms_each=times[label], elements_differ=differ,
-                                         max_abs_diff=err)
+            cold_ms = sum(cold[label]) / len(cold[label]) if case.flushed else None
+            _, differ, err, got = outs[label]
+            vs_parent = (None if parent is None else
+                         sum(_bits_differ(x, y) for x, y in zip(got, parent)))
+            c_rec[label][label_b] = dict(ms=ms, ms_each=times[label], flushed_ms=cold_ms,
+                                         flushed_ms_each=cold[label], elements_differ=differ,
+                                         max_abs_diff=err, parent_elements_differ=vs_parent,
+                                         kernels_a_call=launched[label])
+            flushed = "" if cold_ms is None else (
+                f", {cold_ms:.5f} with L2 flushed ({', '.join(f'{x:.5f}' for x in cold[label])})")
             print(f"sweep {case.name} {label_b} {label}: {ms:.5f} ms on the device "
-                  f"({', '.join(f'{x:.5f}' for x in times[label])}); elements differing from the "
-                  f"built kernel {differ} (max |diff| {err:.3e}), two launches bitwise equal")
+                  f"({', '.join(f'{x:.5f}' for x in times[label])}{flushed}; {launched[label]} "
+                  f"kernels a call); elements differing from the built kernel {differ} (max "
+                  f"|diff| {err:.3e}), from the parent {vs_parent}; two launches bitwise equal")
 
 
 def _caller(fn, params, given):
@@ -739,7 +907,7 @@ def _caller(fn, params, given):
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--kernels", default="k1,b1,b2,b3,a3,k3",
+    ap.add_argument("--kernels", default="k1,b1,b2,b3,a3,k3,k2,hb",
                     help="comma-separated, of " + ", ".join(SPECS))
     ap.add_argument("--parent", type=Path, default=None,
                     help="another checkout whose kernels are candidates too")
@@ -765,14 +933,19 @@ def main(argv=None) -> dict:
                         for label, reps, flags in CANDIDATES[key]]
             if args.parent is not None:
                 parent = args.parent / "hare_tpu_torch/kernels/csrc"
-                variants.insert(0, Variant("parent", (parent / spec.source).read_text(), parent,
-                                           _nvcc_flags(args.parent)))
+                text = (parent / spec.source).read_text()
+                older = f'extern "C" int {spec.entry}(' not in text and spec.older
+                variants.insert(0, Variant("parent", text, parent, _nvcc_flags(args.parent),
+                                           older or ""))
             built_libs = _build(spec.entry, variants, Path(tmp), key, leave_out_failed=True)
+            if key == "hb":
+                built_libs[GLUE] = (_glue, None, [])
+                variants.append(Variant(GLUE, "", build.CSRC, build.NVCC_FLAGS))
             libs[key] = (built_libs, [v for v in variants if v.label in built_libs])
             for label, (_, _, report) in built_libs.items():
                 print(f"sweep ptxas {key} {label}: " + " | ".join(report))
 
-        calls = [k for k in kernels if k in ("a3", "k3")]
+        calls = [k for k in kernels if k in CALL_KERNELS]
         for case in _call_cases(dev, calls) if calls else []:
             _run_call_case(case, *libs[case.kernel], args.reps, rec)
         stream = torch.cuda.current_stream().cuda_stream

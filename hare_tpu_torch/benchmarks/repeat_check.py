@@ -10,11 +10,14 @@ grid ``domain=48``, 32,768 rays, 3 bounces, 1024 bins) on the card and runs
 reports the largest |difference| of each step's histogram and gradient from
 the first step's — 0 where every sum has a fixed order — and the wall
 milliseconds a step over ``REPS`` more steps, the card synchronised before
-and after.  Where the checkout's port takes vertex gradients
+and after, and the kernels a step launches with their device time, by
+torch.profiler.  Where the checkout's port takes vertex gradients
 (``Scene.with_vertices``), it does the same w.r.t. the vertices with the
 soft histogram, and counts the fill kernels (``FillFunctor``: zeros that
 autograd or a wrapper writes) one such step launches, with their device
-time, by torch.profiler.  Prints one JSON line.
+time.  Then eval config 3's step w.r.t. absorption (the concert hall,
+octree, 1M rays from (15, 24, 8), 3 bounces): its wall time and kernels a
+step.  Prints one JSON line.
 
 The loss is the first moment ``sum(h * arange(n_bins))``, not the
 histogram's sum: under the sum every ray of a bounce sends the same
@@ -93,6 +96,16 @@ def step_ms(step, reps: int) -> float:
     return (time.perf_counter() - t) / reps * 1e3
 
 
+def kernels_a_step(step, reps: int = 3) -> dict:
+    """Launches and device milliseconds of all the kernels a call of
+    ``step()`` launches, over ``reps`` profiled calls."""
+    from hare_tpu_torch.benchmarks.bench_scene import profile_kernels
+
+    times = profile_kernels(step, reps).values()
+    return {"launches": sum(k for _, k in times) / reps,
+            "device_ms": sum(us for us, _ in times) / reps / 1e3, "reps": reps}
+
+
 def fill_kernels(step, reps: int = 3) -> dict:
     """Launches and device milliseconds a call of ``step()`` spends in fill
     kernels (torch's ``FillFunctor``), over ``reps`` profiled calls."""
@@ -113,6 +126,7 @@ def main(argv=None) -> dict:
 
     import hare_tpu_torch as th
     from hare_tpu_torch.benchmarks.bench_scene import N_BOUNCES, bench_setup
+    from hare_tpu_torch.mesh import shapes
 
     if not torch.cuda.is_available():
         raise RuntimeError("the bench step is run on the card")
@@ -122,13 +136,26 @@ def main(argv=None) -> dict:
     rec = {"tree": str(args.tree), "package": str(Path(th.__file__).parent),
            "device": torch.cuda.get_device_name(0), "steps": STEPS,
            "absorption": {"hist_max_abs_diff": hist_diff, "grad_max_abs_diff": grad_diff,
-                          "step_ms": step_ms(step, REPS), "reps": REPS}}
+                          "step_ms": step_ms(step, REPS), "reps": REPS,
+                          "kernels": kernels_a_step(step)}}
     if hasattr(sp.scene, "with_vertices"):
         vstep = vertex_step(th, sp, rays, absorption, N_BOUNCES)
         hist_diff, grad_diff = max_diffs(vstep, STEPS)
         rec["vertices_soft"] = {"hist_max_abs_diff": hist_diff, "grad_max_abs_diff": grad_diff,
                                 "step_ms": step_ms(vstep, REPS), "reps": REPS,
-                                "fill_kernels": fill_kernels(vstep)}
+                                "fill_kernels": fill_kernels(vstep),
+                                "kernels": kernels_a_step(vstep)}
+    # Eval config 3 as benchmarks.configs.config3_setup builds it, written
+    # out here: an older checkout imported through --tree lacks that function.
+    hall = th.Topology.build(shapes.concert_hall())
+    sp3 = th.SpatialPartition(hall, accel="octree", device="cuda")
+    d3 = th.uniform_sphere(1_000_000, torch.Generator().manual_seed(0), device="cuda")
+    r3 = th.Ray.make(torch.tensor((15.0, 24.0, 8.0), device="cuda").expand(d3.shape).contiguous(),
+                     d3)
+    step3 = absorption_step(th, sp3, r3, torch.full((hall.n_polys,), 0.3, device="cuda"),
+                            N_BOUNCES)
+    rec["config3_absorption"] = {"step_ms": step_ms(step3, 5), "reps": 5,
+                                 "kernels": kernels_a_step(step3)}
     print(json.dumps({"repeat_check": rec}))
     return rec
 

@@ -1,13 +1,13 @@
-// K3 energy_histogram, hard and soft binning, forward; and the soft
-// binning's backward.  Deterministic: no float atomics.
+// K3 energy_histogram, hard and soft binning, forward and backward.
+// Deterministic: no float atomics.
 //
 // Replaces the XLA scatters of hare_tpu/trace/bounce.py energy_histogram:
 // the hard segment_sum over clip(int(time / bin_dt)) (:294-300) and the
 // soft ("tent") segment_sum (:280-293), which splits each energy between
 // the two bins whose centres bracket time / bin_dt, the edge halves clamped
-// into the end bins; dead lanes are dropped.  The hard backward is a gather
-// in the torch wrapper (trace/bounce.py); the soft backward is
-// soft_histogram_bwd below.
+// into the end bins; dead lanes are dropped.  Both backwards, the hard one
+// (the transpose of the segment_sum, a gather) and the soft one, are one
+// function below (lane_bwd, hare_histogram_bwd).
 //
 // Order.  Float atomics would make the summation order, and so the last
 // bits of each bin, change from run to run.  Here every sum has a fixed
@@ -40,6 +40,8 @@
 //     last blocks to finish (counters, fences and a second level of
 //     segments) or behind a grid-wide barrier, reads slower on the device
 //     than the second launch at the bench's and config 4's sizes.
+#include <cstdint>
+
 #include <cuda_runtime.h>
 
 namespace {
@@ -214,33 +216,120 @@ hist_fold_kernel(const float* __restrict__ partials, int blocks, int n_bins,
   }
 }
 
-// d(energy) and d(time) of the soft histogram, one thread a lane: on a hit
-// lane, with G the incoming gradient of the bins, autograd's statement of
-// e_hi = e frac, e_lo = e - e_hi (trace/bounce.py soft_histogram_plain):
-// d_energy = G[lo] + (G[hi] - G[lo]) frac and d_time = ((G[hi] - G[lo]) e)
-// c / bin_dt, where c, the gradient of clip(x, 0, 1), is 1 inside, 0
-// outside and 1/2 at either bound — the JAX package's (its clip is
-// min(max(x, 0), 1), whose ties split the gradient).
-__global__ void __launch_bounds__(kThreads)
-soft_bwd_kernel(const float* __restrict__ energy, const float* __restrict__ time,
-                const bool* __restrict__ hit, const float* __restrict__ grad_hist, long long n,
-                int n_bins, float bin_dt, float* __restrict__ d_energy,
-                float* __restrict__ d_time) {
-  const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= n) return;
-  if (!hit[i]) {
-    d_energy[i] = 0.f;
-    d_time[i] = 0.f;
+// The backward of both binnings, one function: on a hit lane, with G the
+// incoming gradient of the bins (read at stride gs: autograd hands the
+// gradient of a sum as one value broadcast, stride 0),
+//   - hard: d_energy = G[bin], bin = clip(int(time / bin_dt)) as the
+//     forward's (hard_bin), the gather that transposes the JAX package's
+//     segment_sum; time gets no cotangent, so d_time is not written;
+//   - soft: autograd's statement of e_hi = e frac, e_lo = e - e_hi
+//     (trace/bounce.py soft_histogram_plain): d_energy = G[lo] + (G[hi] -
+//     G[lo]) frac and d_time = ((G[hi] - G[lo]) e) c / bin_dt, where c, the
+//     gradient of clip(x, 0, 1), is 1 inside, 0 outside and 1/2 at either
+//     bound — the JAX package's (its clip is min(max(x, 0), 1), whose ties
+//     split the gradient).
+// A dead lane gets +0.0.  These are the plain versions' operations in their
+// order (trace/bounce.py hard_histogram_bwd_plain, soft_histogram_bwd_plain).
+template <bool SOFT>
+__device__ __forceinline__ void lane_bwd(float e, float time, bool hit,
+                                         const float* __restrict__ g, long long gs, int n_bins,
+                                         float bin_dt, float& d_e, float& d_t) {
+  d_e = d_t = 0.f;
+  if (!hit) return;
+  if (!SOFT) {
+    d_e = __ldg(g + hard_bin(time, n_bins, bin_dt) * gs);
     return;
   }
-  const Tent s = tent(time[i], n_bins, bin_dt);
-  const float g_lo = grad_hist[s.lo], g_hi = grad_hist[s.hi];
+  const Tent s = tent(time, n_bins, bin_dt);
+  const float g_lo = __ldg(g + s.lo * gs), g_hi = __ldg(g + s.hi * gs);
   const float g_e_hi = g_hi - g_lo;
-  d_energy[i] = g_lo + g_e_hi * s.frac;
-  const float g_frac = g_e_hi * energy[i];
+  d_e = g_lo + g_e_hi * s.frac;
+  const float g_frac = g_e_hi * e;
   const float g_x = s.x > 0.f && s.x < 1.f ? g_frac
                     : (s.x == 0.f || s.x == 1.f ? g_frac / 2.f : 0.f);
-  d_time[i] = g_x / bin_dt;
+  d_t = g_x / bin_dt;
+}
+
+// What bounds the backward on the H100: bytes (hard: time and hit in,
+// d_energy out, 9 B a lane; soft: energy too in and d_time out, 17 B),
+// and at the main paths' sizes (10^5 lanes) the launch and one round trip
+// to memory.  So:
+//   - from kWideMin lanes on, where the bytes bound it (config 3's 3M
+//     lanes), a thread takes kLanes = 4 consecutive lanes: energy and time
+//     as one float4 each, hit as one 32-bit word, d_energy and d_time
+//     stored as float4s (the last lanes of a count that is not a multiple
+//     of 4, or arrays not aligned for the wide words, lane by lane: the
+//     same values);
+//   - below it, a thread takes one lane, in blocks of kNarrowBlock: four
+//     lanes a thread read 10-25% slower there (kernel_sweep.py case hb);
+//   - the bins' gradient (4 KB at 1024 bins) is read through the read-only
+//     path, where it stays in L1.
+constexpr int kNarrowBlock = 256;     // threads a block, one lane each
+constexpr int kWideBlock = 128;       // threads a block, kLanes lanes each
+constexpr int kLanes = 4;
+constexpr long long kWideMin = 1 << 20;  // lanes from which a thread takes kLanes
+
+template <bool SOFT, int LANES>
+__device__ __forceinline__ void bwd_lanes(const float* __restrict__ energy,
+                                          const float* __restrict__ time,
+                                          const bool* __restrict__ hit,
+                                          const float* __restrict__ g, long long gs, long long n,
+                                          int n_bins, float bin_dt, bool vec,
+                                          float* __restrict__ d_energy,
+                                          float* __restrict__ d_time) {
+  const long long q = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  float de, dt;
+  if (LANES == 1) {
+    if (q >= n) return;
+    lane_bwd<SOFT>(SOFT ? energy[q] : 0.f, time[q], hit[q], g, gs, n_bins, bin_dt, de, dt);
+    d_energy[q] = de;
+    if (SOFT) d_time[q] = dt;
+    return;
+  }
+  const long long i0 = LANES * q;
+  if (i0 >= n) return;
+  if (vec && i0 + LANES <= n) {
+    const float4 t4 = reinterpret_cast<const float4*>(time)[q];
+    const unsigned h4 = reinterpret_cast<const unsigned*>(hit)[q];
+    const float4 e4 = SOFT ? reinterpret_cast<const float4*>(energy)[q]
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+    float4 de4, dt4;
+    lane_bwd<SOFT>(e4.x, t4.x, h4 & 0xffu, g, gs, n_bins, bin_dt, de4.x, dt4.x);
+    lane_bwd<SOFT>(e4.y, t4.y, (h4 >> 8) & 0xffu, g, gs, n_bins, bin_dt, de4.y, dt4.y);
+    lane_bwd<SOFT>(e4.z, t4.z, (h4 >> 16) & 0xffu, g, gs, n_bins, bin_dt, de4.z, dt4.z);
+    lane_bwd<SOFT>(e4.w, t4.w, h4 >> 24, g, gs, n_bins, bin_dt, de4.w, dt4.w);
+    reinterpret_cast<float4*>(d_energy)[q] = de4;
+    if (SOFT) reinterpret_cast<float4*>(d_time)[q] = dt4;
+    return;
+  }
+  const long long end = min(i0 + LANES, n);
+  for (long long i = i0; i < end; ++i) {
+    lane_bwd<SOFT>(SOFT ? energy[i] : 0.f, time[i], hit[i], g, gs, n_bins, bin_dt, de, dt);
+    d_energy[i] = de;
+    if (SOFT) d_time[i] = dt;
+  }
+}
+
+// Two names for the profiler; one body.
+template <int LANES>
+__global__ void __launch_bounds__(LANES == 1 ? kNarrowBlock : kWideBlock)
+hard_bwd_kernel(const float* __restrict__ time, const bool* __restrict__ hit,
+                const float* __restrict__ g, long long gs, long long n, int n_bins, float bin_dt,
+                bool vec, float* __restrict__ d_energy) {
+  bwd_lanes<false, LANES>(nullptr, time, hit, g, gs, n, n_bins, bin_dt, vec, d_energy, nullptr);
+}
+
+template <int LANES>
+__global__ void __launch_bounds__(LANES == 1 ? kNarrowBlock : kWideBlock)
+soft_bwd_kernel(const float* __restrict__ energy, const float* __restrict__ time,
+                const bool* __restrict__ hit, const float* __restrict__ g, long long gs,
+                long long n, int n_bins, float bin_dt, bool vec, float* __restrict__ d_energy,
+                float* __restrict__ d_time) {
+  bwd_lanes<true, LANES>(energy, time, hit, g, gs, n, n_bins, bin_dt, vec, d_energy, d_time);
+}
+
+inline bool aligned_to(const void* p, unsigned bytes) {
+  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
 }
 
 }  // namespace
@@ -273,18 +362,37 @@ extern "C" int hare_energy_histogram(const float* energy, const float* time, con
   return static_cast<int>(cudaGetLastError());
 }
 
-// The soft histogram's d(energy) and d(time), (n,) each, from the incoming
-// gradient of the n_bins bins.  Launches on `stream`; returns
-// cudaGetLastError().
-extern "C" int hare_soft_histogram_bwd(const float* energy, const float* time, const bool* hit,
-                                       const float* grad_hist, long long n, int n_bins,
-                                       float bin_dt, float* d_energy, float* d_time,
-                                       void* stream) {
+// The histogram's backward (soft: 0 hard, 1 tent): d(energy) of the n
+// lanes from grad_hist, the incoming gradient of the n_bins bins, read at
+// element stride grad_stride (0: one value broadcast); soft also d(time).
+// Hard reads no energy and writes no d_time (either may be null).
+// Launches on `stream`; returns cudaGetLastError().
+extern "C" int hare_histogram_bwd(const float* energy, const float* time, const bool* hit,
+                                  const float* grad_hist, long long grad_stride, long long n,
+                                  int n_bins, float bin_dt, int soft, float* d_energy,
+                                  float* d_time, void* stream) {
   if (n > 0 && n_bins > 0) {
-    const long long blocks = (n + kThreads - 1) / kThreads;
-    soft_bwd_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(energy, time, hit, grad_hist, n,
-                                                           n_bins, bin_dt, d_energy, d_time);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const bool vec = aligned_to(time, 16) && aligned_to(hit, 4) && aligned_to(d_energy, 16) &&
+                     (!soft || (aligned_to(energy, 16) && aligned_to(d_time, 16)));
+    if (n >= kWideMin) {
+      const long long threads = (n + kLanes - 1) / kLanes;
+      const unsigned blocks = static_cast<unsigned>((threads + kWideBlock - 1) / kWideBlock);
+      if (soft)
+        soft_bwd_kernel<kLanes><<<blocks, kWideBlock, 0, s>>>(
+            energy, time, hit, grad_hist, grad_stride, n, n_bins, bin_dt, vec, d_energy, d_time);
+      else
+        hard_bwd_kernel<kLanes><<<blocks, kWideBlock, 0, s>>>(
+            time, hit, grad_hist, grad_stride, n, n_bins, bin_dt, vec, d_energy);
+    } else {
+      const unsigned blocks = static_cast<unsigned>((n + kNarrowBlock - 1) / kNarrowBlock);
+      if (soft)
+        soft_bwd_kernel<1><<<blocks, kNarrowBlock, 0, s>>>(
+            energy, time, hit, grad_hist, grad_stride, n, n_bins, bin_dt, vec, d_energy, d_time);
+      else
+        hard_bwd_kernel<1><<<blocks, kNarrowBlock, 0, s>>>(
+            time, hit, grad_hist, grad_stride, n, n_bins, bin_dt, vec, d_energy);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,8 +8,8 @@ so autograd sees ``energy * (1 - absorption[poly])``; the gather's backward
 is the fixed-order scatter (``accel.scatter``), and the hit record's is A3
 (``accel.common.finalize_hits``), so gradients w.r.t. absorption, vertices
 and rays are bitwise-repeatable.  :func:`energy_histogram` is K3 (CUDA,
-deterministic) inside ``torch.autograd.Function``s: the hard one's backward
-is plain indexing, the soft one's the soft backward kernel.
+deterministic) inside ``torch.autograd.Function``s, whose backwards, hard
+and soft, are K3's backward kernel.
 
 Scattering and per-bounce remat are later ports: asking for them raises.
 """
@@ -31,6 +31,8 @@ __all__ = [
     "SOUND_SPEED",
     "TraceResult",
     "energy_histogram",
+    "hard_histogram_bwd",
+    "hard_histogram_bwd_plain",
     "histogram_kernel",
     "histogram_plain",
     "reflect",
@@ -197,12 +199,14 @@ def soft_histogram_plain(
 HIST_MAX_BLOCKS, HIST_TILE = 528, 1024
 
 
-def _check_lanes(energy: torch.Tensor, time: torch.Tensor, hit: torch.Tensor) -> None:
-    if energy.dtype != torch.float32 or time.dtype != torch.float32:
+def _check_lanes(energy: Optional[torch.Tensor], time: torch.Tensor, hit: torch.Tensor) -> None:
+    """The lanes as K3 reads them; ``energy`` None where it is not read."""
+    floats = (time,) if energy is None else (energy, time)
+    if any(x.dtype != torch.float32 for x in floats):
         raise TypeError("energy and time must be float32")
     if hit.dtype != torch.bool:
         raise TypeError("hit must be bool")
-    if not energy.shape == time.shape == hit.shape:
+    if any(x.shape != hit.shape for x in floats):
         raise ValueError("energy, time and hit must share one shape")
 
 
@@ -226,6 +230,16 @@ def histogram_kernel(
     return hist
 
 
+def hard_histogram_bwd_plain(
+    time: torch.Tensor, hit: torch.Tensor, grad_hist: torch.Tensor, n_bins: int, bin_dt: float,
+) -> torch.Tensor:
+    """Plain version of the hard backward: d(energy), each hit lane's bin's
+    incoming gradient and 0 on dead lanes — the gather that transposes the
+    JAX package's ``segment_sum`` (``bounce.py:294-300``).  The bins are
+    piecewise constant in time, which gets no cotangent."""
+    return torch.where(hit, grad_hist[_bins(time, n_bins, bin_dt)], 0.0)
+
+
 def soft_histogram_bwd_plain(
     energy: torch.Tensor, time: torch.Tensor, hit: torch.Tensor, grad_hist: torch.Tensor,
     n_bins: int, bin_dt: float,
@@ -239,26 +253,50 @@ def soft_histogram_bwd_plain(
         return torch.autograd.grad(hist, (e, t), grad_hist)
 
 
+def _histogram_bwd_kernel(energy, time, hit, grad_hist, n_bins, bin_dt, soft):
+    """K3's backward on CUDA tensors (``kernels/csrc/energy_histogram.cu``
+    ``hare_histogram_bwd``), hard or soft: ``(d_energy, d_time)``, d_time
+    None where hard.  ``grad_hist`` is read at its stride, so a broadcast
+    gradient (a sum's, stride 0) is not copied."""
+    _check_lanes(energy, time, hit)
+    if grad_hist.shape != (n_bins,) or grad_hist.dtype != torch.float32:
+        raise ValueError("grad_hist must be (n_bins,) float32")
+    d_energy = torch.empty(time.shape, dtype=torch.float32, device=time.device)
+    d_time = torch.empty_like(d_energy) if soft else None
+    build.launch(
+        "hare_histogram_bwd", None if energy is None else energy.contiguous(),
+        time.contiguous(), hit.contiguous(), grad_hist, grad_hist.stride(0), time.numel(), n_bins,
+        bin_dt, int(soft), d_energy, d_time,
+    )
+    return d_energy, d_time
+
+
+def hard_histogram_bwd(
+    time: torch.Tensor, hit: torch.Tensor, grad_hist: torch.Tensor, n_bins: int, bin_dt: float,
+) -> torch.Tensor:
+    """The hard histogram's backward, d(energy) shaped like ``time``.  CUDA
+    tensors launch K3's backward kernel in its hard mode; CPU tensors take
+    :func:`hard_histogram_bwd_plain`."""
+    if check_device(time, hit, grad_hist) == "cpu":
+        return hard_histogram_bwd_plain(time, hit, grad_hist, n_bins, bin_dt)
+    hard_histogram_bwd.launches += 1
+    return _histogram_bwd_kernel(None, time, hit, grad_hist, n_bins, bin_dt, False)[0]
+
+
+hard_histogram_bwd.launches = 0
+
+
 def soft_histogram_bwd(
     energy: torch.Tensor, time: torch.Tensor, hit: torch.Tensor, grad_hist: torch.Tensor,
     n_bins: int, bin_dt: float,
 ):
     """The soft histogram's backward, ``(d_energy, d_time)`` shaped like
-    ``energy``.  CUDA tensors launch ``kernels/csrc/energy_histogram.cu``'s
-    soft backward; CPU tensors take :func:`soft_histogram_bwd_plain`."""
+    ``energy``.  CUDA tensors launch K3's backward kernel in its soft mode;
+    CPU tensors take :func:`soft_histogram_bwd_plain`."""
     if check_device(energy, time, hit, grad_hist) == "cpu":
         return soft_histogram_bwd_plain(energy, time, hit, grad_hist, n_bins, bin_dt)
-    _check_lanes(energy, time, hit)
-    if grad_hist.shape != (n_bins,) or grad_hist.dtype != torch.float32:
-        raise ValueError("grad_hist must be (n_bins,) float32")
-    d_energy = torch.empty(energy.shape, dtype=torch.float32, device=energy.device)
-    d_time = torch.empty(energy.shape, dtype=torch.float32, device=energy.device)
     soft_histogram_bwd.launches += 1
-    build.launch(
-        "hare_soft_histogram_bwd", energy.contiguous(), time.contiguous(), hit.contiguous(),
-        grad_hist.contiguous(), energy.numel(), n_bins, bin_dt, d_energy, d_time,
-    )
-    return d_energy, d_time
+    return _histogram_bwd_kernel(energy, time, hit, grad_hist, n_bins, bin_dt, True)
 
 
 soft_histogram_bwd.launches = 0
@@ -266,7 +304,8 @@ soft_histogram_bwd.launches = 0
 
 class _HardHistogram(torch.autograd.Function):
     """hist[bin(time)] += energy over hit lanes; d/d(energy) is the bin's
-    incoming gradient on hit lanes and 0 elsewhere; d/d(time) is 0."""
+    incoming gradient on hit lanes and 0 elsewhere (:func:`hard_histogram_bwd`);
+    d/d(time) is 0."""
 
     @staticmethod
     def forward(ctx, energy, time, hit, n_bins, bin_dt):
@@ -278,9 +317,11 @@ class _HardHistogram(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_hist):
+        if not ctx.needs_input_grad[0]:  # a loss w.r.t. the vertices: time's alone
+            return None, None, None, None, None
         time, hit = ctx.saved_tensors
-        g = grad_hist[_bins(time, ctx.n_bins, ctx.bin_dt)]
-        return torch.where(hit, g, 0.0), None, None, None, None
+        d_energy = hard_histogram_bwd(time, hit, grad_hist, ctx.n_bins, ctx.bin_dt)
+        return d_energy, None, None, None, None
 
 
 class _SoftHistogram(torch.autograd.Function):

@@ -32,6 +32,8 @@ from hare_tpu_torch.geom.intersect import ray_triangle_mt, ray_triangle_watertig
 from hare_tpu_torch.kernels import build  # noqa: E402
 from hare_tpu_torch.mesh import shapes  # noqa: E402
 from hare_tpu_torch.trace.bounce import (  # noqa: E402
+    hard_histogram_bwd,
+    hard_histogram_bwd_plain,
     histogram_kernel,
     histogram_plain,
     soft_histogram_bwd,
@@ -946,6 +948,129 @@ def test_histogram_on_two_streams(dev):
         s.synchronize()
         for g, w in zip(got, want):
             assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+def same_bits(a, b):
+    """Two like tensors equal to the bit (floats through their int32 bits)."""
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+# K2 at the edges of its launch: no ray, one, ray counts that are not a
+# whole number of blocks (a tail block), 10^5 rays and more, (N, 3) rows at
+# an unaligned storage offset, every ray a miss, and the MT test.
+K2_EDGES = ["n = 0", "n = 1", "n = 1000", "n = 300,007", "unaligned rows", "all misses", "mt"]
+
+
+def k2_edge_args(dev, case):
+    """``finalize_hits``' arguments for one case of ``K2_EDGES``: the hall's
+    grid winners of seeded rays (some miss)."""
+    kernel = "mt" if case == "mt" else "watertight"
+    n = {"n = 0": 0, "n = 1": 1, "n = 1000": 1000}.get(case, 300_007)
+    top = th.Topology.build(shapes.concert_hall())
+    sp = th.SpatialPartition(top, avg_polys=12.0, kernel=kernel, device=dev)
+    rays = rays_of(np.random.default_rng(3), 2.0, 16.0, n, dev)
+    best_t, best_tri = grid_shoot(rays, sp.struct, kernel)
+    if case == "all misses":
+        best_t, best_tri = torch.full_like(best_t, float("inf")), torch.full_like(best_tri, -1)
+    elif case == "unaligned rows":
+        rays = th.Ray(unaligned(rays.origin), unaligned(rays.direction), rays.exclude_poly)
+    return sp.scene, rays, best_t, best_tri, kernel
+
+
+def k2_whole_blocks(scene, rays, best_t, best_tri, kernel):
+    """K2 on the same rays padded with misses to a multiple of 1024 rays
+    (whole blocks at any block size up to 1024), every input in a fresh
+    tensor."""
+    n = best_t.shape[0]
+    m = -(-n // 1024) * 1024
+
+    def pad(x, fill):
+        out = torch.full((m,) + tuple(x.shape[1:]), fill, dtype=x.dtype, device=x.device)
+        out[:n] = x
+        return out
+
+    out = finalize_hits(scene, th.Ray(pad(rays.origin, 0.0), pad(rays.direction, 1.0),
+                                      pad(rays.exclude_poly, -1)),
+                        pad(best_t, float("inf")), pad(best_tri, -1), kernel)
+    return [x[:n] for x in out]
+
+
+@pytest.mark.parametrize("case", K2_EDGES)
+def test_finalize_edge_cases(dev, case):
+    """K2 on each edge case: hit, poly_id, tri_id and edge_nbr equal to the
+    plain version's, t, u, v, point and normal within RTOL / ATOL of it;
+    every field bit-equal to itself over two launches, to the same rays
+    launched as one batch of whole blocks (a tail block agrees with a
+    whole one) and, from 4096 rays, to its first 4096 rays launched alone
+    (a ray's record does not depend on the launch's size)."""
+    scene, rays, best_t, best_tri, kernel = k2_edge_args(dev, case)
+    hk = finalize_hits(scene, rays, best_t, best_tri, kernel)
+    hp = finalize_hits_plain(scene, rays, best_t, best_tri, kernel)
+    for f in ("hit", "poly_id", "tri_id", "edge_nbr"):
+        assert torch.equal(getattr(hk, f), getattr(hp, f)), f
+    for f in ("t", "u", "v", "point", "normal"):
+        torch.testing.assert_close(getattr(hk, f), getattr(hp, f), rtol=RTOL, atol=ATOL)
+    again = finalize_hits(scene, rays, best_t, best_tri, kernel)
+    whole = k2_whole_blocks(scene, rays, best_t, best_tri, kernel)
+    for f, x, y, z in zip(hk._fields, hk, again, whole):
+        assert same_bits(x, y) and same_bits(x, z), f
+    m = 4096
+    if best_t.shape[0] >= m:
+        part = finalize_hits(scene, th.Ray(*(x[:m] for x in rays)), best_t[:m], best_tri[:m],
+                             kernel)
+        for f, x, y in zip(hk._fields, hk, part):
+            assert same_bits(x[:m], y), f
+    if case == "all misses":
+        assert not bool(hk.hit.any()) and bool((hk.tri_id == -1).all())
+
+
+# K3's backward at the edges of its launch: no lane, a few, the bench's
+# 98,304, an unaligned view of every lane array, the gradient of a sum (one
+# value broadcast, stride 0), every lane dead, times outside the window;
+# and from 2^20 lanes (four lanes a thread) lane counts that are whole
+# words of four lanes and that are not (the per-lane tail) and an
+# unaligned view (lane by lane).
+HB_EDGES = [(0, "random"), (1, "random"), (3, "random"), (4, "random"), (98_304, "random"),
+            (98_307, "random"), (50_001, "unaligned"), (50_000, "broadcast"), (50_000, "dead"),
+            (50_000, "outside"), (1_048_576, "random"), (1_048_579, "random"),
+            (1_048_579, "unaligned"), (1_048_576, "broadcast")]
+
+
+@pytest.mark.parametrize("soft", [False, True], ids=["hard", "soft"])
+@pytest.mark.parametrize("n, kind", HB_EDGES)
+def test_histogram_bwd_edge_cases(dev, n, kind, soft):
+    """K3's backward on each edge case: hard bit-equal to the torch glue it
+    replaced (its plain version), soft within 1e-6 of the largest gradient
+    of autograd through the plain soft histogram; two launches give the
+    same bits."""
+    n_bins = 1024
+    energy, time, hit = k3_lanes(dev, n, n_bins, "dead" if kind == "dead" else "random")
+    if kind == "outside":
+        time = time * 4.0 - 1.5 * n_bins * 1e-3
+    elif kind == "unaligned":
+        energy, time, hit = unaligned(energy), unaligned(time), unaligned(hit)
+    g = torch.Generator(device=dev).manual_seed(n)
+    grad = torch.randn(n_bins, generator=g, device=dev)
+    if kind == "broadcast":
+        grad = torch.ones((), device=dev).expand(n_bins)
+        assert grad.stride(0) == 0
+
+    def run():
+        if soft:
+            return soft_histogram_bwd(energy, time, hit, grad, n_bins, 1e-3)
+        return (hard_histogram_bwd(time, hit, grad, n_bins, 1e-3),)
+
+    k = run()
+    for x, y in zip(k, run()):
+        assert same_bits(x, y)
+    if soft:
+        for x, p in zip(k, soft_histogram_bwd_plain(energy, time, hit, grad, n_bins, 1e-3)):
+            top = float(p.abs().max()) if p.numel() else 0.0
+            torch.testing.assert_close(x, p, rtol=1e-6, atol=1e-6 * top)
+    else:
+        assert same_bits(k[0], hard_histogram_bwd_plain(time, hit, grad, n_bins, 1e-3))
 
 
 @pytest.mark.parametrize("accel", ["brute", "grid", "octree", "kdtree", "kdtree_ropes"])

@@ -1,8 +1,9 @@
 """Port parity: the soft (tent) histogram and the fixed-order scatter.
 
 Mirrors ``tests/test_trace.py::test_soft_histogram_conserves_and_differentiates``
-on the port's plain versions, and holds them and the scatter-add of the
-gradients against the JAX package on the same NumPy inputs.
+on the port's plain versions, and holds them, the hard histogram's backward
+and the scatter-add of the gradients against the JAX package on the same
+NumPy inputs.
 """
 
 import numpy as np
@@ -17,7 +18,10 @@ import hare_tpu as jh  # noqa: E402
 
 import hare_tpu_torch as th  # noqa: E402
 from hare_tpu_torch.accel.scatter import CHUNK, gather_rows, scatter_add_ordered  # noqa: E402
-from hare_tpu_torch.trace.bounce import soft_histogram_bwd_plain  # noqa: E402
+from hare_tpu_torch.trace.bounce import (  # noqa: E402
+    hard_histogram_bwd_plain,
+    soft_histogram_bwd_plain,
+)
 
 # Bin sums and their gradients: the same f32 products, summed in another
 # order.
@@ -168,6 +172,65 @@ def test_soft_histogram_matches_jax(case):
     # The backward's plain version is what the Function returns on the CPU.
     de, dt = soft_histogram_bwd_plain(e_t, t_t, h_t, torch.from_numpy(weight), n_bins, 1e-3)
     assert np.array_equal(de.numpy(), got[1]) and np.array_equal(dt.numpy(), got[2])
+
+
+# The hard backward's lanes: some dead, times past the window (up to 10 s)
+# and before it, times exactly on bin edges, and odd lane counts.
+HARD_BWD_CASES = ["dead lanes", "past the window", "before the window", "on bin edges",
+                  "odd lane count", "one lane"]
+
+
+def hard_bwd_lanes(rng, case):
+    """``(hit, energy, time, n_bins, bin_dt)`` of a trace record for one
+    case of ``HARD_BWD_CASES``."""
+    shape, n_bins, bin_dt = (3, 400), 64, 1e-3
+    if case == "odd lane count":
+        shape = (3, 333)
+    elif case == "one lane":
+        shape = (1, 1)
+    hit = rng.uniform(size=shape) < (0.5 if case == "dead lanes" else 0.9)
+    energy = rng.uniform(0.1, 1.0, shape).astype(np.float32)
+    time = rng.uniform(0.0, n_bins * bin_dt, shape).astype(np.float32)
+    if case == "past the window":
+        time = np.where(rng.uniform(size=shape) < 0.5, time,
+                        n_bins * bin_dt + rng.uniform(0, 10, shape)).astype(np.float32)
+    elif case == "before the window":
+        time = np.where(rng.uniform(size=shape) < 0.5, time,
+                        -rng.uniform(0, 10, shape)).astype(np.float32)
+    elif case == "on bin edges":
+        bin_dt = 2.0 ** -10  # every k bin_dt exact in f32, and time / bin_dt exactly k
+        time = (rng.integers(-2, n_bins + 3, shape) * bin_dt).astype(np.float32)
+    return hit, energy, time, n_bins, bin_dt
+
+
+@pytest.mark.parametrize("case", HARD_BWD_CASES)
+def test_hard_histogram_bwd_matches_jax(case):
+    """The hard backward's plain version (the gather that K3's backward
+    kernel computes on the card in its hard mode) against ``jax.vjp`` of
+    ``energy_histogram`` w.r.t. the energies, to the bit: each hit lane
+    gets its bin's cotangent, a dead lane +0.0.  The time's cotangent is
+    zero in JAX and absent in the port."""
+    hit, energy, time, n_bins, bin_dt = hard_bwd_lanes(np.random.default_rng(29), case)
+    ct = np.random.default_rng(31).normal(size=n_bins).astype(np.float32)
+    jres, (h_t, e_t, t_t) = traces(hit, energy, time)
+
+    def jhist(e, t):
+        return jh.energy_histogram(jres._replace(energy=e, time=t), n_bins, bin_dt)
+
+    _, vjp = jax.vjp(jhist, jres.energy, jres.time)
+    ge, gt = (np.asarray(x) for x in vjp(jnp.asarray(ct)))
+    got = hard_histogram_bwd_plain(t_t, h_t, torch.from_numpy(ct), n_bins, bin_dt).numpy()
+    assert got.dtype == np.float32 and got.shape == energy.shape
+    assert np.array_equal(got.view(np.uint32), ge.view(np.uint32))
+    assert not np.signbit(got[~hit]).any() and (got[~hit] == 0).all()
+    np.testing.assert_array_equal(gt, 0.0)
+    # Through the port's histogram: the same d(energy), and no d(time).
+    e = e_t.clone().requires_grad_()
+    t = t_t.clone().requires_grad_()
+    th.energy_histogram(th.TraceResult(h_t, e, t, None, None, None), n_bins, bin_dt).backward(
+        torch.from_numpy(ct))
+    assert np.array_equal(e.grad.numpy().view(np.uint32), ge.view(np.uint32))
+    assert t.grad is None
 
 
 def chunk_fold(keys, values, n_keys):

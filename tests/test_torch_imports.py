@@ -16,7 +16,11 @@ from hare_tpu_torch.accel.voxel import grid_shoot  # noqa: E402
 from hare_tpu_torch.benchmarks import pallas_probe  # noqa: E402
 from hare_tpu_torch.kernels import build  # noqa: E402
 from hare_tpu_torch.mesh import shapes  # noqa: E402
-from hare_tpu_torch.trace.bounce import histogram_kernel, soft_histogram_bwd  # noqa: E402
+from hare_tpu_torch.trace.bounce import (  # noqa: E402
+    hard_histogram_bwd,
+    histogram_kernel,
+    soft_histogram_bwd,
+)
 
 # The port's entry points place tensors on "cuda" unless told otherwise;
 # these tests run the plain versions on the CPU.
@@ -129,6 +133,8 @@ def test_wrappers_never_fall_back(room):
         th.energy_histogram(res, 8, soft=True)
     with pytest.raises(ValueError, match="meta"):
         soft_histogram_bwd(e, e, res.hit, torch.ones(8, device=meta), 8, 1e-3)
+    with pytest.raises(ValueError, match="meta"):
+        hard_histogram_bwd(e, res.hit, torch.ones(8, device=meta), 8, 1e-3)
     with pytest.raises(ValueError, match="meta"):
         scatter_add_ordered(torch.zeros(4, dtype=torch.int32, device=meta),
                             torch.ones(4, device=meta), 2)

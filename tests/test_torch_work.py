@@ -255,6 +255,9 @@ def test_gradient_bounds_from_shapes():
     assert soft["ops"] == 3 * 7 and soft["bytes"] == 4 * 9 + 16 * 4
     sb = bounds.soft_histogram_bwd_bound(hit, 16)
     assert sb["ops"] == 3 * 8 and sb["bytes"] == 4 * 17 + 16 * 4
+    # The hard backward: time and hit in, d(energy) out; a division a hit lane.
+    hb = bounds.hard_histogram_bwd_bound(hit, 16)
+    assert hb["ops"] == 3 and hb["bytes"] == 4 * 9 + 16 * 4 and hb["bound_by"] == "bytes"
     # A3: rays 0 and 1 share triangle 1, ray 2 misses (triangle 0); the
     # two triangles share two of their four vertices.
     tri_meta = torch.zeros(3, 8, dtype=torch.int32)
@@ -385,16 +388,16 @@ def test_signatures_match_the_sources(entry):
     assert params[-1][0] == "stream"
 
 
-CALL_CANDIDATES = [(k, *c) for k in ("a3", "k3") for c in kernel_sweep.CANDIDATES[k]]
+CALL_CANDIDATES = [(k, *c) for k in kernel_sweep.CALL_KERNELS for c in kernel_sweep.CANDIDATES[k]]
 
 
 @pytest.mark.parametrize("kernel, label, replacements, flags", CALL_CANDIDATES,
                          ids=[f"{c[0]}-{c[1]}" for c in CALL_CANDIDATES])
 def test_call_sweep_candidates_apply(kernel, label, replacements, flags):
-    """Every design candidate of A3 and K3 is the built source with its
-    statements replaced, each found exactly once, or the built source
-    under nvcc's default FMA contraction; each declares the built entry
-    point's parameters."""
+    """Every design candidate of A3, K3, K2 and K3's backward is the built
+    source with its statements replaced, each found exactly once, or the
+    built source under nvcc's default FMA contraction; each of A3, K2 and
+    the backward declares the built entry point's parameters."""
     from hare_tpu_torch.kernels import build
 
     spec = kernel_sweep.SPECS[kernel]
@@ -404,7 +407,7 @@ def test_call_sweep_candidates_apply(kernel, label, replacements, flags):
     assert flags in (None, kernel_sweep.FMA_FLAGS)
     built = label == kernel_sweep.CANDIDATES[kernel][0][0]
     assert built == (not replacements and flags is None) and not (replacements and flags)
-    if kernel == "a3":
+    if kernel != "k3":
         assert kernel_sweep._c_params(out, spec.entry) == kernel_sweep._c_params(src, spec.entry)
     if replacements:
         with pytest.raises(ValueError):
@@ -426,6 +429,51 @@ def test_k3_sweep_names_every_parameter():
         names = {n for n, _ in kernel_sweep._c_params(out, "hare_energy_histogram")}
         assert names - set(given) == {"stream"}
     assert given["n_counters"] == given["counters"].numel() and not bool(given["counters"].any())
+
+
+# The soft backward's entry point as PR 8's energy_histogram.cu declared
+# it: an older checkout's, which the sweep calls on the soft batches.
+OLDER_SOFT_BWD = """extern "C" int hare_soft_histogram_bwd(const float* energy, const float* time, const bool* hit,
+                                       const float* grad_hist, long long n, int n_bins,
+                                       float bin_dt, float* d_energy, float* d_time,
+                                       void* stream) {"""
+
+
+def test_k2_and_hb_sweeps_name_every_parameter():
+    """The sweep gives K2 and K3's backward every parameter their entry
+    points declare but the stream (the backward's older soft entry point
+    too, in its place for an older checkout), and hands back the outputs
+    they name: K2's nine fields of one record, the backward's d(energy)
+    (hard) or d(energy) and d(time) (soft); an older entry point runs the
+    soft batches only, the torch glue the hard ones only."""
+    from hare_tpu_torch.kernels import build
+    from hare_tpu_torch.trace.bounce import hard_histogram_bwd_plain
+
+    sc = th.Topology.build(shapes.shoebox(4, 5, 3)).scene(device=CPU)
+    rays = th.Ray.make(torch.zeros(5, 3), torch.ones(5, 3))
+    given, out = kernel_sweep.k2_given(sc, rays, torch.ones(5), torch.zeros(5, dtype=torch.int32))
+    spec = kernel_sweep.SPECS["k2"]
+    names = {n for n, _ in kernel_sweep._c_params((build.CSRC / spec.source).read_text(),
+                                                  spec.entry)}
+    assert names - set(given) == {"stream"} and len(out) == 9
+    assert [given[k] for k in ("hit", "t", "point", "nbr")] == [out[0], out[1], out[4], out[8]]
+    lanes = (torch.rand(10), torch.rand(10), torch.rand(10) < 0.5)
+    grad = torch.ones(()).expand(16)
+    spec = kernel_sweep.SPECS["hb"]
+    params = kernel_sweep._c_params((build.CSRC / spec.source).read_text(), spec.entry)
+    older = kernel_sweep._c_params(OLDER_SOFT_BWD + "}", spec.older)
+    for soft in (False, True):
+        given, out = kernel_sweep.hb_given(lanes, grad, 16, 1e-3, soft)
+        assert given["grad_stride"] == 0 and given["soft"] == int(soft)
+        assert {n for n, _ in params} - set(given) == {"stream"}
+        assert {n for n, _ in older} - set(given) == {"stream"}
+        assert out == ((given["d_energy"], given["d_time"]) if soft else (given["d_energy"],))
+        assert kernel_sweep._takes(params, given)
+        assert kernel_sweep._takes(older, given) == soft
+        assert kernel_sweep._takes(None, given) == (not soft)
+    (glue,) = kernel_sweep._glue(given)
+    assert torch.equal(glue, hard_histogram_bwd_plain(lanes[1], lanes[2], grad, 16, 1e-3))
+    assert kernel_sweep._takes(params, kernel_sweep.k3_given(lanes, 16, 1e-3, False)[0])
 
 
 @pytest.mark.parametrize("label, replacements", a3_check.FAULTS,
