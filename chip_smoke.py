@@ -20,7 +20,9 @@ per-polygon absorption, on the card.  Phases, one line each:
    side with K1 at least as often as with B1), with the cells and triangle slots its
    march visits (``voxel.grid_work``), its bound and its share of it, and
    the wrapper's host cost per call; K2, K3 and K3's backward in its hard
-   mode (bit-equal to the torch glue it replaced);
+   mode (bit-equal to the torch glue it replaced), K3 and its backward
+   beside their one-call PyTorch yardsticks on bins computed once
+   (``torch.bincount``, the gather ``grad_h[bins]``);
 4. the main path end to end, with its launch counts and invariants;
 5. forward and forward+backward step times, Mrays/s, and where one step's
    device time goes (idle share of the card, kernels a step);
@@ -28,7 +30,12 @@ per-polygon absorption, on the card.  Phases, one line each:
    P2-P4 ``gather_sum``) through the port's probes
    (``hare_tpu_torch.benchmarks``) at the JAX probes' shapes: each probe
    driven once with its launch count, each kernel against its plain
-   version, time per call and on the device, ns per gathered row and GB/s.
+   version and against itself over two calls (to the bit), time per call
+   and on the device (P2-P4: both passes, the row sums and the windows),
+   GB/s (P2-P4: of the bytes a call moves, the table once, the row sums
+   written and read once, indices and sums), and for the float tables
+   the yardstick ``embedding_bag`` over the windows, then a sum (two
+   calls).
 7. the other backends: the host builds of the octree, KD tree and rope
    tree; B1 ``brute_shoot``, B2 ``tree_shoot`` and B3 ``ropes_shoot``
    against their plain versions, bit-equal, at each path's full width (B2
@@ -45,7 +52,8 @@ per-polygon absorption, on the card.  Phases, one line each:
    Mrays/s, idle shares and kernels a step; on config 3, K2 on each
    bounce's 1M rays and K3's hard backward on its 3M lanes against their
    plain versions on the card, and K2's time a call inside the step beside
-   its bound; stack against ropes.
+   its bound; K3 hard and its backward on config 3's 3M lanes beside their
+   yardsticks; stack against ropes.
 8. vertex gradients and the soft histogram: A3 ``finalize_hits_bwd`` on
    the rays of each bench bounce against its plain version (autograd
    through the triangle test), element by element; the fixed-order
@@ -102,6 +110,10 @@ SOFT_BWD_REL_TOL = 1e-6
 # What the profiler's names of K3's forward kernels hold: hist_rows_kernel
 # (hard and soft instances) and hist_fold_kernel, each launched once a call.
 K3_TAG = "hist_"
+# What the profiler's names of gather_sum's two kernels hold: a
+# gather_sum_rows_* kernel (pass 1, by the table's width) and
+# gather_sum_windows, each launched once a call.
+GATHER_TAG = "gather_sum_"
 # The small-input reference: the plain versions on the CPU, which the CPU
 # tests hold against the JAX package.  Summed energies and gradients over
 # thousands of lanes, in another order.
@@ -174,9 +186,51 @@ def kernel_ms(per_name_ms, tag):
     return sum(ms for name, ms in per_name_ms.items() if tag in name)
 
 
+def hist_yardsticks(label, energy, time, hit, g_bins, n_bins):
+    """The one-call PyTorch yardsticks of K3's hard forward and its
+    backward on the same lanes, each on bins computed once outside the
+    timed call (K3's bins; dead lanes weigh 0, or read a zero past the last
+    bin): ``torch.bincount(bins, weights, minlength=n_bins)`` beside K3,
+    held within ``HIST_REL_TOL`` of the total, and the gather
+    ``grad_h[bins]`` beside the hard backward, held to the bit.  Prints one
+    line; returns ``(bincount, gather)``, each ``(ms per call, device ms)``."""
+    from hare_tpu_torch.trace import bounce
+
+    energy, time, hit = energy.detach(), time.detach(), hit
+    bins = bounce._bins(time, n_bins, BIN_DT)
+    b_hit = torch.where(hit, bins, 0).reshape(-1)
+    w_hit = torch.where(hit, energy, 0.0).reshape(-1)
+    b_pad = torch.where(hit, bins, n_bins).reshape(-1)
+    g_pad = torch.cat([g_bins, g_bins.new_zeros(1)])
+
+    def count():
+        return torch.bincount(b_hit, w_hit, minlength=n_bins)
+
+    def gather():
+        return g_pad[b_pad]
+
+    hist = bounce.histogram_kernel(energy, time, hit, n_bins, BIN_DT)
+    total = float(hist.double().sum())
+    count_err = float((count().double() - hist.double()).abs().max())
+    check(count_err <= HIST_REL_TOL * total,
+          f"{label}: torch.bincount differs from K3 by {count_err} of total {total}")
+    check(same_floats(gather(), bounce.hard_histogram_bwd(time, hit, g_bins, n_bins,
+                                                          BIN_DT).reshape(-1)),
+          f"{label}: the gather differs from the hard backward")
+    out = tuple((cuda_time(fn, 50), all_kernels_ms(fn, 10)) for fn in (count, gather))
+    print(f"phase {label} yardsticks ({hit.numel()} lanes, {n_bins} bins, bins computed once): "
+          f"torch.bincount(bins, weights, minlength) {out[0][0]:.4f} ms per call "
+          f"({out[0][1]:.5f} ms on the device; max |diff| from K3 {count_err:.3e}); the hard "
+          f"backward's gather grad_h[bins] {out[1][0]:.4f} ms per call ({out[1][1]:.5f} ms on "
+          f"the device; bit-equal to the kernel)")
+    return out
+
+
 def gather_phase(label, tab, idx, iters, out_dtype, call_ms):
-    """Hold ``gather_sum`` against its plain version on one probe's inputs,
-    time both, print one line; returns the probe's measurements."""
+    """Hold ``gather_sum`` against its plain version on one probe's inputs
+    and against itself over two calls, time both and, for a float table,
+    the yardstick (``embedding_bag`` over the windows, then a sum: two
+    calls); print one line; returns the probe's measurements."""
     from hare_tpu_torch.benchmarks import bounds
     from hare_tpu_torch.benchmarks import pallas_probe as pp
 
@@ -187,26 +241,49 @@ def gather_phase(label, tab, idx, iters, out_dtype, call_ms):
     else:
         check(pp.sums_agree(k, p, pp.gather_sum_plain(tab.abs(), idx, iters)),
               f"{label}: gather_sum differs from its plain version beyond the f32 bound")
+    check(torch.equal(k.view(torch.int32), pp.gather_sum(tab, idx, iters, out_dtype).view(
+        torch.int32)), f"{label}: two gather_sum calls differ")
     err = float((k.double() - p.double()).abs().max())
-    dev_ms = launch_ms(lambda: pp.gather_sum(tab, idx, iters, out_dtype), 10, "gather_rows")
+    # Both passes, the row sums and the windows: each kernel's name holds
+    # GATHER_TAG, and each is launched once a call.
+    dev_ms = launch_ms(lambda: pp.gather_sum(tab, idx, iters, out_dtype), 10, GATHER_TAG)
     def plain():
         return pp.gather_sum_plain(tab, idx, iters, out_dtype)
 
     plain_ms = cuda_time(plain, 5)
     plain_dev_ms = all_kernels_ms(plain, 3)
+    library_ms = library_dev_ms = None
+    lib_note = ""
+    if tab.dtype == torch.float32:
+        # The windows' row indices, built once outside the timed calls.
+        windows = (idx.to(torch.int64)[:, None] + torch.arange(iters, device=tab.device)) % (
+            tab.shape[0])
+
+        def library():
+            return torch.nn.functional.embedding_bag(windows, tab, mode="sum").sum(1)
+
+        lib_err = float((library().double() - p.double()).abs().max())
+        library_ms, library_dev_ms = cuda_time(library, 20), all_kernels_ms(library, 10)
+        lib_note = (f"; embedding_bag(windows, tab, mode='sum').sum(1) (two calls) "
+                    f"{library_ms:.4f} ms per call ({library_dev_ms:.4f} ms on the device, "
+                    f"max |diff| from the plain version {lib_err:.3e})")
     b = bounds.gather_sum_bound(tab, idx, iters, k.dtype)
-    rows = idx.shape[0] * iters
-    gbs = rows * tab.shape[1] * tab.element_size() / (dev_ms * 1e-3) / 1e9
-    ns_dev = dev_ms * 1e6 / rows
+    # The bytes a call moves: the table once, the row sums written and read
+    # once, the indices in and the sums out.
+    moved = (tab.numel() * tab.element_size() + 2 * tab.shape[0] * 4
+             + idx.numel() * (4 + k.element_size()))
+    gbs = moved / (dev_ms * 1e-3) / 1e9
     print(f"phase 6 {label} {tuple(tab.shape)} {str(tab.dtype)[6:]}, {idx.shape[0]} rows x "
-          f"{iters}: max |diff| {err:.3e}; kernel {call_ms:.4f} ms per call ({dev_ms:.4f} ms "
-          f"on the device: {ns_dev:.4f} ns per gathered row, {gbs:.1f} GB/s of rows), "
-          f"plain {plain_ms:.4f} ms ({plain_dev_ms:.4f} ms on the device); bound "
-          f"{b['bound_ms']:.4f} ms ({b['bound_by']}: {b['bytes'] / 1e6:.2f} MB of distinct rows, "
-          f"indices and sums), {b['bound_ms'] / dev_ms:.1%} of it")
+          f"{iters}: max |diff| {err:.3e}, two calls bitwise equal; kernel {call_ms:.4f} ms per "
+          f"call ({dev_ms:.4f} ms on the device, both passes: {moved / 1e6:.2f} MB moved, "
+          f"{gbs:.1f} GB/s), plain {plain_ms:.4f} ms ({plain_dev_ms:.4f} ms on "
+          f"the device){lib_note}; bound {b['bound_ms']:.4f} ms ({b['bound_by']}: "
+          f"{b['bytes'] / 1e6:.2f} MB of distinct rows, indices and sums), "
+          f"{b['bound_ms'] / dev_ms:.1%} of it")
     return dict(ms=call_ms, device_ms=dev_ms, plain_ms=plain_ms, plain_device_ms=plain_dev_ms,
-                max_abs_err=err, ns_per_row=ns_dev, gbs=gbs, bound_ms=b["bound_ms"],
-                bound_by=b["bound_by"], library_ms=None)
+                max_abs_err=err, gbs=gbs, bound_ms=b["bound_ms"],
+                bound_by=b["bound_by"], library_ms=library_ms, library_device_ms=library_dev_ms,
+                library="embedding_bag + sum (two calls)" if library_ms is not None else None)
 
 
 def probe_phase(dev):
@@ -704,6 +781,15 @@ def backends_phase(dev, top, grid_sp, rays, batches, absorption, grid_hist):
           "K3's hard backward differs from its plain version on config 3")
     check(same_floats(hb3, bounce.hard_histogram_bwd(*lanes3)),
           "K3's hard backward on config 3: two launches differ")
+    # K3 hard and its backward on the same lanes, each on its own and beside
+    # its one-call yardstick (warm: the lanes' 27 MB sit in the 50 MB L2).
+    k3_dev3 = launch_ms(lambda: bounce.histogram_kernel(res3.energy.detach(), *lanes3[:2],
+                                                        N_BINS, BIN_DT), 10, K3_TAG)
+    hb_dev3 = launch_ms(lambda: bounce.hard_histogram_bwd(*lanes3), 10, "hard_bwd_kernel")
+    (_, cnt_dev3), (_, gat_dev3) = hist_yardsticks("7 config 3", res3.energy, res3.time,
+                                                   res3.hit, g3_bins, N_BINS)
+    print(f"phase 7 config 3 K3 hard {k3_dev3:.5f} ms on the device against torch.bincount "
+          f"{cnt_dev3:.5f}; the hard backward {hb_dev3:.5f} against the gather {gat_dev3:.5f}")
     print(f"phase 7 config 3 checks: K2 on each of the {N_BOUNCES} bounces' {r3.origin.shape[0]} "
           f"rays: ids equal to its plain version's, floats within {RTOL:g} (max |diff| "
           f"{k2_err3:.3e}); K3's hard backward on {res3.hit.numel()} lanes bit-equal to its plain "
@@ -1259,6 +1345,9 @@ def main():
     plain_ms = cuda_time(
         lambda: bounce.histogram_plain(res.energy, res.time, res.hit, N_BINS, BIN_DT), 100)
     bnd = bounds.histogram_bound(res.hit, N_BINS)
+    g_bins = torch.randn(N_BINS, generator=torch.Generator().manual_seed(3)).to(dev)
+    (lib_ms, lib_dev_ms), (glib_ms, glib_dev_ms) = hist_yardsticks(
+        "3 K3", res.energy, res.time, res.hit, g_bins, N_BINS)
     print(f"phase 3 K3 energy_histogram: max |diff| / total {k3_err / total:.3e}, two "
           f"launches bitwise equal; "
           f"kernel {ms:.4f} ms per call ({dev_ms:.4f} ms on the device), "
@@ -1268,11 +1357,12 @@ def main():
                         source="hare_tpu_torch/kernels/csrc/energy_histogram.cu",
                         replaces="hare_tpu/trace/bounce.py:294", max_abs_err=k3_err,
                         ms=ms, plain_ms=plain_ms, bound_ms=bnd["bound_ms"],
-                        bound_by=bnd["bound_by"], library_ms=None, device_ms=dev_ms))
+                        bound_by=bnd["bound_by"], library_ms=lib_ms, device_ms=dev_ms,
+                        library="torch.bincount on bins computed once",
+                        library_device_ms=lib_dev_ms))
 
     # K3's backward, hard mode, on the same lanes from a seeded gradient of
     # the bins: bit-equal to the torch glue it replaced (its plain version).
-    g_bins = torch.randn(N_BINS, generator=torch.Generator().manual_seed(3)).to(dev)
 
     def hb():
         return bounce.hard_histogram_bwd(res.time, res.hit, g_bins, N_BINS, BIN_DT)
@@ -1296,7 +1386,9 @@ def main():
                         source="hare_tpu_torch/kernels/csrc/energy_histogram.cu",
                         replaces="hare_tpu/trace/bounce.py:294", max_abs_err=0.0, ms=ms,
                         plain_ms=plain_ms, bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"],
-                        library_ms=None, device_ms=dev_ms, plain_device_ms=plain_dev_ms))
+                        library_ms=glib_ms, device_ms=dev_ms, plain_device_ms=plain_dev_ms,
+                        library="grad_h[bins] on bins computed once",
+                        library_device_ms=glib_dev_ms))
 
     # ---- phase 4: the main path end to end, counted.
     counters = (voxel.grid_shoot, common.finalize_hits, th.energy_histogram,

@@ -1,12 +1,13 @@
 """Design candidates of the port's kernels, side by side on one GPU.
 
-    python -m hare_tpu_torch.benchmarks.kernel_sweep [--kernels k1,b1,b2,b3,a3,k3,k2,hb]
+    python -m hare_tpu_torch.benchmarks.kernel_sweep [--kernels k1,b1,b2,b3,a3,k3,k2,hb,gs]
         [--parent DIR] [--reps N]
 
 Each candidate is a kernel's built source (``kernels/csrc/grid_shoot.cu``
 K1, ``brute_shoot.cu`` B1, ``tree_shoot.cu`` B2, ``ropes_shoot.cu`` B3,
 ``finalize_bwd.cu`` A3, ``energy_histogram.cu`` K3 and its backward HB,
-``finalize_hits.cu`` K2) with a few statements
+``finalize_hits.cu`` K2, ``gather_probe.cu``'s P2-P4 ``gather_sum`` GS)
+with a few statements
 replaced (``CANDIDATES``: lanes per ray G, threads per block, one group per
 ray instead of the persistent launch, B2's stack in the group's registers,
 K1's next cell's meta loaded before this cell's test, B1's rays a thread
@@ -16,14 +17,18 @@ groups' sums, its fold's loads, and the fold in the same launch, by the
 last blocks to finish or behind a cooperative grid-wide barrier, in place
 of the second launch; K2's block size; HB's block sizes, the lane count
 from which a thread takes four lanes, and its four lanes moved one at a
-time), or built with nvcc's default FMA contraction
+time; GS in one launch for narrow rows, its rows of 2 elements a thread
+a row, its windows' lanes an output, the windows read as 16-byte
+words, and its row groups' lanes), or built with
+nvcc's default FMA contraction
 (``-fmad=true``); the sources themselves stay as built.  With ``--parent``,
 the same kernel of another checkout of the repository is one more
 candidate, built with that checkout's flags and called through the
 parameters its own entry point declares (an older checkout's soft
 backward, ``hare_soft_histogram_bwd``, on the soft batches only).  HB's
 hard batches also run the torch glue that was the hard backward before it
-had a kernel (``trace.bounce.hard_histogram_bwd_plain``).  Each is
+had a kernel (``trace.bounce.hard_histogram_bwd_plain``), and GS's float
+tables the yardstick ``embedding_bag`` + ``sum``.  Each is
 compiled by its own
 ``nvcc -Xptxas -v`` (registers and spills are printed), all at once, into
 a shared library loaded with ctypes; a candidate that does not compile is
@@ -42,24 +47,28 @@ bins) and eval config 3 (the concert hall, octree, 1M rays, 3 bounces:
 3,000,000 lanes, 1024 bins); K2 on the rays and winners of each bounce of
 the bench (3, grid), eval config 4 (2, SAH KD tree) and eval config 3 (3,
 octree, 1M rays); HB on the bench's lanes (hard and soft), config 4's
-(soft) and config 3's (hard), with a seeded gradient of the bins.
+(soft) and config 3's (hard), with a seeded gradient of the bins; GS on
+the JAX probes' inputs, P2, P3 and each of P4's three calls.
 Every candidate is checked against the built kernel on each batch: a
 traversal bit-equal, pops or steps included, where it is built with the
 same flags (otherwise the rays that differ are counted); A3 bit-equal on
 every output element where built with the same flags, a parent's
-included; K2 and HB the same, the torch glue included; K3 within
+included; K2 and HB the same, the torch glue included; GS's int32 sums
+equal and its float sums within ``pallas_probe.sums_agree``; K3 within
 ``HIST_REL_TOL`` of the histogram's total (its bits depend on the
 chunking), its bins that differ counted; A3, K2, K3 and HB also bitwise
 equal over two launches; the elements that differ from the parent (or the
 glue) are reported.  Each is timed on the device with torch.profiler
 (every kernel a call launches: K3 is two, the glue several, and the
-kernels a call are reported), in the order A B ... B A per batch, so that
-every candidate is measured before and after the others.  Config 3's
-inputs (27-89 MB a call) fit in the card's 50 MB L2 and stay there from
-call to call, so its cases are also timed with L2 flushed before each call
-(a 256 MB buffer rewritten, its kernel not counted): the time against
-which the bound, bytes from memory, is a bound.  Prints one line per case,
-candidate and batch, then all of it as one JSON line.
+kernels a call are reported; GS's two passes also apart), in the order
+A B ... B A per batch, so that every candidate is measured before and
+after the others.  Config 3's inputs (27-89 MB a call) and GS's tables
+(to 50 MB) fit in the card's 50 MB L2 and stay there from call to call,
+so those cases are also timed with L2 flushed before each call (a 256 MB
+buffer rewritten, its kernel not counted), and after a read of the same
+buffer, which leaves no dirty lines for the call to write back: the times
+against which the bound, bytes from memory, is a bound.  Prints one line
+per case, candidate and batch, then all of it as one JSON line.
 """
 
 from __future__ import annotations
@@ -80,8 +89,8 @@ from ..kernels import build
 from .bench_scene import (N_BOUNCES, N_RAYS, bench_setup, bounce_rays, device_ms,
                           profile_kernels)
 
-__all__ = ["CANDIDATES", "FMA_FLAGS", "GLUE", "HIST_REL_TOL", "SPECS", "hb_given", "k2_given",
-           "k3_given", "variant_source"]
+__all__ = ["CANDIDATES", "FMA_FLAGS", "GLUE", "HIST_REL_TOL", "SPECS", "YARDSTICK", "gs_cases",
+           "gs_given", "hb_given", "k2_given", "k3_given", "variant_source"]
 
 BIN_DT = 1e-3  # the bench's and eval configs' bin width (s)
 
@@ -93,9 +102,18 @@ FMA_FLAGS = tuple(f for f in build.NVCC_FLAGS if f != "-fmad=false")
 HIST_REL_TOL = 1e-5
 # The hard backward as torch ops, a candidate of HB's hard batches.
 GLUE = "torch glue (the parent's hard backward)"
+# GS's yardstick on its float tables, a candidate of those batches.
+YARDSTICK = "embedding_bag + sum (two torch calls)"
 # Bytes rewritten before each flushed call, five times the H100's L2, and
-# the name of the kernel that rewrites them (left out of the times).
+# the name of the kernel that rewrites them (left out of the times).  The
+# rewrite leaves L2 full of dirty lines, which the call's own reads then
+# write back to memory; so flushed cases are also timed after a read of the
+# same bytes (``flush.sum()``, its kernels left out too), which leaves L2
+# full of clean lines: "read-flushed".
 FLUSH_BYTES, FLUSH_TAG = 256 << 20, "bitwise_not"
+# A kernel's parts, timed apart by the names of their kernels: (label, what
+# the names hold).
+PARTS = {"gs": (("pass 1", "gather_sum_rows"), ("pass 2", "gather_sum_windows"))}
 # The kernels held bit-equal to the built one, a parent's and the glue
 # included, where built with the same flags.
 BIT_EQUAL = ("a3", "k2", "hb")
@@ -107,6 +125,9 @@ class Spec(NamedTuple):
     tag: str  # the device kernel's name, as the profiler records it
     args: Tuple[str, ...]  # C names of what the wrapper's *_args function returns
     older: str = ""  # the entry point an older checkout declares in its place
+    # Further entry points of the source with the entry's parameters, which
+    # a batch picks by name (``given["entry"]``).
+    others: Tuple[str, ...] = ()
 
 
 SPECS = {
@@ -129,8 +150,10 @@ SPECS = {
     "k3": Spec("energy_histogram.cu", "hare_energy_histogram", "", ()),
     "k2": Spec("finalize_hits.cu", "hare_finalize_hits", "", ()),
     "hb": Spec("energy_histogram.cu", "hare_histogram_bwd", "", (), "hare_soft_histogram_bwd"),
+    "gs": Spec("gather_probe.cu", "hare_gather_sum_f32", "", (), "",
+               ("hare_gather_sum_i32", "hare_gather_sum_i32_f32")),
 }
-CALL_KERNELS = ("a3", "k3", "k2", "hb")
+CALL_KERNELS = ("a3", "k3", "k2", "hb", "gs")
 
 
 def _one_group_per_ray(kernel: str, smem: str) -> Tuple[str, str]:
@@ -432,6 +455,109 @@ _K3_FOLD_AT_ONCE = ((
 _HB_WIDE = "kWideMin = 1 << 20;"
 _HB_VEC = ("if (vec && i0 + LANES <= n) {", "if (false && vec && i0 + LANES <= n) {")
 
+# GS in one launch for narrow rows: a group of lanes an output, each lane
+# summing rows i = l, l + g, ... of its window straight from the table (each
+# row as pass 1 sums it: words or elements from 0 in order), then pass 2's
+# fold; the same adds as the two passes, without the row sums' scratch.
+_GS_ONE_PASS = (
+    ("unsigned blocks_for(long long threads) {", """template <typename T, typename A, typename Out>
+__global__ void __launch_bounds__(kThreads)
+gather_sum_one_pass(const T* __restrict__ tab, unsigned n, int width, const int* __restrict__ idx,
+                    int n_out, int iters, int g, Out* __restrict__ out) {
+  using V = typename Vec4<T>::type;
+  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long r = t / g;
+  const int lane = static_cast<int>(t % g);
+  unsigned k = (wrap_start(__ldg(idx + (r < n_out ? r : 0)), n) + lane) % n;
+  const unsigned step = static_cast<unsigned>(g) % n;
+  A acc = 0;
+#pragma unroll 4
+  for (int i = lane; i < iters; i += g) {
+    A row = 0;
+    if (width % 4 == 0) {
+      const V* words = reinterpret_cast<const V*>(tab) + static_cast<size_t>(k) * (width / 4);
+      for (int v = 0; v < width / 4; ++v) row += word_sum<A>(__ldg(words + v));
+    } else {
+      for (int j = 0; j < width; ++j) row += term<A>(__ldg(tab + static_cast<size_t>(k) * width + j));
+    }
+    acc += row;
+    k += step;
+    if (k >= n) k -= n;
+  }
+  acc = fold_group(acc, g);
+  if (r < n_out && lane == 0) out[r] = static_cast<Out>(acc);
+}
+
+unsigned blocks_for(long long threads) {"""),
+    ("""  if (iters > 0) {
+    row_sums<T, A>(tab, n, width, sums, s);""", """  if (width <= 2 || width == 4 || width == 8) {
+    const int g1 = window_lanes(n_out, iters);
+    gather_sum_one_pass<T, A, Out><<<blocks_for(static_cast<long long>(n_out) * g1), kThreads, 0,
+                                     s>>>(tab, static_cast<unsigned>(n), width, idx, n_out, iters,
+                                          g1, out);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (iters > 0) {
+    row_sums<T, A>(tab, n, width, sums, s);"""),
+)
+# GS's pass 1 on rows of 2 elements (P3, P4's meta) by the path of other
+# widths, a thread a row adding its elements one load at a time.
+_GS_PAIR = ("  } else if (width == 2) {", "  } else if (false) {")
+# GS's pass 2 with one thread an output, adding its window in i order.
+_GS_LANES = ("  while (g < 32 && g < iters &&", "  while (false && g < 32 && g < iters &&")
+# GS's pass 2 lanes an output by another rule: up to 4 row sums a lane and
+# groups to fill the whole card (the first rule measured), or up to 16 and
+# a quarter of the card.
+_GS_RULE = "(8LL * g < iters || static_cast<long long>(n_out) * g < 66LL * 2048)"
+_GS_WHOLE = (_GS_RULE, "(4LL * g < iters || static_cast<long long>(n_out) * g < 132LL * 2048)")
+_GS_QUARTER = (_GS_RULE, "(16LL * g < iters || static_cast<long long>(n_out) * g < 33LL * 2048)")
+# GS's pass 1 with groups of at most 8 lanes a row: more words a lane, and
+# a grid that fits on the card at once for P2 and P4's window rows.
+_GS_ROW_LANES = ("(nv & -nv) < 32 ? (nv & -nv) : 32;", "(nv & -nv) < 8 ? (nv & -nv) : 8;")
+# GS's pass 2 reading the row sums as 16-byte words: lane l of a group takes
+# the aligned words l, l + g, ... that cover a window that does not wrap,
+# adding the elements inside it in order (the scratch is padded to a whole
+# word; the sweep allocates it so); a window that wraps is read as before.
+_GS_WORDS = (
+    ("template <> struct Vec4<int> { using type = int4; };",
+     "template <> struct Vec4<int> { using type = int4; };\n"
+     "template <> struct Vec4<unsigned> { using type = uint4; };"),
+    ("""  unsigned k = (wrap_start(__ldg(idx + (r < n_out ? r : 0)), n) + lane) % n;
+  const unsigned step = static_cast<unsigned>(g) % n;
+  A acc = 0;
+#pragma unroll 4
+  for (int i = lane; i < iters; i += g) {
+    acc += __ldg(sums + k);
+    k += step;
+    if (k >= n) k -= n;
+  }
+""", """  const unsigned w0 = wrap_start(__ldg(idx + (r < n_out ? r : 0)), n);
+  A acc = 0;
+  if (static_cast<long long>(w0) + iters <= n) {
+    const auto* words = reinterpret_cast<const typename Vec4<A>::type*>(sums);
+    const unsigned end = w0 + static_cast<unsigned>(iters);
+#pragma unroll 2
+    for (unsigned q = w0 / 4 + lane; 4 * q < end; q += g) {
+      const auto x = __ldg(words + q);
+      const unsigned e = 4 * q;
+      if (e >= w0) acc += x.x;
+      if (e + 1 >= w0 && e + 1 < end) acc += x.y;
+      if (e + 2 >= w0 && e + 2 < end) acc += x.z;
+      if (e + 3 >= w0 && e + 3 < end) acc += x.w;
+    }
+  } else {
+    unsigned k = (w0 + lane) % n;
+    const unsigned step = static_cast<unsigned>(g) % n;
+    for (int i = lane; i < iters; i += g) {
+      acc += __ldg(sums + k);
+      k += step;
+      if (k >= n) k -= n;
+    }
+  }
+"""),
+    ("  const int g = window_lanes(n_out, iters);", "  const int g = window_lanes(n_out, (iters + 3) / 4 + 1);"),
+)
+
 # kernel -> ((label, (old, new) replacements applied in order, each old text
 # occurring exactly once; nvcc flags, None for the built ones), ...); the
 # first candidate of each is the built source.
@@ -492,6 +618,16 @@ CANDIDATES = {
         ("block 64", (("constexpr int kBlock = 128;", "constexpr int kBlock = 64;"),), None),
         ("block 256", (("constexpr int kBlock = 128;", "constexpr int kBlock = 256;"),), None),
         ("block 128 -fmad=true", (), FMA_FLAGS),
+    ),
+    "gs": (
+        ("two passes (built)", (), None),
+        ("rows of 2 elements a thread a row, element by element", (_GS_PAIR,), None),
+        ("one pass for rows of 1, 2, 4 or 8 elements", _GS_ONE_PASS, None),
+        ("windows one thread an output, in i order", (_GS_LANES,), None),
+        ("windows up to 4 row sums a lane, the whole card", (_GS_WHOLE,), None),
+        ("windows up to 16 row sums a lane, a quarter of the card", (_GS_QUARTER,), None),
+        ("windows read as 16-byte words", _GS_WORDS, None),
+        ("rows of over 4 words at most 8 lanes a row", (_GS_ROW_LANES,), None),
     ),
     "hb": (
         ("1 lane a thread below 2^20 lanes, 4 above (built)", (), None),
@@ -556,10 +692,12 @@ class Variant(NamedTuple):
 
 
 def _build(entry: str, variants: List[Variant], out_dir: Path, prefix: str,
-           leave_out_failed: bool = False):
+           leave_out_failed: bool = False, others: Tuple[str, ...] = ()):
     """Compile every variant into its own shared library, all nvcc
-    processes at once; returns ``{label: (C function, C parameters, ptxas
-    report)}``.  A variant that does not compile raises, or, with
+    processes at once; returns ``{label: (C functions, C parameters, ptxas
+    report)}``, the C functions a dict keyed by ``entry`` and ``others``
+    (the variant's own entry point under ``entry``), the parameters
+    ``entry``'s.  A variant that does not compile raises, or, with
     ``leave_out_failed``, is printed and left out."""
     nvcc = build._nvcc()
     procs = []
@@ -579,14 +717,17 @@ def _build(entry: str, variants: List[Variant], out_dir: Path, prefix: str,
                 raise RuntimeError(msg)
             print(f"sweep left out: {msg}")
             continue
-        fn = getattr(ctypes.CDLL(str(lib)), v.entry or entry)
+        loaded = ctypes.CDLL(str(lib))
+        fns = {}
+        for key, name in ((entry, v.entry or entry), *((o, o) for o in others)):
+            fns[key] = getattr(loaded, name)
+            fns[key].argtypes = [t for _, t in _c_params(v.text, name)]
+            fns[key].restype = ctypes.c_int
         params = _c_params(v.text, v.entry or entry)
-        fn.argtypes = [t for _, t in params]
-        fn.restype = ctypes.c_int
         # Registers and spills of each instance (watertight and MT, each K).
         report = [line.replace("ptxas info    :", "").strip() for line in err.splitlines()
                   if "registers" in line or "spill" in line]
-        out[v.label] = (fn, params, report)
+        out[v.label] = (fns, params, report)
     return out
 
 
@@ -685,8 +826,46 @@ def hb_given(lanes, grad_hist, n_bins: int, bin_dt: float, soft: bool):
     d_energy, d_time = torch.empty_like(energy), torch.empty_like(energy)
     given = dict(energy=energy, time=time, hit=hit, grad_hist=grad_hist,
                  grad_stride=grad_hist.stride(0), n=energy.numel(), n_bins=n_bins, bin_dt=bin_dt,
-                 soft=int(soft), d_energy=d_energy, d_time=d_time)
+                 soft=int(soft), d_energy=d_energy, d_time=d_time, torch=not soft)
     return given, (d_energy, d_time) if soft else (d_energy,)
+
+
+def gs_given(tab, idx, iters: int, out_dtype, abs_terms=None):
+    """GS's parameters on a table and its indices, with fresh row-sum
+    scratch (padded to whole 16-byte words, which one candidate reads) and
+    sums, the entry point of the (table, sum) type pair and,
+    for a float table, the windows' row indices of the yardstick and the
+    sums of the terms' magnitudes (``abs_terms``) that the check bounds
+    with: ``(given, (out,))``."""
+    from .pallas_probe import _GATHER_ENTRIES
+
+    out = torch.empty(idx.shape[0], dtype=out_dtype, device=tab.device)
+    given = dict(tab=tab, n=tab.shape[0], width=tab.shape[1], idx=idx, n_out=idx.shape[0],
+                 iters=iters, sums=torch.empty(-(-tab.shape[0] // 4) * 4, dtype=out_dtype,
+                                               device=tab.device),
+                 out=out, entry=_GATHER_ENTRIES[(tab.dtype, out_dtype)], abs_terms=abs_terms,
+                 torch=tab.dtype == torch.float32)
+    if given["torch"]:
+        given["windows"] = (idx.to(torch.int64)[:, None]
+                            + torch.arange(iters, device=tab.device)) % tab.shape[0]
+    return given, (out,)
+
+
+def _yardstick(given):
+    """GS's function in two torch calls: the windows' rows summed by
+    ``embedding_bag``, then each bag's columns."""
+    return (torch.nn.functional.embedding_bag(given["windows"], given["tab"], mode="sum").sum(1),)
+
+
+def _gather_agrees(got: torch.Tensor, ref: torch.Tensor, given) -> bool:
+    """A GS candidate against the built kernel: int32 sums equal, float
+    sums within ``pallas_probe.sums_agree`` (small integers summed in
+    float32 are exact either way)."""
+    from .pallas_probe import sums_agree
+
+    if got.dtype == torch.int32 or given["abs_terms"] is None:
+        return torch.equal(got, ref)
+    return sums_agree(got, ref, given["abs_terms"])
 
 
 def _glue(given):
@@ -697,16 +876,41 @@ def _glue(given):
                                      given["n_bins"], given["bin_dt"]),)
 
 
+def gs_cases(dev) -> List[CallCase]:
+    """GS on the JAX probes' inputs, one batch a call: P2, P3 and each of
+    P4's three calls, timed warm and with L2 flushed (P2's 18 MB and P4's
+    50 MB tables sit in the 50 MB L2 from call to call)."""
+    from . import pallas_probe as pp
+    from . import r4_dyngather_probe as r4
+
+    calls = [("P2", *pp.gather_inputs(), 50, torch.float32),
+             ("P3", *pp.meta_gather_inputs(), 50, torch.int32)]
+    for (A, B, dtype, iters, label), name in zip(r4.CALLS, ("P4 meta", "P4 win", "P4 ctx")):
+        tab, idx = r4.probe_inputs(A, B, dtype)
+        calls.append((name, tab, idx.reshape(-1), iters, torch.float32))
+    batches = []
+    for name, tab, idx, iters, out_dtype in calls:
+        tab, idx = torch.from_numpy(tab).to(dev), torch.from_numpy(idx).to(dev)
+        abs_terms = (pp.gather_sum_plain(tab.abs(), idx, iters, torch.float32)
+                     if tab.dtype == torch.float32 else None)
+        batches.append((f"{name} {tuple(tab.shape)} x {iters}",
+                        lambda tab=tab, idx=idx, iters=iters, out_dtype=out_dtype,
+                        abs_terms=abs_terms: gs_given(tab, idx, iters, out_dtype, abs_terms)))
+    return [CallCase("GS probes", "gs", batches, flushed=True)]
+
+
 def _call_cases(dev, kernels) -> List[CallCase]:
     import hare_tpu_torch as th
     from hare_tpu_torch.accel import common, tree, voxel
 
     from . import a3_check, configs
 
+    cases = gs_cases(dev) if "gs" in kernels else []
+    if not {"a3", "k2", "k3", "hb"} & set(kernels):
+        return cases
     _, sp, rays, absorption = bench_setup(dev)
     c4 = configs.config4_setup(dev)
     c3 = configs.config3_setup(dev) if {"k2", "k3", "hb"} & set(kernels) else None
-    cases = []
     if "a3" in kernels:
         def a3_batches(part, shoot, rays_, absorption_, n_bounces, seed0):
             out = []
@@ -790,22 +994,25 @@ def _max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> float:
 
 def _takes(params, given) -> bool:
     """Whether a candidate takes a batch: an entry point without a ``soft``
-    parameter (an older checkout's soft backward) the soft batches only,
-    the torch glue (``params`` None) the hard ones only."""
+    parameter (an older checkout's soft backward) the soft batches only; a
+    torch candidate (``params`` None) the batches that say so
+    (``given["torch"]``: the glue HB's hard batches, the yardstick GS's
+    float tables)."""
+    if params is None:
+        return given.get("torch", False)
     if "soft" not in given:
         return True
-    if params is None:
-        return given["soft"] == 0
     return given["soft"] == 1 or any(name == "soft" for name, _ in params)
 
 
-def _bind(entry, given, out):
-    """A call of a built entry point on ``given`` that returns ``out``, or
-    of the torch glue (``params`` None), which returns its own."""
-    fn, params, _ = entry
+def _bind(entry, name, given, out):
+    """A call of a built entry point on ``given`` that returns ``out`` (the
+    one ``given["entry"]`` names, else ``name``), or of the torch glue
+    (``params`` None), which returns its own."""
+    fns, params, _ = entry
     if params is None:
-        return lambda: fn(given)
-    call = _caller(fn, params, given)
+        return lambda: fns(given)
+    call = _caller(fns[given.get("entry", name)], params, given)
 
     def run():
         call()
@@ -831,7 +1038,7 @@ def _run_call_case(case: CallCase, built_libs, variants, reps: int, rec: dict) -
                 given, out = make()
                 if not _takes(entry[1], given):
                     break
-                call = _bind(entry, dict(given, stream=stream), out)
+                call = _bind(entry, SPECS[case.kernel].entry, dict(given, stream=stream), out)
                 runs.append(call())
                 torch.cuda.synchronize()
             if not runs:
@@ -848,6 +1055,10 @@ def _run_call_case(case: CallCase, built_libs, variants, reps: int, rec: dict) -
             if case.kernel in BIT_EQUAL and v.flags == built.flags and differ:
                 raise AssertionError(f"{case.name} {label_b} {v.label}: {differ} elements differ "
                                      "from the built kernel")
+            if (case.kernel == "gs" and entry[1] is not None
+                    and not _gather_agrees(got[0], ref[0], given)):
+                raise AssertionError(f"{case.name} {label_b} {v.label}: differs from the built "
+                                     "kernel beyond pallas_probe.sums_agree")
             total = float(ref[0].double().sum()) if case.kernel == "k3" else 0.0
             if case.kernel == "k3" and err > HIST_REL_TOL * total:
                 raise AssertionError(f"{case.name} {label_b} {v.label}: differs by {err} of the "
@@ -855,39 +1066,58 @@ def _run_call_case(case: CallCase, built_libs, variants, reps: int, rec: dict) -
             outs[v.label] = (call, differ, err, got)
         parent = next((outs[label][3] for label in ("parent", GLUE) if label in outs), None)
         order = [v.label for v in variants if v.label in outs]
-        times = {label: [] for label in order}
-        cold = {label: [] for label in order}
+        modes = ("warm", "flushed", "read-flushed") if case.flushed else ("warm",)
+        times = {(label, mode): [] for label in order for mode in modes}
+        parts = {(label, mode): [] for label in order for mode in modes}
         launched = {}
         flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=ref[0].device)
+        # The read's kernels, by name, to leave out of the read-flushed times.
+        read_names = set(profile_kernels(lambda: flush.sum(), 2)) if case.flushed else set()
+        before = {"warm": None, "flushed": flush.bitwise_not_, "read-flushed": flush.sum}
         for label in order + order[::-1]:
             call = outs[label][0]
-            # Per kernel name, the mean launch times its launches a call (the
-            # profiler now and then drops one; the glue's elementwise
-            # kernels may share a name), summed.
-            kernels = profile_kernels(call, reps)
-            times[label].append(sum(t / k * round(k / reps) for t, k in kernels.values()) / 1e3)
-            launched[label] = sum(round(k / reps) for _, k in kernels.values())
-            if case.flushed:
-                kernels = profile_kernels(lambda call=call: (flush.bitwise_not_(), call()), reps)
-                cold[label].append(sum(t / k * round(k / reps) for name, (t, k) in
-                                       kernels.items() if FLUSH_TAG not in name) / 1e3)
+            for mode in modes:
+                pre = before[mode]
+                kernels = profile_kernels(
+                    call if pre is None else lambda call=call, pre=pre: (pre(), call()), reps)
+                kernels = {name: tk for name, tk in kernels.items()
+                           if FLUSH_TAG not in name and name not in read_names}
+                times[label, mode].append(_call_ms(kernels, reps))
+                parts[label, mode].append({part: _call_ms(
+                    {name: tk for name, tk in kernels.items() if tag in name}, reps)
+                    for part, tag in PARTS.get(case.kernel, ())})
+                if mode == "warm":
+                    launched[label] = sum(round(k / reps) for _, k in kernels.values())
         del flush
         for label in order:
-            ms = sum(times[label]) / len(times[label])
-            cold_ms = sum(cold[label]) / len(cold[label]) if case.flushed else None
             _, differ, err, got = outs[label]
             vs_parent = (None if parent is None else
                          sum(_bits_differ(x, y) for x, y in zip(got, parent)))
-            c_rec[label][label_b] = dict(ms=ms, ms_each=times[label], flushed_ms=cold_ms,
-                                         flushed_ms_each=cold[label], elements_differ=differ,
-                                         max_abs_diff=err, parent_elements_differ=vs_parent,
-                                         kernels_a_call=launched[label])
-            flushed = "" if cold_ms is None else (
-                f", {cold_ms:.5f} with L2 flushed ({', '.join(f'{x:.5f}' for x in cold[label])})")
-            print(f"sweep {case.name} {label_b} {label}: {ms:.5f} ms on the device "
-                  f"({', '.join(f'{x:.5f}' for x in times[label])}{flushed}; {launched[label]} "
-                  f"kernels a call); elements differing from the built kernel {differ} (max "
-                  f"|diff| {err:.3e}), from the parent {vs_parent}; two launches bitwise equal")
+            rec_b = c_rec[label][label_b] = dict(elements_differ=differ, max_abs_diff=err,
+                                                 parent_elements_differ=vs_parent,
+                                                 kernels_a_call=launched[label])
+            said = []
+            for mode in modes:
+                each = times[label, mode]
+                ms = sum(each) / len(each)
+                part_ms = {part: sum(x[part] for x in parts[label, mode]) / len(each)
+                           for part, _ in PARTS.get(case.kernel, ())}
+                key = "ms" if mode == "warm" else f"{mode.replace('-', '_')}_ms"
+                rec_b.update({key: ms, f"{key}_each": each, f"{key}_parts": part_ms})
+                said.append(f"{mode} {ms:.5f} ({', '.join(f'{x:.5f}' for x in each)}"
+                            + "".join(f"; {k} {v:.5f}" for k, v in part_ms.items()) + ")")
+            print(f"sweep {case.name} {label_b} {label}: ms on the device {'; '.join(said)}; "
+                  f"{launched[label]} kernels a call; elements differing from the built kernel "
+                  f"{differ} (max |diff| {err:.3e}), from the parent {vs_parent}; two launches "
+                  f"bitwise equal")
+
+
+def _call_ms(kernels, reps: int) -> float:
+    """Device ms of one call from ``profile_kernels``' record of ``reps``
+    calls: per kernel name, the mean launch time times its launches a call
+    (the profiler now and then drops one; the glue's elementwise kernels
+    may share a name), summed."""
+    return sum(t / k * round(k / reps) for t, k in kernels.values()) / 1e3
 
 
 def _caller(fn, params, given):
@@ -907,7 +1137,7 @@ def _caller(fn, params, given):
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--kernels", default="k1,b1,b2,b3,a3,k3,k2,hb",
+    ap.add_argument("--kernels", default="k1,b1,b2,b3,a3,k3,k2,hb,gs",
                     help="comma-separated, of " + ", ".join(SPECS))
     ap.add_argument("--parent", type=Path, default=None,
                     help="another checkout whose kernels are candidates too")
@@ -937,10 +1167,12 @@ def main(argv=None) -> dict:
                 older = f'extern "C" int {spec.entry}(' not in text and spec.older
                 variants.insert(0, Variant("parent", text, parent, _nvcc_flags(args.parent),
                                            older or ""))
-            built_libs = _build(spec.entry, variants, Path(tmp), key, leave_out_failed=True)
-            if key == "hb":
-                built_libs[GLUE] = (_glue, None, [])
-                variants.append(Variant(GLUE, "", build.CSRC, build.NVCC_FLAGS))
+            built_libs = _build(spec.entry, variants, Path(tmp), key, leave_out_failed=True,
+                                others=spec.others)
+            for torch_key, label, fn in (("hb", GLUE, _glue), ("gs", YARDSTICK, _yardstick)):
+                if key == torch_key:
+                    built_libs[label] = (fn, None, [])
+                    variants.append(Variant(label, "", build.CSRC, build.NVCC_FLAGS))
             libs[key] = (built_libs, [v for v in variants if v.label in built_libs])
             for label, (_, _, report) in built_libs.items():
                 print(f"sweep ptxas {key} {label}: " + " | ".join(report))
@@ -961,7 +1193,7 @@ def main(argv=None) -> dict:
                 n = r.origin.shape[0]
                 outs, ref = {}, None
                 for v in [built] + [v for v in variants if v is not built]:
-                    fn, params, _ = built_libs[v.label]
+                    fns, params, _ = built_libs[v.label]
                     t = torch.empty(n, dtype=torch.float32, device=dev)
                     i = torch.empty(n, dtype=torch.int32, device=dev)
                     s = torch.empty(n, dtype=torch.int32, device=dev) if walks else None
@@ -969,7 +1201,7 @@ def main(argv=None) -> dict:
                     given = dict(zip(spec.args, case.args(r, t, i, s, e)))
                     given.update(counter=torch.zeros(2, dtype=torch.int32, device=dev),
                                  stream=stream)
-                    call = _caller(fn, params, given)
+                    call = _caller(fns[spec.entry], params, given)
                     call()
                     torch.cuda.synchronize()
                     if int(e.item()):

@@ -8,8 +8,10 @@ an NVIDIA GPU the same two kernels become:
   table, so the question becomes how fast warm repeated calls read as the
   table outgrows the 50 MB L2;
 - P2/P3 :func:`gather_sum`, the wrapped row-gather loop of ``probe_gather``
-  and ``probe_meta_gather`` (and of ``r4_dyngather_probe.probe``, P4): ns per
-  gathered row, from L2 or from HBM.
+  and ``probe_meta_gather`` (and of ``r4_dyngather_probe.probe``, P4): a
+  windowed sum over the table's row sums, so each call reads the table
+  once; ns per gathered row is the call's time over the rows its windows
+  span, not the cost of gathering one.
 
 Both wrappers launch ``kernels/csrc/gather_probe.cu`` for CUDA tensors and
 run their plain PyTorch versions only for CPU tensors; any other device
@@ -139,17 +141,20 @@ def gather_sum(
 
     ``tab`` (n, B) float32 or int32, ``idx`` (R,) int32; the sum is taken in
     ``out_dtype`` (default: the table's), and int32 sums wrap as JAX's do.
-    CUDA tensors launch the kernel of that (table, sum) type pair; CPU
-    tensors take :func:`gather_sum_plain`.
+    CUDA tensors launch the kernel of that (table, sum) type pair, which
+    sums every row of the table into scratch allocated here, then each
+    output's window of row sums; CPU tensors take :func:`gather_sum_plain`.
     """
     entry, out_dtype = _gather_args(tab, idx, iters, out_dtype)
     if check_device(tab, idx) == "cpu":
         return gather_sum_plain(tab, idx, iters, out_dtype)
     tab, idx = tab.contiguous(), idx.contiguous()
     _check_aligned(tab)
+    # The row sums' accumulators: float32, or int32 holding uint32 that wrap.
+    sums = torch.empty(tab.shape[0], dtype=out_dtype, device=tab.device)
     out = torch.empty(idx.shape[0], dtype=out_dtype, device=tab.device)
     gather_sum.launches += 1
-    build.launch(entry, tab, tab.shape[0], tab.shape[1], idx, idx.shape[0], iters, out)
+    build.launch(entry, tab, tab.shape[0], tab.shape[1], idx, idx.shape[0], iters, sums, out)
     return out
 
 
@@ -160,16 +165,18 @@ def gather_sum_plain(
     tab: torch.Tensor, idx: torch.Tensor, iters: int,
     out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
-    """Plain version of P2-P4: one ``index_select`` of the wrapped rows per
-    step, each row summed, then added to the running sum, as the JAX kernels
-    do.  int32 sums run exactly in int64 and wrap to int32 once at the end,
-    which is what int32 adds that wrap give."""
+    """Plain version of P2-P4 in the JAX kernels' two steps: every row of
+    the table summed once, then each output's ``iters`` wrapped row sums
+    added in ``i`` order.  int32 sums run exactly in int64 and wrap to
+    int32 once at the end, which is what int32 adds that wrap give."""
     _, out_dtype = _gather_args(tab, idx, iters, out_dtype)
     wide = torch.int64 if out_dtype == torch.int32 else torch.float32
+    n = tab.shape[0]
+    sums = tab.to(wide).sum(1)
     rows = idx.to(torch.int64)
     acc = torch.zeros(idx.shape[0], dtype=wide, device=tab.device)
     for i in range(iters):
-        acc = acc + tab.index_select(0, (rows + i) % tab.shape[0]).to(wide).sum(1)
+        acc = acc + sums[(rows + i) % n]
     if out_dtype == torch.int32:
         acc = ((acc + 2**31) % 2**32 - 2**31).to(torch.int32)
     return acc

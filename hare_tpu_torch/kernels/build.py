@@ -58,9 +58,9 @@ _SIGNATURES = {
     "hare_energy_histogram": [_P, _P, _P, _LL, _I, _F, _I, _P, _LL, _P, _P],
     "hare_histogram_bwd": [_P, _P, _P, _P, _LL, _LL, _I, _F, _I, _P, _P, _P],
     "hare_column_sum": [_P, _LL, _I, _I, _P, _P, _P],
-    "hare_gather_sum_f32": [_P, _LL, _I, _P, _I, _I, _P, _P],
-    "hare_gather_sum_i32": [_P, _LL, _I, _P, _I, _I, _P, _P],
-    "hare_gather_sum_i32_f32": [_P, _LL, _I, _P, _I, _I, _P, _P],
+    "hare_gather_sum_f32": [_P, _LL, _I, _P, _I, _I, _P, _P, _P],
+    "hare_gather_sum_i32": [_P, _LL, _I, _P, _I, _I, _P, _P, _P],
+    "hare_gather_sum_i32_f32": [_P, _LL, _I, _P, _I, _I, _P, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -1136,8 +1136,29 @@ def test_column_sum_matches_plain(dev, rows, cols):
     assert torch.equal(probes.column_sum(ones), probes.column_sum_plain(ones))
 
 
-# (table rows, width, table dtype, sum dtype, indices, iters): two shapes for
-# each probe, the second with iters > rows (the wrap).
+# (table rows, width, table dtype, sum dtype, indices, iters).  What the two
+# passes make risky (tests/test_torch_probes.py holds the plain version to
+# NumPy on the same shapes): no pass 1, one output, row sums that no window
+# reaches, rows of 1, 2 and 6 elements (tables ending inside a 16-byte
+# word), an int32 table summed in float32 at a wide width, windows that
+# wrap more than twice.
+GATHER_EDGES = [
+    ("iters_0", 50, 8, np.float32, torch.float32, 40, 0),
+    ("iters_0_i32", 50, 2, np.int32, torch.int32, 40, 0),
+    ("one_output", 300, 192, np.float32, torch.float32, 1, 50),
+    ("windows_sparse", 5000, 192, np.float32, torch.float32, 7, 3),
+    ("width_1", 1001, 1, np.int32, torch.int32, 300, 17),
+    ("width_1_f32", 999, 1, np.float32, torch.float32, 200, 9),
+    ("width_2_tail", 1001, 2, np.int32, torch.int32, 500, 9),
+    ("width_6", 501, 6, np.float32, torch.float32, 300, 11),
+    ("width_6_i32", 77, 6, np.int32, torch.int32, 300, 11),
+    ("i32_f32_wide", 400, 384, np.int32, torch.float32, 256, 5),
+    ("wrap_4x", 7, 8, np.float32, torch.float32, 100, 30),
+    ("wrap_5x_i32", 3, 2, np.int32, torch.int32, 50, 16),
+]
+
+# Two shapes for each probe, the second with iters > rows (the wrap), some
+# others, and the edges.
 GATHERS = [
     ("p2", 23793, 192, np.float32, torch.float32, 1024, 50),
     ("p2_wrap", 7, 192, np.float32, torch.float32, 300, 20),
@@ -1148,6 +1169,7 @@ GATHERS = [
     ("p4_ctx_wrap", 5, 8, np.float32, torch.float32, 777, 12),
     ("odd_width", 300, 33, np.float32, torch.float32, 500, 6),
     ("i32_wide", 500, 64, np.int32, torch.int32, 300, 7),
+    *GATHER_EDGES,
 ]
 
 
@@ -1172,3 +1194,21 @@ def test_gather_sum_matches_plain(dev, case):
     else:
         absolute = probes.gather_sum_plain(tab.abs(), idx, iters, torch.float32)
         assert probes.sums_agree(out, plain, absolute)
+
+
+@pytest.mark.parametrize("case", [g for g in GATHERS if g[0] in ("p2", "p3", "p4_meta", "p4_win",
+                                                                  "odd_width", "width_1")],
+                         ids=lambda g: g[0])
+def test_gather_sum_repeats_bitwise(dev, case):
+    """Two calls on the same inputs give the same bits: each row sum and
+    each window is added in one order, with no atomics."""
+    _, n, width, dtype, out_dtype, n_idx, iters = case
+    rng = np.random.default_rng(10)
+    tab = (rng.integers(-1000, 1000, size=(n, width)) if dtype == np.int32
+           else rng.normal(size=(n, width))).astype(dtype)
+    tab = torch.from_numpy(tab).to(dev)
+    idx = torch.from_numpy(rng.integers(-n, n, size=n_idx).astype(np.int32)).to(dev)
+    a = probes.gather_sum(tab, idx, iters, out_dtype)
+    b = probes.gather_sum(tab, idx, iters, out_dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))

@@ -28,6 +28,7 @@ from jax.experimental import pallas as real_pl  # noqa: E402
 
 from hare_tpu_torch.benchmarks import pallas_probe as tp  # noqa: E402
 from hare_tpu_torch.benchmarks import r4_dyngather_probe as tr4  # noqa: E402
+from test_torch_cuda import GATHER_EDGES  # noqa: E402  (the gather kernel's edge shapes)
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -165,6 +166,37 @@ def test_r4_probe_matches_pallas(jax_probe, capsys, A, B, jdtype, dtype, iters):
         np.testing.assert_array_equal(out, plain.numpy())
     else:
         assert_sums_agree(out, plain, tp.gather_sum_plain(tt.abs(), it, iters, torch.float32))
+
+
+def numpy_gather_sum(tab, idx, iters, int_sums):
+    """Every term of every window gathered at once: int32 sums exactly in
+    int64, wrapped to int32; float sums in float64, with the sum of the
+    terms' magnitudes."""
+    rows = (idx.astype(np.int64)[:, None] + np.arange(iters)) % tab.shape[0]
+    if int_sums:
+        total = tab.astype(np.int64)[rows].sum(axis=(1, 2))
+        return ((total + 2**31) % 2**32 - 2**31).astype(np.int32), None
+    terms = tab.astype(np.float64)[rows]
+    return terms.sum(axis=(1, 2)), np.abs(terms).sum(axis=(1, 2))
+
+
+@pytest.mark.parametrize("case", GATHER_EDGES, ids=[c[0] for c in GATHER_EDGES])
+def test_gather_sum_plain_matches_numpy(case):
+    _, n, width, dtype, out_dtype, n_idx, iters = case
+    rng = np.random.default_rng(11)
+    if dtype == np.int32:  # full range where the sums wrap, else exact in float32
+        hi = 2**31 if out_dtype == torch.int32 else 1000
+        tab = rng.integers(-hi, hi, size=(n, width)).astype(np.int32)
+    else:
+        tab = rng.normal(size=(n, width)).astype(np.float32)
+    idx = rng.integers(-n, n, size=n_idx).astype(np.int32)  # negative indices wrap
+    plain = tp.gather_sum_plain(torch.from_numpy(tab), torch.from_numpy(idx), iters, out_dtype)
+    want, abs_terms = numpy_gather_sum(tab, idx, iters, out_dtype == torch.int32)
+    assert plain.dtype == out_dtype and plain.shape == (n_idx,)
+    if out_dtype == torch.int32:
+        np.testing.assert_array_equal(plain.numpy(), want)
+    else:
+        assert tp.sums_agree(plain, torch.from_numpy(want), torch.from_numpy(abs_terms))
 
 
 def test_wrappers_take_plain_versions_on_cpu():

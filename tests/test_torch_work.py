@@ -476,6 +476,45 @@ def test_k2_and_hb_sweeps_name_every_parameter():
     assert kernel_sweep._takes(params, kernel_sweep.k3_given(lanes, 16, 1e-3, False)[0])
 
 
+# gather_sum's float entry point before its row sums' scratch: an older
+# checkout's, which the sweep calls as one more candidate.
+OLDER_GATHER = """extern "C" int hare_gather_sum_f32(const float* tab, long long n, int width, const int* idx,
+                                   int n_out, int iters, float* out, void* stream) {"""
+
+
+def test_gs_sweep_names_every_parameter():
+    """The sweep gives gather_sum every parameter each of its three entry
+    points declares but the stream (an older checkout's, without the
+    scratch, too), picks the entry of the (table, sum) type pair, and runs
+    the yardstick on the float tables only, where it gives the plain
+    version's sums."""
+    from hare_tpu_torch.benchmarks import pallas_probe as pp
+    from hare_tpu_torch.kernels import build
+
+    spec = kernel_sweep.SPECS["gs"]
+    src = (build.CSRC / spec.source).read_text()
+    older = kernel_sweep._c_params(OLDER_GATHER + "}", spec.entry)
+    tab = torch.from_numpy(np.random.default_rng(0).normal(size=(30, 8)).astype(np.float32))
+    idx = torch.tensor([-1, 0, 29, 7], dtype=torch.int32)
+    for table, out_dtype in ((tab, torch.float32), (tab.to(torch.int32), torch.int32),
+                             (tab.to(torch.int32), torch.float32)):
+        given, (out,) = kernel_sweep.gs_given(table, idx, 40, out_dtype, table.abs().sum(1))
+        assert given["entry"] == pp._GATHER_ENTRIES[(table.dtype, out_dtype)]
+        assert given["entry"] in (spec.entry, *spec.others)
+        params = kernel_sweep._c_params(src, given["entry"])
+        assert [n for n, _ in params] == [n for n, _ in kernel_sweep._c_params(src, spec.entry)]
+        assert {n for n, _ in params} - set(given) == {"stream"}
+        assert {n for n, _ in older} - set(given) == {"stream"}
+        assert given["out"] is out and out.dtype == given["sums"].dtype == out_dtype
+        assert given["sums"].shape == (32,) and out.shape == (4,)
+        assert kernel_sweep._takes(params, given)
+        assert kernel_sweep._takes(None, given) == (table.dtype == torch.float32)
+    given, _ = kernel_sweep.gs_given(tab, idx, 40, torch.float32)
+    (yard,) = kernel_sweep._yardstick(given)
+    assert pp.sums_agree(yard, pp.gather_sum_plain(tab, idx, 40),
+                         pp.gather_sum_plain(tab.abs(), idx, 40))
+
+
 @pytest.mark.parametrize("label, replacements", a3_check.FAULTS,
                          ids=[f[0] for f in a3_check.FAULTS])
 def test_a3_faults_apply(label, replacements):
