@@ -69,6 +69,19 @@ per-polygon absorption, on the card.  Phases, one line each:
    bins): A3 and the scatter on the rays of each of its bounces as above,
    then its hard-histogram loss, whose vertex gradient is zero, and the
    soft first-moment loss, whose is not, every kernel's launches counted.
+9. scattering, per-bounce remat and eval config 2, each at full width:
+   (a) the bench step with scattering (per-polygon coefficients uniform in
+   [0.2, 0.8]), fwd+bwd w.r.t. absorption and scattering: launches (two
+   scatters a bounce), the histogram total, the first bounce's mean energy
+   (unbiased: 0.7), two steps of one seed bitwise equal, a CPU sub-batch
+   on the same draws, and its time, busy ms and idle share beside the
+   specular step's, in turns; (b) eval config ``deep`` (concert hall,
+   grid, 16,384 rays, 32 bounces, 2048 bins), fwd+bwd w.r.t. absorption
+   (its own loss) and w.r.t. the vertices (soft bins), each with and
+   without remat: bitwise equal, K1 and K2 launched 32 and 64 times, time,
+   idle share and peak memory; (c) eval config 2 (concert hall, grid, 100,000
+   rays, 3 bounces, forward): every ray hits, Mrays/s and the host build.
+   Each line carries the card's name and power limit.
 
 Any failed check raises: there is no fallback.  The second-to-last line is
 the per-kernel JSON record, the last ``{"ok": true, "device": ...}``.
@@ -477,60 +490,235 @@ def oracle_side(label, top, rays, k, b1, differ):
     return out
 
 
-def drive(th, sp, rays, absorption, n_bins, counters, backward, closed):
-    """One main path through the facade: trace_rays -> energy_histogram
-    [-> backward()], with every counter in ``counters`` set to 0 just before
-    and read just after.  Checks the launches, the histogram total against
-    the summed bounce energies, every hit in a closed room, and the
-    absorption gradient.  Returns (result, histogram, launches, gradient)."""
-    for fn in counters:
-        fn.launches = 0
+# Phase 9: the scattering draws' seed (a CPU generator, ray-major: the
+# first REF_RAYS rays of a batch get the draws a batch of REF_RAYS rays
+# gets, which is how the CPU reference sees the card's draws), and the
+# seed of the per-polygon scattering coefficients, uniform in [0.2, 0.8].
+DRAW_SEED, SCATTERING_SEED = 5, 9
+# The first bounce's mean energy against 1 - absorption = 0.7 (the
+# unbiased split; tests/test_trace.py:209's bound).
+UNBIASED_TOL = 0.05
+
+
+def trace_step(th, sp, rays, absorption, n_bounces, n_bins, scattering=None, seed=None,
+               remat=False, backward=True, draw_device="cpu"):
+    """One step through the facade: trace_rays -> energy_histogram [->
+    sum().backward() w.r.t. the absorption, and the scattering where
+    given], its draws from a generator on ``draw_device`` seeded with
+    ``seed``.  Returns (detached result, histogram, gradients)."""
     a = absorption.clone().requires_grad_(backward)
+    s = None if scattering is None else scattering.clone().requires_grad_(backward)
+    gen = None if seed is None else torch.Generator(device=draw_device).manual_seed(seed)
     with torch.set_grad_enabled(backward):
-        res = th.trace_rays(sp.scene, rays, a, N_BOUNCES, sp.shoot_fn, aux=sp.aux)
+        res = th.trace_rays(sp.scene, rays, a, n_bounces, sp.shoot_fn, aux=sp.aux,
+                            scattering=s, generator=gen, remat=remat)
         hist = th.energy_histogram(res, n_bins, BIN_DT)
         if backward:
             hist.sum().backward()
+    grads = [] if not backward else [a.grad] + ([] if s is None else [s.grad])
+    return type(res)(*(x.detach() for x in res)), hist.detach(), grads
+
+
+def counted(counters, fn):
+    """``fn()`` with every counter set to 0 just before and read just after:
+    (its result, {wrapper name: launches})."""
+    for c in counters:
+        c.launches = 0
+    out = fn()
     torch.cuda.synchronize()
-    launches = [fn.launches for fn in counters]
-    check(all(n > 0 for n in launches), f"a kernel was not launched: {launches}")
-    check(hist.shape == (n_bins,) and bool(torch.isfinite(hist).all()), "histogram not finite")
-    check(bool(torch.isfinite(res.energy).all()) and bool(torch.isfinite(res.time).all()),
-          "bounce energies or times not finite")
+    return out, {c.__name__: c.launches for c in counters}
+
+
+def step_checks(label, res, hist, grads, closed):
+    """A step's invariants: finite records, every ray hitting on every bounce
+    in a closed room, the histogram total equal to the summed bounce
+    energies, and an absorption gradient (where taken) finite, <= 0, with a
+    negative sum; a scattering gradient finite and non-zero."""
+    check(bool(torch.isfinite(hist).all()) and bool(torch.isfinite(res.energy).all())
+          and bool(torch.isfinite(res.time).all()), f"{label}: not finite")
     if closed:
-        check(bool(res.hit.all()), "a ray missed on some bounce of a closed room")
-    e_sum, total = float(res.energy.detach().sum()), float(hist.detach().sum())
+        check(bool(res.hit.all()), f"{label}: a ray missed on some bounce of a closed room")
+    e_sum, total = float(res.energy.sum()), float(hist.sum())
     check(math.isclose(total, e_sum, rel_tol=1e-5),
-          f"histogram total {total} != summed bounce energies {e_sum}")
-    g = a.grad
-    if backward:
+          f"{label}: histogram total {total} != summed bounce energies {e_sum}")
+    if grads:
+        g = grads[0]
         check(bool(torch.isfinite(g).all()) and bool((g <= 0).all()) and float(g.sum()) < 0,
-              "absorption gradient not finite and non-positive with a negative sum")
-    return res, hist.detach(), launches, g
+              f"{label}: absorption gradient not finite and non-positive with a negative sum")
+    if len(grads) > 1:
+        check(bool(torch.isfinite(grads[1]).all()) and float(grads[1].abs().max()) > 0,
+              f"{label}: scattering gradient not finite and non-zero")
+    return e_sum, total
 
 
-def cpu_reference(th, sp, rays, absorption, n_bins):
-    """The first REF_RAYS rays through the same facade on the card and,
-    with the scene and structure moved to the CPU, through the plain
-    versions: the same per-bounce hits and polygons, energies, histogram and
-    gradient within REF_RTOL."""
+def drive(th, sp, rays, absorption, n_bins, counters, backward, closed):
+    """One main path through the facade: trace_rays -> energy_histogram
+    [-> backward()], with every counter in ``counters`` set to 0 just before
+    and read just after.  Checks the launches and ``step_checks``.  Returns
+    (result, histogram, {wrapper name: launches}, gradient)."""
+    (res, hist, grads), launches = counted(
+        counters, lambda: trace_step(th, sp, rays, absorption, N_BOUNCES, n_bins,
+                                     backward=backward))
+    check(all(n > 0 for n in launches.values()), f"a kernel was not launched: {launches}")
+    check(hist.shape == (n_bins,), "histogram shape")
+    step_checks("main path", res, hist, grads, closed)
+    return res, hist, launches, grads[0] if backward else None
+
+
+def k2_agree(label, scene, rays, best_t, best_tri):
+    """K2 against its plain version on the same card tensors: ids equal,
+    floats within RTOL / ATOL.  Returns (the kernel's record, its floats'
+    max |diff|)."""
+    from hare_tpu_torch.accel import common
+
+    hk = common.finalize_hits(scene, rays, best_t, best_tri)
+    hp = common.finalize_hits_plain(scene, rays, best_t, best_tri)
+    for f in ("hit", "poly_id", "tri_id", "edge_nbr"):
+        check(torch.equal(getattr(hk, f), getattr(hp, f)), f"K2 {label}: {f} differs")
+    err = 0.0
+    for f in ("t", "u", "v", "point", "normal"):
+        x, y = getattr(hk, f), getattr(hp, f)
+        check(torch.allclose(x, y, rtol=RTOL, atol=ATOL), f"K2 {label}: {f} differs")
+        err = max(err, float(torch.where(x == y, 0.0, (x - y).abs()).max()))
+    return hk, err
+
+
+def path_kernel_checks(label, sp, rays, absorption, n_bounces, **trace_kw):
+    """K1 and K2 on the rays each bounce of one grid path's trace_rays run
+    shoots (``trace_kw``: its scattering and generator, so the same draws),
+    against their plain versions on the same card tensors: K1 bit-equal,
+    K2 as ``k2_agree``; and the scatter on each bounce's polygon keys (the
+    absorption and scattering gathers' backward) with seeded values, as
+    ``scatter_exact``.  Returns (each bounce's (rays, best_tri, record),
+    K2's max |diff|, the scatter's largest reading against index_add_)."""
+    from hare_tpu_torch.accel import voxel
+    from hare_tpu_torch.benchmarks import bench_scene
+
+    grid, scene = sp.struct, sp.scene
+    gen = torch.Generator(device=rays.origin.device).manual_seed(7)
+    out, k2_err, scat_err = [], 0.0, 0.0
+    for b, r in enumerate(bench_scene.bounce_rays(sp, rays, absorption, n_bounces, **trace_kw),
+                          1):
+        k = voxel.grid_shoot(r, grid)
+        same_bits(f"K1 {label} bounce {b}", k, voxel.grid_shoot_plain(r, grid))
+        hr, err = k2_agree(f"{label} bounce {b}", scene, r, *k)
+        k2_err = max(k2_err, err)
+        pid = torch.clamp(hr.poly_id, min=0)
+        vals = torch.randn(pid.shape, generator=gen, device=pid.device)
+        scat_err = max(scat_err, scatter_exact(f"{label} bounce {b} polygon keys", pid, vals,
+                                               scene.n_polys, quiet=True)[1])
+        out.append((r, k[1], hr))
+    return out, k2_err, scat_err
+
+
+def hist_checks(label, res, n_bins, soft=False, hist=None):
+    """K3 (hard or soft bins) and its backward on a path's trace record
+    against their plain versions on the same card tensors: the histogram
+    within HIST_REL_TOL of its total (and, where given, the path's own
+    ``hist`` equal to it to the bit), the backward from seeded bin
+    gradients bit-equal to its plain version where hard, within
+    SOFT_BWD_REL_TOL of the largest where soft; two launches of each
+    bitwise equal.  Returns (the histogram's max |diff| over its total,
+    the backward's max |diff| over its largest)."""
+    from hare_tpu_torch.trace import bounce
+
+    lanes = (res.energy, res.time, res.hit)
+    g = torch.randn(n_bins, generator=torch.Generator().manual_seed(3)).to(res.energy.device)
+
+    def fwd():
+        return bounce.histogram_kernel(*lanes, n_bins, BIN_DT, soft=soft)
+
+    plain = bounce.soft_histogram_plain if soft else bounce.histogram_plain
+    hk, hp = fwd(), plain(*lanes, n_bins, BIN_DT)
+    err = float((hk - hp).abs().max()) / float(hp.sum())
+    check(err <= HIST_REL_TOL, f"K3 {label}: differs by {err:.3e} of the total")
+    check(same_floats(hk, fwd()), f"K3 {label}: two launches differ")
+    check(hist is None or same_floats(hist, hk), f"K3 {label}: the path's histogram differs")
+    if soft:
+        def bwd():
+            return bounce.soft_histogram_bwd(*lanes, g, n_bins, BIN_DT)
+
+        gk = bwd()
+        bwd_err = max(rel_err(x, y) for x, y in zip(
+            gk, bounce.soft_histogram_bwd_plain(*lanes, g, n_bins, BIN_DT)))
+        check(bwd_err <= SOFT_BWD_REL_TOL, f"soft backward {label}: differs by {bwd_err:.3e}")
+        check(all(same_floats(x, y) for x, y in zip(gk, bwd())),
+              f"soft backward {label}: two launches differ")
+    else:
+        def bwd():
+            return bounce.hard_histogram_bwd(res.time, res.hit, g, n_bins, BIN_DT)
+
+        gk, bwd_err = bwd(), 0.0
+        check(same_floats(gk, bounce.hard_histogram_bwd_plain(res.time, res.hit, g, n_bins,
+                                                              BIN_DT)),
+              f"hard backward {label}: differs from its plain version")
+        check(same_floats(gk, bwd()), f"hard backward {label}: two launches differ")
+    return err, bwd_err
+
+
+def cpu_reference(th, sp, rays, absorption, n_bins, scattering=None, n_bounces=N_BOUNCES,
+                  bin_edges=False):
+    """The first REF_RAYS rays, ``n_bounces`` bounces, through the same
+    facade on the card and, with the scene and structure moved to the CPU,
+    through the plain versions, with ``scattering`` on the same draws
+    (``DRAW_SEED``, ray-major) where given.  The lobe's cos and sin may
+    round otherwise on the card, and an ulp of a direction can send a ray
+    into a neighbouring triangle: such rays, at most MAX_TIE_SHARE of them,
+    each first differing after a diffuse bounce, are masked out of both
+    histograms (a specular trace has no diffuse bounce, so none may
+    differ).  The rest agree: per-bounce hits and polygons equal, energies,
+    arrival times, histogram and gradients within REF_RTOL.
+
+    ``bin_edges``: K2's floats agree with its plain version's within RTOL,
+    not to the bit, and a deep trace adds up as many hit distances, so a
+    lane's arrival time may then differ by a few ulps and fall across a
+    bin edge.  Such lanes, their times within REF_RTOL of each other and
+    at most MAX_TIE_SHARE of the lanes, are masked out of both histograms
+    too.  Returns (the masked rays' count, the masked lanes')."""
+    from hare_tpu_torch.trace import bounce
+
     cpu = torch.device("cpu")
     sub = th.Ray(*(x[:REF_RAYS] for x in rays))
-    out = []
+    runs = []
     for where in (rays.origin.device, cpu):
         scene = to_device(sp.scene, where)
         aux = None if sp.aux is None else to_device(sp.aux, where)
         a = absorption.to(where).clone().requires_grad_()
-        r = th.trace_rays(scene, to_device(sub, where), a, N_BOUNCES, sp.shoot_fn, aux=aux)
-        h = th.energy_histogram(r, n_bins, BIN_DT)
+        s = None if scattering is None else scattering.to(where).clone().requires_grad_()
+        res = th.trace_rays(scene, to_device(sub, where), a, n_bounces, sp.shoot_fn, aux=aux,
+                            scattering=s, generator=torch.Generator().manual_seed(DRAW_SEED))
+        runs.append((res, [a] + ([] if s is None else [s])))
+    rk, rc = runs[0][0], runs[1][0]
+    differ = (rk.hit.cpu() != rc.hit) | (rk.poly_id.cpu() != rc.poly_id)  # (B, N)
+    masked = differ.any(0)
+    check(int(masked.sum()) <= MAX_TIE_SHARE * REF_RAYS,
+          f"CPU reference: {int(masked.sum())} rays take other paths")
+    diffuse = torch.zeros(n_bounces, REF_RAYS, dtype=torch.bool)
+    if scattering is not None:
+        diffuse = bounce.scatter_draws(torch.Generator().manual_seed(DRAW_SEED), n_bounces,
+                                       REF_RAYS, torch.float32, cpu)[0]
+    for i in torch.nonzero(masked).squeeze(1).tolist():
+        first = int(torch.nonzero(differ[:, i])[0])
+        check(bool(diffuse[:first, i].any()),
+              f"CPU reference: ray {i} differs at bounce {first + 1} before any diffuse bounce")
+    keep = ~masked[None, :] & rc.hit  # (B, N): lanes both runs bin
+    flips = keep & (bounce._bins(rk.time.detach().cpu(), n_bins, BIN_DT)
+                    != bounce._bins(rc.time.detach(), n_bins, BIN_DT))
+    check(int(flips.sum()) == 0 or (bin_edges and int(flips.sum()) <= MAX_TIE_SHARE * keep.numel()),
+          f"CPU reference: {int(flips.sum())} lanes in other bins")
+    out = []
+    for res, params in runs:
+        ray_keep = ~masked.to(res.hit.device)
+        lanes = (keep & ~flips).to(res.hit.device)
+        h = th.energy_histogram(res._replace(hit=res.hit & lanes), n_bins, BIN_DT)
         h.sum().backward()
-        out.append([x.detach().cpu() for x in (r.hit, r.poly_id, r.energy, h, a.grad)])
-    k, c = out
-    check(torch.equal(c[0], k[0]) and torch.equal(c[1], k[1]),
-          "per-bounce hits or polygons differ from the CPU reference")
-    for what, x, y in zip(("energy", "histogram", "gradient"), k[2:], c[2:]):
+        out.append([x.detach().cpu() for x in [res.energy[:, ray_keep], res.time[:, ray_keep], h]
+                    + [p.grad for p in params]])
+    for what, x, y in zip(("energy", "arrival time", "histogram", "absorption gradient",
+                           "scattering gradient"), *out):
         check(torch.allclose(x, y, rtol=REF_RTOL, atol=REF_RTOL * float(y.abs().max())),
               f"{what} differs from the CPU reference")
+    return int(masked.sum()), int(flips.sum())
 
 
 def config_rays(th, origin, n, dev):
@@ -683,7 +871,8 @@ def backends_phase(dev, top, grid_sp, rays, batches, absorption, grid_hist):
         counters = (walk_fn[accel], common.finalize_hits, th.energy_histogram,
                     bounce.hard_histogram_bwd)
         _, hist, launches, g = drive(th, sp, rays, absorption, N_BINS, counters, True, True)
-        rec_launch["ropes" if accel == "kdtree_ropes" else "tree"] += launches[0]
+        rec_launch["ropes" if accel == "kdtree_ropes" else "tree"] += launches[
+            walk_fn[accel].__name__]
         # An equal-t tie resolved another way sends that ray down another
         # path: its (at most N_BOUNCES) energies land in other bins.  With
         # uniform absorption the totals are equal; the bins may differ by
@@ -740,7 +929,7 @@ def backends_phase(dev, top, grid_sp, rays, batches, absorption, grid_hist):
     counters = (tree.tree_shoot, common.finalize_hits, th.energy_histogram,
                 bounce.hard_histogram_bwd)
     res3, _, launches, g3 = drive(th, sp3, r3, a3, N_BINS, counters, True, False)
-    rec_launch["tree"] += launches[0]
+    rec_launch["tree"] += launches["tree_shoot"]
     cpu_reference(th, sp3, r3, a3, N_BINS)
 
     def fwd_bwd3():
@@ -759,15 +948,7 @@ def backends_phase(dev, top, grid_sp, rays, batches, absorption, grid_hist):
     k2_bound3, k2_err3 = [], 0.0
     for b, r in enumerate(bench_scene.bounce_rays(sp3, r3, a3), 1):
         best_t, best_tri = tree.tree_shoot(r, sp3.struct)
-        hk = common.finalize_hits(sp3.scene, r, best_t, best_tri)
-        hp = common.finalize_hits_plain(sp3.scene, r, best_t, best_tri)
-        for f in ("hit", "poly_id", "tri_id", "edge_nbr"):
-            check(torch.equal(getattr(hk, f), getattr(hp, f)), f"K2 config 3 bounce {b}: {f} differs")
-        for f in ("t", "u", "v", "point", "normal"):
-            x, y = getattr(hk, f), getattr(hp, f)
-            check(torch.allclose(x, y, rtol=RTOL, atol=ATOL),
-                  f"K2 config 3 bounce {b}: {f} differs")
-            k2_err3 = max(k2_err3, float(torch.where(x == y, 0.0, (x - y).abs()).max()))
+        k2_err3 = max(k2_err3, k2_agree(f"config 3 bounce {b}", sp3.scene, r, best_t, best_tri)[1])
         k2_bound3.append(bounds.finalize_hits_bound(best_tri))
     k2_ms3 = kernel_ms(per_name3, "finalize_kernel") / N_BOUNCES
     k2_b3 = sum(b["bound_ms"] for b in k2_bound3) / N_BOUNCES
@@ -812,7 +993,7 @@ def backends_phase(dev, top, grid_sp, rays, batches, absorption, grid_hist):
     a1 = torch.full((room.n_polys,), ABSORPTION, device=dev)
     counters = (brute.brute_shoot, common.finalize_hits, th.energy_histogram)
     _, _, launches, _ = drive(th, sp1, c1_rays, a1, 256, counters, False, True)
-    rec_launch["brute"] += launches[0]
+    rec_launch["brute"] += launches["brute_shoot"]
     cpu_reference(th, sp1, c1_rays, a1, 256)
 
     def fwd1():
@@ -865,7 +1046,7 @@ def vertex_reference(th, sp, rays, absorption, n_bounces, n_bins, step_fn):
               f"{what} differs from the CPU reference by {rel_err(k, c):.3e} of its largest")
 
 
-def a3_phase(label, scene, rays, best_tri, hr, seed, dev):
+def a3_phase(label, scene, rays, best_tri, hr, seed, dev, phase=8):
     """A3 on one shoot's rays with seeded cotangents against its plain
     version in float64 on the card: vertex ids equal, every element of
     d(origin), d(direction), the corner cotangents and the vertex sums
@@ -900,7 +1081,7 @@ def a3_phase(label, scene, rays, best_tri, hr, seed, dev):
         ("d_vertices", dv["kernel"], dv["plain"], dv_64))}
     err = max(float((x.double() - y).abs().max()) for x, y in (
         (k[0], p64[0]), (k[1], p64[1]), (dv["kernel"], dv_64)))
-    print(f"phase 8 A3 finalize_hits_bwd {label} ({n} rays, {int(hr.hit.sum())} hits): each ray "
+    print(f"phase {phase} A3 finalize_hits_bwd {label} ({n} rays, {int(hr.hit.sum())} hits): each ray "
           f"within {a3_check.A3_TOL} of its bound (a3_check.ray_bounds), the tolerance each "
           f"needs against the plain version in float64 / in float32: " + ", ".join(
               f"{key} {r['needed']:.3e} / {agree32[key]['needed']:.3e} ({r['outside']} outside; "
@@ -912,11 +1093,12 @@ def a3_phase(label, scene, rays, best_tri, hr, seed, dev):
     return args, k, {"outputs": agree, "vs_f32_plain": agree32, "max_abs_err": err}, f64
 
 
-def scatter_exact(label, kk, vv, n_keys):
+def scatter_exact(label, kk, vv, n_keys, quiet=False, phase=8):
     """The scatter on ``kk``, ``vv``: equal to its plain version on the CPU
     to the bit, within SCATTER_REL_TOL of one CPU index_add_ (each key in
-    index order, uncut), two calls bitwise equal.  Returns the sums, that
-    reading and the run lengths."""
+    index order, uncut), two calls bitwise equal; printed under ``phase``
+    unless ``quiet``.  Returns the sums, that reading and the run
+    lengths."""
     from hare_tpu_torch.accel import scatter
 
     out = scatter.scatter_add_ordered(kk, vv, n_keys)
@@ -930,8 +1112,10 @@ def scatter_exact(label, kk, vv, n_keys):
     check(same_floats(out, scatter.scatter_add_ordered(kk, vv, n_keys)),
           f"scatter ({label}): two calls differ")
     runs = torch.unique(kk, return_counts=True)[1]
+    if quiet:
+        return out, vs_whole, runs
     cols = 1 if vv.dim() == 1 else vv.shape[1]
-    print(f"phase 8 scatter_add_ordered, {label} ({kk.numel()} values x {cols} into {n_keys} keys, "
+    print(f"phase {phase} scatter_add_ordered, {label} ({kk.numel()} values x {cols} into {n_keys} keys, "
           f"{runs.numel()} used, longest run {int(runs.max())}, median {int(runs.median())}): "
           f"equal to its plain version on the CPU to the bit, to one CPU index_add_ within "
           f"{vs_whole:.3e} of the largest sum of |values|, two calls bitwise equal")
@@ -1196,6 +1380,248 @@ def gradients_phase(dev, sp, rays, batches, absorption):
     ]
 
 
+def scattering_phase(dev, smi, sp, rays, absorption, records):
+    """Phase 9: (a) the bench scattering step, (b) eval config ``deep``
+    with and without per-bounce remat, (c) eval config 2.  On each path's
+    own bounce rays and trace record, K1, K2, the scatter, K3 and its
+    backward (on ``deep``'s vertex loss also A3 and the soft K3) are held
+    against their plain versions, and its first REF_RAYS rays against the
+    CPU.  Adds each path's launches to the records of the kernels it
+    runs."""
+    import hare_tpu_torch as th
+    from hare_tpu_torch.accel import common, scatter, voxel
+    from hare_tpu_torch.benchmarks import configs, repeat_check
+    from hare_tpu_torch.trace import bounce
+
+    counters = (voxel.grid_shoot, common.finalize_hits, th.energy_histogram,
+                bounce.hard_histogram_bwd, scatter.scatter_add_ordered)
+
+    def note(path, launches):
+        for r in records:
+            if r["name"] in launches and r.get("mode") != "soft":
+                r.setdefault("phase9_launches", {})[path] = launches[r["name"]]
+
+    def device_line(fn, ms, reps):
+        busy, per_name, n_kernels = step_ms(fn, reps)
+        return busy, 1 - busy / ms, n_kernels, per_name
+
+    # ---- 9a: the bench scattering step, fwd+bwd w.r.t. absorption and
+    # scattering.  The counted step draws from a CPU generator, ray-major,
+    # so that the CPU reference's sub-batch gets the head of its draws; the
+    # timed step draws on the card, as a user's would, and the CPU
+    # generator's step is timed beside it.
+    n_polys = absorption.shape[0]
+    scattering = (torch.rand(n_polys, generator=torch.Generator().manual_seed(SCATTERING_SEED))
+                  * 0.6 + 0.2).to(dev)
+
+    def scat(seed=DRAW_SEED, draw_device="cpu"):
+        return trace_step(th, sp, rays, absorption, N_BOUNCES, N_BINS, scattering, seed,
+                          draw_device=draw_device)
+
+    def scat_card():
+        return scat(draw_device=dev)
+
+    def spec():
+        return trace_step(th, sp, rays, absorption, N_BOUNCES, N_BINS)
+
+    (res, hist, grads), launches = counted(counters, scat)
+    check(launches["grid_shoot"] == N_BOUNCES and launches["finalize_hits"] == N_BOUNCES
+          and launches["energy_histogram"] == 1 and launches["hard_histogram_bwd"] == 1
+          and launches["scatter_add_ordered"] == 2 * N_BOUNCES,
+          f"9a: launches {launches}, not {N_BOUNCES} shoots and finalizes, one histogram and "
+          f"its backward, {2 * N_BOUNCES} scatters")
+    firsts = {}
+    for where, step, (res_, hist_, grads_) in (("host", scat, (res, hist, grads)),
+                                               ("card", scat_card, scat_card())):
+        e_sum, total = step_checks(f"9a bench scattering, draws on the {where}", res_, hist_,
+                                   grads_, closed=True)
+        firsts[where] = float(res_.energy[0].mean())
+        check(abs(firsts[where] - (1 - ABSORPTION)) < UNBIASED_TOL,
+              f"9a, draws on the {where}: first bounce's mean energy {firsts[where]}, not "
+              f"within {UNBIASED_TOL} of 0.7")
+        _, hist2, grads2 = step()
+        check(same_floats(hist_, hist2) and all(same_floats(x, y) for x, y in zip(grads_, grads2)),
+              f"9a, draws on the {where}: two steps of one seed differ")
+    check(not torch.equal(hist, scat(DRAW_SEED + 1)[1]), "9a: another seed, the same histogram")
+    masked, _ = cpu_reference(th, sp, rays, absorption, N_BINS, scattering)
+    _, k2_err, scat_err = path_kernel_checks(
+        "9a", sp, rays, absorption, N_BOUNCES, scattering=scattering,
+        generator=torch.Generator().manual_seed(DRAW_SEED))
+    k3_err, _ = hist_checks("9a", res, N_BINS, hist=hist)
+    note("bench scattering", launches)
+    print(f"phase 9a bench scattering step [{smi}] (82k-tri scene, grid, {N_RAYS} rays, "
+          f"{N_BOUNCES} bounces, {N_BINS} bins, absorption {ABSORPTION}, scattering per polygon "
+          f"in [0.2, 0.8], fwd+bwd w.r.t. both): launches K1 {launches['grid_shoot']}, K2 "
+          f"{launches['finalize_hits']}, K3 {launches['energy_histogram']}, hard backward "
+          f"{launches['hard_histogram_bwd']}, scatter {launches['scatter_add_ordered']}; all rays "
+          f"hit; hist total {float(hist.sum()):.6f} = bounce energies "
+          f"{float(res.energy.sum()):.6f}; first bounce's mean energy {firsts['host']:.5f} "
+          f"(draws on the card {firsts['card']:.5f}; 0.7 +- {UNBIASED_TOL}); two steps of one "
+          f"seed bitwise equal, draws on the host and on the card; the {REF_RAYS}-ray CPU "
+          f"reference on the same draws agrees ({masked} rays on other paths masked); on each "
+          f"bounce's {N_RAYS} rays (the same draws) K1 bit-equal to its plain version, K2's ids "
+          f"equal and floats within {RTOL:g} (max |diff| {k2_err:.3e}), the scatter on the "
+          f"bounce's polygon keys equal to its plain version on the CPU to the bit (within "
+          f"{scat_err:.3e} of index_add_); K3 within {k3_err:.3e} of the total of its plain "
+          f"version and equal to the step's histogram, the hard backward bit-equal to its plain "
+          f"version; absorption grad sum {float(grads[0].sum()):.4f}, scattering grad sum "
+          f"{float(grads[1].sum()):.4f}")
+
+    def draws(where):
+        return lambda: bounce.scatter_draws(torch.Generator(device=where).manual_seed(DRAW_SEED),
+                                            N_BOUNCES, N_RAYS, torch.float32, dev)
+
+    draw_ms = {"host": host_time(draws("cpu"), 20), "card": host_time(draws(dev), 20)}
+    steps = {"specular": spec, "card": scat_card, "host": scat}
+    ms = {k: [] for k in steps}
+    for which in ("specular", "card", "host", "host", "card", "specular"):  # in turns
+        ms[which].append(host_time(steps[which], 5))
+    mean = {k: sum(v) / len(v) for k, v in ms.items()}
+    line = {k: device_line(steps[k], mean[k], 3) for k in steps}
+    (busy, idle, n_kernels, per_name), spec_line = line["card"], line["specular"]
+    print(f"phase 9a metric [{smi}]: fwd+bwd, draws on the card {mean['card']:.3f} ms (turns "
+          f"{ms['card']}), {N_RAYS * N_BOUNCES / mean['card'] / 1e3:.4f} Mrays/s; device busy "
+          f"{busy:.4f} ms, idle share {idle:.3f}, {n_kernels:.1f} kernels a step (K1 "
+          f"{kernel_ms(per_name, 'grid_shoot_kernel'):.4f}, K2 "
+          f"{kernel_ms(per_name, 'finalize_kernel'):.4f}, scatter "
+          f"{kernel_ms(per_name, 'scatter_ordered'):.4f} ms); draws on the host's CPU generator "
+          f"{mean['host']:.3f} ms (turns {ms['host']}), busy {line['host'][0]:.4f} ms, idle share "
+          f"{line['host'][1]:.3f}, {line['host'][2]:.1f} kernels; scatter_draws alone "
+          f"{draw_ms['host']:.4f} ms on the host's generator (drawn there, copied to the card), "
+          f"{draw_ms['card']:.4f} ms on the card's (wall, 20 calls); the specular step in turns "
+          f"{mean['specular']:.3f} ms ({ms['specular']}), busy {spec_line[0]:.4f} ms, idle share "
+          f"{spec_line[1]:.3f}, {spec_line[2]:.1f} kernels; scattering (draws on the card) / "
+          f"specular: wall {mean['card'] / mean['specular']:.2f}, busy {busy / spec_line[0]:.2f}; "
+          f"draws on the host / on the card: wall {mean['host'] / mean['card']:.2f}")
+
+    # ---- 9b: eval config deep, 32 bounces, fwd+bwd w.r.t. absorption
+    # (the config's own loss) and, beside it, w.r.t. the vertices (soft
+    # bins, the first moment: the path whose saved activations remat is
+    # for), each with and without per-bounce remat.
+    cfg = configs.deep_setup(dev)
+    n_rays = cfg.rays.origin.shape[0]
+    v_counters = counters + (common.finalize_hits_bwd, bounce.soft_histogram_bwd)
+
+    def absorption_step(remat):
+        return trace_step(th, cfg.partition, cfg.rays, cfg.absorption, cfg.n_bounces,
+                          cfg.n_bins, remat=remat)
+
+    def vertex_step(remat):
+        hist, grad = repeat_check.vertex_step(th, cfg.partition, cfg.rays, cfg.absorption,
+                                              cfg.n_bounces, cfg.n_bins, remat=remat)()
+        return None, hist.detach(), [grad]
+
+    deep = {}
+    for loss, make in (("absorption", absorption_step), ("vertices, soft", vertex_step)):
+        for remat in (False, True):
+            def step(remat=remat):
+                return make(remat)
+
+            label = f"9b deep, {loss}, remat={remat}"
+            (res, hist, grads), launches = counted(v_counters, step)
+            grad = grads[0]
+            want = cfg.n_bounces * (2 if remat else 1)
+            check(launches["grid_shoot"] == want and launches["finalize_hits"] == want,
+                  f"{label}: K1 and K2 launched {launches}, not {want} times each")
+            check(bool(torch.isfinite(hist).all()) and bool(torch.isfinite(grad).all())
+                  and float(grad.abs().max()) > 0, f"{label}: not finite, or a zero gradient")
+            if res is not None:
+                e_sum, total = step_checks(label, res, hist, grads, closed=False)
+                extra = (f"hit share {float(res.hit.float().mean()):.4f}; hist total "
+                         f"{total:.6f} = bounce energies {e_sum:.6f}")
+            else:
+                check(launches["finalize_hits_bwd"] == cfg.n_bounces,
+                      f"{label}: A3 launched {launches['finalize_hits_bwd']} times")
+                extra = f"grad max |g| {float(grad.abs().max()):.4e}"
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            step()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            ms_ = host_time(step, 3)
+            busy, idle, n_kernels, _ = device_line(step, ms_, 2)
+            deep[loss, remat] = dict(res=res, hist=hist, grad=grad, ms=ms_, above=peak - base)
+            if loss == "absorption":
+                note(f"deep remat={remat}", launches)
+            print(f"phase 9b deep, {loss}, remat={remat} [{smi}] (concert hall "
+                  f"{cfg.topology.n_tris} tris, grid, {n_rays} rays, {cfg.n_bounces} bounces, "
+                  f"{cfg.n_bins} bins, absorption 0.1, fwd+bwd): launches {launches}; {extra}; "
+                  f"{ms_:.3f} ms, {n_rays * cfg.n_bounces / ms_ / 1e3:.4f} Mrays/s fwd+bwd; "
+                  f"device busy {busy:.4f} ms, idle share {idle:.3f}, {n_kernels:.1f} kernels a "
+                  f"step; max_memory_allocated {peak / 2**20:.1f} MiB ({(peak - base) / 2**20:.1f} "
+                  f"MiB above the {base / 2**20:.1f} MiB held before the step)")
+        plain, rem = deep[loss, False], deep[loss, True]
+        check(same_floats(plain["hist"], rem["hist"]) and same_floats(plain["grad"], rem["grad"]),
+              f"9b deep, {loss}: remat changed the histogram or the gradient")
+        print(f"phase 9b deep, {loss} [{smi}]: remat equals no remat to the bit (histogram and "
+              f"gradient); remat / plain: time {rem['ms'] / plain['ms']:.2f}, "
+              f"memory above the held {rem['above'] / max(plain['above'], 1):.3f}")
+
+    # The kernels on deep's own inputs: K1, K2 and the scatter on each of
+    # the 32 bounces' rays; K3 hard and its backward on the 32 x 16,384
+    # lanes, and the soft K3 and its backward on the same lanes (the vertex
+    # loss traces the same record: its histogram must equal the soft K3's
+    # to the bit); A3, and the scatter on its corners, on the first and the
+    # last bounce's rays; then the CPU reference over all 32 bounces.
+    res = deep["absorption", False]["res"]
+    path, k2_err, scat_err = path_kernel_checks("deep", cfg.partition, cfg.rays, cfg.absorption,
+                                                cfg.n_bounces)
+    k3_hard = hist_checks("deep hard", res, cfg.n_bins, hist=deep["absorption", False]["hist"])
+    k3_soft = hist_checks("deep soft", res, cfg.n_bins, soft=True,
+                          hist=deep["vertices, soft", False]["hist"])
+    n_v = cfg.partition.scene.vertices.shape[0]
+    for b in (1, cfg.n_bounces):
+        r, best_tri, hr = path[b - 1]
+        _, k, _, _ = a3_phase(f"deep bounce {b}", cfg.partition.scene, r, best_tri, hr, 20 + b,
+                              dev, phase="9b")
+        scatter_exact(f"deep A3 bounce {b} corners", k[2], k[3], n_v, phase="9b")
+    masked, flips = cpu_reference(th, cfg.partition, cfg.rays, cfg.absorption, cfg.n_bins,
+                                  n_bounces=cfg.n_bounces, bin_edges=True)
+    print(f"phase 9b deep checks: on each of the {cfg.n_bounces} bounces' {n_rays} rays K1 "
+          f"bit-equal to its plain version, K2's ids equal and floats within {RTOL:g} (max |diff| "
+          f"{k2_err:.3e}), the scatter on the bounce's polygon keys equal to its plain version on "
+          f"the CPU to the bit (within {scat_err:.3e} of index_add_); on {res.hit.numel()} lanes "
+          f"x {cfg.n_bins} bins K3 hard within {k3_hard[0]:.3e} of the total and equal to the "
+          f"step's histogram, its backward bit-equal to its plain version; K3 soft within "
+          f"{k3_soft[0]:.3e} and equal to the vertex step's histogram, its backward within "
+          f"{k3_soft[1]:.3e} of the largest; A3 on bounces 1 and {cfg.n_bounces} as above; the "
+          f"{REF_RAYS}-ray CPU reference over {cfg.n_bounces} bounces agrees ({masked} rays "
+          f"masked; {flips} of {REF_RAYS * cfg.n_bounces} lanes in a neighbouring bin, their "
+          f"arrival times within {REF_RTOL:g})")
+
+    # ---- 9c: eval config 2, forward.
+    cfg = configs.config2_setup(dev)
+
+    def fwd():
+        return trace_step(th, cfg.partition, cfg.rays, cfg.absorption, cfg.n_bounces, cfg.n_bins,
+                          backward=False)
+
+    (res, hist, _), launches = counted(counters, fwd)
+    check(launches["grid_shoot"] == cfg.n_bounces and launches["energy_histogram"] == 1,
+          f"9c: launches {launches}")
+    e_sum, total = step_checks("9c config 2", res, hist, [], closed=True)
+    note("config 2", launches)
+    _, k2_err, scat_err = path_kernel_checks("config 2", cfg.partition, cfg.rays, cfg.absorption,
+                                             cfg.n_bounces)
+    k3_err, _ = hist_checks("config 2", res, cfg.n_bins, hist=hist)
+    masked, _ = cpu_reference(th, cfg.partition, cfg.rays, cfg.absorption, cfg.n_bins,
+                              n_bounces=cfg.n_bounces)
+    fwd_ms = host_time(fwd, 5)
+    busy, idle, n_kernels, _ = device_line(fwd, fwd_ms, 3)
+    n_rays = cfg.rays.origin.shape[0]
+    print(f"phase 9c config 2 [{smi}] (concert hall {cfg.topology.n_tris} tris, grid "
+          f"{cfg.partition.struct.dims}, {n_rays} rays, {cfg.n_bounces} bounces, {cfg.n_bins} "
+          f"bins, fwd): launches {launches}; every ray hits on every bounce; hist total "
+          f"{total:.6f} = bounce energies {e_sum:.6f}; on each bounce's rays K1 bit-equal to its "
+          f"plain version, K2 within {RTOL:g} (max |diff| {k2_err:.3e}), the scatter on its "
+          f"polygon keys to the bit; K3 within {k3_err:.3e} of the total, its hard backward "
+          f"bit-equal; the {REF_RAYS}-ray CPU reference agrees ({masked} rays masked); host build "
+          f"{cfg.build_s:.2f} s; fwd {fwd_ms:.3f} ms, {n_rays * cfg.n_bounces / fwd_ms / 1e3:.4f} "
+          f"Mrays/s fwd; device busy {busy:.4f} ms, idle share {idle:.3f}, {n_kernels:.1f} "
+          f"kernels a step")
+
+
 def to_device(nt, device):
     """A NamedTuple of tensors (Scene, VoxelGrid, Ray) on ``device``."""
     return type(nt)(*(x.to(device) if isinstance(x, torch.Tensor) else x for x in nt))
@@ -1211,6 +1637,7 @@ def main():
     from hare_tpu_torch.kernels import build
     from hare_tpu_torch.trace import bounce
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
 
@@ -1480,6 +1907,10 @@ def main():
 
     # ---- phase 8: vertex gradients and the soft histogram.
     records += gradients_phase(dev, sp, rays, batches, absorption)
+
+    # ---- phase 9: scattering, deep with remat, config 2.
+    scattering_phase(dev, smi, sp, rays, absorption, records)
+    print(f"chip_smoke.py ran {time.perf_counter() - t_start:.1f} s [{smi}]")
 
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

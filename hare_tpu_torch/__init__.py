@@ -2,8 +2,8 @@
 
 Same module layout and names as ``hare_tpu``; plain functions on torch
 tensors.  Every entry point that places tensors (``build_scene``,
-``SpatialPartition``, the structure builders, ``convert``,
-``uniform_sphere``) puts them on ``"cuda"`` unless the caller passes
+``SpatialPartition``, the structure builders, ``convert``, the
+samplers) puts them on ``"cuda"`` unless the caller passes
 another ``device``; with no card such a call raises.  On CUDA tensors the main path runs
 hand-written kernels (``kernels/csrc``): the traversal of the chosen
 backend (K1 ``grid_shoot``, B1 ``brute_shoot``, B2 ``tree_shoot`` for the
@@ -27,7 +27,16 @@ from .accel import (
 )
 from .geom import NO_POLY, HitRecord, Ray
 from .mesh import Scene, Topology, build_scene
-from .trace import TraceResult, energy_histogram, trace_rays, uniform_sphere
+from .trace import (
+    TraceResult,
+    cosine_lobe,
+    energy_histogram,
+    polygon_points,
+    scene_surface_points,
+    trace_rays,
+    triangle_points,
+    uniform_sphere,
+)
 
 __version__ = "0.1.0"
 
@@ -47,16 +56,20 @@ __all__ = [
     "build_octree",
     "build_scene",
     "convert",
+    "cosine_lobe",
     "energy_histogram",
     "geom",
     "kernels",
     "mesh",
     "oracle",
+    "polygon_points",
+    "scene_surface_points",
     "shoot_brute",
     "shoot_kdtree",
     "shoot_kdtree_ropes",
     "shoot_octree",
     "trace",
     "trace_rays",
+    "triangle_points",
     "uniform_sphere",
 ]

@@ -33,9 +33,10 @@ def bench_setup(dev):
     return top, sp, th.Ray.make(o, d), absorption
 
 
-def bounce_rays(sp, rays, absorption, n_bounces: int = N_BOUNCES):
+def bounce_rays(sp, rays, absorption, n_bounces: int = N_BOUNCES, **trace_kw):
     """The ray batch each bounce of one ``trace_rays`` run shoots, as the
-    shoot function receives it (origins, directions, exclusions)."""
+    shoot function receives it (origins, directions, exclusions);
+    ``trace_kw`` (``scattering``, ``generator``) go to ``trace_rays``."""
     import hare_tpu_torch as th
 
     seen = []
@@ -45,7 +46,7 @@ def bounce_rays(sp, rays, absorption, n_bounces: int = N_BOUNCES):
         return sp.shoot_fn(scene, r, aux)
 
     with torch.no_grad():
-        th.trace_rays(sp.scene, rays, absorption, n_bounces, capture, aux=sp.aux)
+        th.trace_rays(sp.scene, rays, absorption, n_bounces, capture, aux=sp.aux, **trace_kw)
     return seen
 
 

@@ -4,8 +4,8 @@ the same distributions.  The ray directions come from torch's generator
 (seed 0), not JAX's ``PRNGKey(0)``: the same distribution, not the same
 rays.
 
-Copies, not imports: that file imports the JAX package.  Configs 3 and 4
-are here; configs 1, 2, 5 and ``deep`` are queued (``chip_smoke.py``
+Copies, not imports: that file imports the JAX package.  Configs 2, 3, 4
+and ``deep`` are here; configs 1 and 5 are queued (``chip_smoke.py``
 builds config 1 itself).
 """
 
@@ -17,7 +17,17 @@ from typing import List, NamedTuple
 import numpy as np
 import torch
 
-__all__ = ["Config3", "Config4", "big_scene", "config3_setup", "config4_setup"]
+__all__ = [
+    "Config4",
+    "HallConfig",
+    "big_scene",
+    "config2_setup",
+    "config3_setup",
+    "config4_setup",
+    "deep_setup",
+]
+
+HALL_SOURCE = (15.0, 24.0, 8.0)
 
 
 def big_scene(n_target: str = "650k") -> List[np.ndarray]:
@@ -41,31 +51,55 @@ def big_scene(n_target: str = "650k") -> List[np.ndarray]:
     return faces
 
 
-class Config3(NamedTuple):
+class HallConfig(NamedTuple):
     topology: object
     partition: object
     rays: object
     absorption: torch.Tensor
     n_bounces: int
     n_bins: int
+    build_s: float  # host build seconds: topology and structure
 
 
-def config3_setup(device="cuda") -> Config3:
-    """Eval config 3 (``benchmarks/configs.py:106-136``): ``concert_hall()``
-    (1,608 triangles), an octree with the builder's defaults, 1,000,000
-    uniform rays (torch's seed 0) from (15, 24, 8), absorption 0.3, 3
-    bounces, 1024 bins of 1 ms; its loss is the histogram's sum,
-    differentiated w.r.t. the absorption."""
+def _hall(accel: str, n: int, absorption: float, n_bounces: int, n_bins: int,
+          device) -> HallConfig:
+    """``concert_hall()`` (1,608 triangles) with ``accel`` at the builder's
+    defaults, ``n`` uniform rays (torch's seed 0) from (15, 24, 8), uniform
+    absorption."""
     import hare_tpu_torch as th
     from ..mesh import shapes
 
+    t0 = time.perf_counter()
     top = th.Topology.build(shapes.concert_hall())
-    sp = th.SpatialPartition(top, accel="octree", device=device)
-    n = 1_000_000
+    sp = th.SpatialPartition(top, accel=accel, device=device)
+    build_s = time.perf_counter() - t0
     d = th.uniform_sphere(n, torch.Generator().manual_seed(0), device=device)
-    o = torch.tensor([15.0, 24.0, 8.0], device=d.device).expand(n, 3).contiguous()
-    absorption = torch.full((top.n_polys,), 0.3, device=d.device)
-    return Config3(top, sp, th.Ray.make(o, d), absorption, 3, 1024)
+    o = torch.tensor(HALL_SOURCE, device=d.device).expand(n, 3).contiguous()
+    a = torch.full((top.n_polys,), absorption, device=d.device)
+    return HallConfig(top, sp, th.Ray.make(o, d), a, n_bounces, n_bins, build_s)
+
+
+def config2_setup(device="cuda") -> HallConfig:
+    """Eval config 2 (``benchmarks/configs.py:106-123``): the concert hall,
+    a grid, 100,000 rays, absorption 0.3, 3 bounces, 1024 bins of 1 ms;
+    forward only."""
+    return _hall("grid", 100_000, 0.3, 3, 1024, device)
+
+
+def config3_setup(device="cuda") -> HallConfig:
+    """Eval config 3 (``benchmarks/configs.py:106-136``): the concert hall,
+    an octree, 1,000,000 rays, absorption 0.3, 3 bounces, 1024 bins of 1
+    ms; its loss is the histogram's sum, differentiated w.r.t. the
+    absorption."""
+    return _hall("octree", 1_000_000, 0.3, 3, 1024, device)
+
+
+def deep_setup(device="cuda") -> HallConfig:
+    """Eval config ``deep`` (``benchmarks/configs.py:220-242``): the concert
+    hall, a grid, 16,384 rays, absorption 0.1, 32 bounces, 2048 bins of 1
+    ms; the loss is the histogram's sum, differentiated w.r.t. the
+    absorption, with and without per-bounce remat."""
+    return _hall("grid", 1 << 14, 0.1, 32, 2048, device)
 
 
 class Config4(NamedTuple):
@@ -99,3 +133,4 @@ def config4_setup(device="cuda") -> Config4:
     o = torch.tensor([20.0, 20.0, 20.0], device=d.device).expand(n, 3).contiguous()
     absorption = torch.full((top.n_polys,), 0.3, device=d.device)
     return Config4(top, sp, th.Ray.make(o, d), absorption, 2, 512, topology_s, kdtree_s)
+

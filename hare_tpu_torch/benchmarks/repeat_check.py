@@ -65,9 +65,11 @@ def absorption_step(th, sp, rays, absorption, n_bounces: int):
     return step
 
 
-def vertex_step(th, sp, rays, absorption, n_bounces: int, n_bins: int = N_BINS):
+def vertex_step(th, sp, rays, absorption, n_bounces: int, n_bins: int = N_BINS,
+                remat: bool = False):
     """One fwd+bwd step w.r.t. the vertices, soft bins, loss
-    ``sum(h * arange(n_bins))``: ``(histogram, gradient)``."""
+    ``sum(h * arange(n_bins))``, per-bounce remat where asked:
+    ``(histogram, gradient)``."""
     import torch
 
     weight = torch.arange(n_bins, dtype=torch.float32, device=rays.origin.device)
@@ -75,7 +77,7 @@ def vertex_step(th, sp, rays, absorption, n_bounces: int, n_bins: int = N_BINS):
     def step():
         v = sp.scene.vertices.clone().requires_grad_()
         res = th.trace_rays(sp.scene.with_vertices(v), rays, absorption, n_bounces, sp.shoot_fn,
-                            aux=sp.aux)
+                            aux=sp.aux, remat=remat)
         hist = th.energy_histogram(res, n_bins, BIN_DT, soft=True)
         (hist * weight).sum().backward()
         return hist, v.grad

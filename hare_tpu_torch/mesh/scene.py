@@ -10,7 +10,7 @@ splice (``hare_tpu/mesh/scene.py:132-148``).
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -53,6 +53,16 @@ class Scene(NamedTuple):
     @property
     def n_polys(self) -> int:
         return self.poly_plane.shape[0]
+
+    def tri_vertices(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Per-triangle corners ``(v0, v1, v2)``, each ``(T, 3)``, gathered
+        from ``vertices`` (``hare_tpu/mesh/scene.py:91-99``).  The gradient
+        to ``vertices`` goes through ``gather_rows``' fixed-order scatter, so
+        it repeats to the bit (plain indexing's backward is an atomic
+        ``index_put_``)."""
+        from ..accel.scatter import gather_rows
+
+        return tuple(gather_rows(self.vertices, self.tri_v[:, k]) for k in range(3))
 
     def with_vertices(self, vertices: torch.Tensor) -> "Scene":
         """``Set_Vertex`` (``Hare_Geometry_Topology.cs:506-511``): the same

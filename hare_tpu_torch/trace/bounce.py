@@ -1,24 +1,36 @@
 """Differentiable multi-bounce tracing and the energy histogram.
 
-Counterpart of ``hare_tpu/trace/bounce.py`` (specular tracing, the hard and
-the soft histogram).  The bounce loop is a Python loop: each bounce shoots
-(a traversal + K2), then the bounce step — reflect, the absorption gather,
-the energy product and the coplanar second exclusion — runs as torch glue,
-so autograd sees ``energy * (1 - absorption[poly])``; the gather's backward
-is the fixed-order scatter (``accel.scatter``), and the hit record's is A3
-(``accel.common.finalize_hits``), so gradients w.r.t. absorption, vertices
-and rays are bitwise-repeatable.  :func:`energy_histogram` is K3 (CUDA,
-deterministic) inside ``torch.autograd.Function``s, whose backwards, hard
-and soft, are K3's backward kernel.
+Counterpart of ``hare_tpu/trace/bounce.py`` (specular and scattering
+tracing, per-bounce remat, the hard and the soft histogram).  The bounce
+loop is a Python loop: each bounce shoots (a traversal + K2), then
+:func:`bounce_step` — reflect, the absorption gather, the energy product,
+the scattering coin and lobe, and the coplanar second exclusion — runs as
+torch glue, so autograd sees ``energy * (1 - absorption[poly])``; the
+gathers' backward is the fixed-order scatter (``accel.scatter``), and the
+hit record's is A3 (``accel.common.finalize_hits``), so gradients w.r.t.
+absorption, scattering, vertices and rays are bitwise-repeatable.
+:func:`energy_histogram` is K3 (CUDA, deterministic) inside
+``torch.autograd.Function``s, whose backwards, hard and soft, are K3's
+backward kernel.
 
-Scattering and per-bounce remat are later ports: asking for them raises.
+Scattering follows the JAX package's estimator: a fair coin, independent of
+the scattering coefficient ``s``, picks the cosine lobe or the specular
+direction, and the energy is reweighted by ``2 s`` or ``2 (1 - s)``, so the
+estimate is unbiased and pathwise differentiable in ``s``.  Every bounce's
+coin and lobe uniforms are drawn before the loop (:func:`scatter_draws`),
+as JAX splits its key before its scan: the draws are then inputs of each
+bounce, which is what lets ``remat`` recompute a bounce exactly
+(``torch.utils.checkpoint`` restores the default generators' states, not an
+explicit ``torch.Generator``'s).
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+import math
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..accel.common import check_device
 from ..accel.scatter import gather_rows
@@ -29,13 +41,17 @@ from ..mesh.scene import Scene
 
 __all__ = [
     "SOUND_SPEED",
+    "BounceState",
     "TraceResult",
+    "bounce_step",
+    "cosine_lobe",
     "energy_histogram",
     "hard_histogram_bwd",
     "hard_histogram_bwd_plain",
     "histogram_kernel",
     "histogram_plain",
     "reflect",
+    "scatter_draws",
     "soft_histogram_bwd",
     "soft_histogram_bwd_plain",
     "soft_histogram_plain",
@@ -53,6 +69,31 @@ def reflect(direction: torch.Tensor, normal: torch.Tensor) -> torch.Tensor:
     return direction - 2.0 * dot(direction, normal)[..., None] * normal
 
 
+def cosine_lobe(
+    normal: torch.Tensor, incoming: torch.Tensor, r1: torch.Tensor, r2: torch.Tensor
+) -> torch.Tensor:
+    """Cosine-weighted hemisphere sample about ``normal`` from the uniforms
+    ``r1``, ``r2`` (``hare_tpu/trace/bounce.py:60-90``, which draws them from
+    its key).  ``normal`` need not have a consistent sign: it is oriented
+    against ``incoming``, the reflection side (Lambert's law)."""
+    n = normal * -torch.sign(dot(incoming, normal))[..., None]
+    cz = torch.sqrt(r1)  # cos(theta) ~ sqrt(u): pdf = cos / pi
+    rr = torch.sqrt(torch.clamp(1.0 - r1, min=0.0))
+    phi = 2.0 * math.pi * r2
+    # Orthonormal tangent frame (branchless Duff et al. construction).
+    nz = n[..., 2]
+    sg = torch.where(nz >= 0.0, 1.0, -1.0)
+    a = -1.0 / (sg + nz)
+    b = n[..., 0] * n[..., 1] * a
+    t1 = torch.stack([1.0 + sg * n[..., 0] ** 2 * a, sg * b, -sg * n[..., 0]], dim=-1)
+    t2 = torch.stack([b, sg + n[..., 1] ** 2 * a, -n[..., 1]], dim=-1)
+    return (
+        (rr * torch.cos(phi))[..., None] * t1
+        + (rr * torch.sin(phi))[..., None] * t2
+        + cz[..., None] * n
+    )
+
+
 class TraceResult(NamedTuple):
     """Per-bounce trace record, all shaped ``(n_bounces, n_rays, ...)``."""
 
@@ -64,6 +105,96 @@ class TraceResult(NamedTuple):
     t: torch.Tensor  # (B, N) hit parameter of each bounce
 
 
+class BounceState(NamedTuple):
+    """What one bounce carries to the next, all ``(N, ...)``."""
+
+    origin: torch.Tensor  # (N, 3)
+    direction: torch.Tensor  # (N, 3) unit
+    exclude: torch.Tensor  # (N, 2) i32
+    energy: torch.Tensor  # (N,)
+    dist: torch.Tensor  # (N,) path length so far
+    alive: torch.Tensor  # (N,) bool
+
+
+def scatter_draws(
+    generator: torch.Generator, n_bounces: int, n: int, dtype: torch.dtype, device
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Every bounce's scattering draws for ``n`` rays: ``(diffuse, r1, r2)``,
+    each ``(n_bounces, n)`` — the fair coin (``u < 0.5``, drawn for every
+    ray, dead or alive, as the JAX package's ``bernoulli(kb, 0.5, (n,))``)
+    and :func:`cosine_lobe`'s two uniforms.
+
+    The numbers are drawn ray-major, ``(n, n_bounces, 3)``, on the
+    generator's device and then moved to ``device``: a generator on the CPU
+    draws in sequence, so the first ``m`` rays of a batch get the draws a
+    batch of ``m`` rays gets from the same seed."""
+    u = torch.rand((n, n_bounces, 3), generator=generator, device=generator.device, dtype=dtype)
+    u = u.to(device).permute(1, 2, 0).contiguous()
+    return u[:, 0] < 0.5, u[:, 1], u[:, 2]
+
+
+def bounce_step(
+    state: BounceState,
+    hr: HitRecord,
+    absorption: torch.Tensor,
+    scattering: Optional[torch.Tensor] = None,
+    draws: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+    sound_speed: float = SOUND_SPEED,
+):
+    """One bounce after its shoot (``hare_tpu/trace/bounce.py:175-247``):
+    the hit record ``hr`` (``edge_nbr`` filled) applied to ``state``.
+
+    ``scattering`` (``(P,)``) with this bounce's ``draws`` ``(diffuse, r1,
+    r2)``, each ``(N,)``, takes the diffuse branch; without them the step
+    is specular.  Returns the next state and the bounce's six outputs, the
+    fields of :class:`TraceResult` for this bounce.
+    """
+    live_hit = hr.hit & state.alive
+    n_hat = normalize(hr.normal)
+    pid = torch.clamp(hr.poly_id, min=0)
+    a = gather_rows(absorption, pid)
+    energy = state.energy * (1.0 - a)
+    new_dir = reflect(state.direction, n_hat)
+    if scattering is not None:
+        diffuse, r1, r2 = draws
+        sc = gather_rows(scattering, pid)
+        energy = energy * torch.where(diffuse, 2.0 * sc, 2.0 * (1.0 - sc))
+        lobe = cosine_lobe(n_hat, state.direction, r1, r2)
+        new_dir = torch.where(diffuse[:, None], lobe, new_dir)
+    energy = torch.where(live_hit, energy, state.energy)
+    dist = state.dist + torch.where(live_hit, hr.t, 0.0)
+    outs = (
+        live_hit,
+        torch.where(live_hit, energy, 0.0),
+        dist / sound_speed,
+        torch.where(live_hit, hr.poly_id, NO_POLY),
+        hr.point,
+        torch.where(live_hit, hr.t, float("inf")),
+    )
+
+    # Second exclusion slot (poly_origin2, Spatial_Partition.cs:33): a
+    # reflection point on an edge shared with a COPLANAR polygon also
+    # excludes that polygon.  Edge k joins corners (k, k+1); its
+    # barycentric distance is the weight of the opposite corner.
+    nbr = hr.edge_nbr
+    w_b = 1.0 - hr.u - hr.v
+    b0, b1, b2 = hr.v, w_b, hr.u
+    n01 = torch.where(b0 <= b1, nbr[:, 0], nbr[:, 1])
+    d01 = torch.minimum(b0, b1)
+    nb = torch.where(d01 <= b2, n01, nbr[:, 2])
+    on_edge = torch.minimum(d01, b2) < EDGE_EPS
+    ex2 = torch.where(live_hit & on_edge & (nb >= 0), nb, NO_POLY)
+    nxt = BounceState(
+        origin=torch.where(live_hit[:, None], hr.point, state.origin),
+        direction=torch.where(live_hit[:, None], new_dir, state.direction),
+        exclude=torch.stack([torch.where(live_hit, hr.poly_id, NO_POLY), ex2], dim=-1),
+        energy=energy,
+        dist=dist,
+        alive=live_hit,
+    )
+    return nxt, outs
+
+
 def trace_rays(
     scene: Scene,
     rays: Ray,
@@ -72,10 +203,11 @@ def trace_rays(
     shoot_fn: Callable[..., HitRecord],
     aux=None,
     scattering: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
     sound_speed: float = SOUND_SPEED,
     remat: bool = False,
 ) -> TraceResult:
-    """Trace ``rays`` for up to ``n_bounces`` specular reflections.
+    """Trace ``rays`` for up to ``n_bounces`` reflections.
 
     Args:
       scene: compiled Scene.
@@ -86,58 +218,59 @@ def trace_rays(
         bounce's hit record.
       n_bounces: bounce count.
       shoot_fn: ``(scene, rays[, aux]) -> HitRecord`` (``SpatialPartition.
-        shoot_fn``).
+        shoot_fn``).  A record without ``edge_nbr`` takes the hit triangle's
+        coplanar neighbours from ``scene.tri_meta``.
       aux: accel structure passed through to ``shoot_fn``.
-      scattering, remat: not ported yet; raise when used.
+      scattering: optional ``(P,)`` per-polygon scattering coefficients in
+        [0, 1]: at each hit a fair coin picks the cosine lobe or the
+        specular direction, the energy reweighted ``2 s`` / ``2 (1 - s)``
+        (module docstring); differentiable in ``scattering``.
+      generator: the ``torch.Generator`` the scattering draws come from
+        (:func:`scatter_draws`); required with ``scattering``.  One seed
+        gives a bitwise-identical trace.
+      remat: recompute each bounce, its shoot included, in the backward
+        (``torch.utils.checkpoint``).  Each bounce's input state is kept
+        and its activations are recomputed one bounce at a time, so the
+        peak falls only where the backward would otherwise save more a
+        bounce than that state, as the geometry of a loss w.r.t. the
+        vertices; w.r.t. the absorption alone it can rise.  Values and
+        gradients are unchanged.
     """
-    if scattering is not None:
-        raise NotImplementedError("scattering is not ported yet (specular only)")
-    if remat:
-        raise NotImplementedError("remat=True is not ported yet")
+    if scattering is not None and generator is None:
+        raise ValueError("scattering requires a torch.Generator (generator=)")
     o = rays.origin
     n = o.shape[0]
-    direction = normalize(rays.direction)
-    origin, exclude = o, rays.exclude_poly
-    energy = torch.ones(n, dtype=o.dtype, device=o.device)
-    dist = torch.zeros(n, dtype=o.dtype, device=o.device)
-    alive = torch.ones(n, dtype=torch.bool, device=o.device)
-    outs = []
-    for _ in range(n_bounces):
-        r = Ray(origin, direction, exclude)
-        hr = shoot_fn(scene, r) if aux is None else shoot_fn(scene, r, aux)
-        live_hit = hr.hit & alive
-        n_hat = normalize(hr.normal)
-        pid = torch.clamp(hr.poly_id, min=0)
-        a = gather_rows(absorption, pid)
-        new_energy = torch.where(live_hit, energy * (1.0 - a), energy)
-        dist = dist + torch.where(live_hit, hr.t, 0.0)
-        outs.append((
-            live_hit,
-            torch.where(live_hit, new_energy, 0.0),
-            dist / sound_speed,
-            torch.where(live_hit, hr.poly_id, NO_POLY),
-            hr.point,
-            torch.where(live_hit, hr.t, float("inf")),
-        ))
+    state = BounceState(
+        origin=o,
+        direction=normalize(rays.direction),
+        exclude=rays.exclude_poly,
+        energy=torch.ones(n, dtype=o.dtype, device=o.device),
+        dist=torch.zeros(n, dtype=o.dtype, device=o.device),
+        alive=torch.ones(n, dtype=torch.bool, device=o.device),
+    )
+    draws = None
+    if scattering is not None:
+        draws = scatter_draws(generator, n_bounces, n, o.dtype, o.device)
 
-        # Second exclusion slot (poly_origin2, Spatial_Partition.cs:33): a
-        # reflection point on an edge shared with a COPLANAR polygon also
-        # excludes that polygon.  Edge k joins corners (k, k+1); its
-        # barycentric distance is the weight of the opposite corner.
-        nbr = hr.edge_nbr
-        w_b = 1.0 - hr.u - hr.v
-        b0, b1, b2 = hr.v, w_b, hr.u
-        n01 = torch.where(b0 <= b1, nbr[:, 0], nbr[:, 1])
-        d01 = torch.minimum(b0, b1)
-        nb = torch.where(d01 <= b2, n01, nbr[:, 2])
-        on_edge = torch.minimum(d01, b2) < EDGE_EPS
-        ex2 = torch.where(live_hit & on_edge & (nb >= 0), nb, NO_POLY)
-        exclude = torch.stack(
-            [torch.where(live_hit, hr.poly_id, NO_POLY), ex2], dim=-1
-        )
-        origin = torch.where(live_hit[:, None], hr.point, origin)
-        direction = torch.where(live_hit[:, None], reflect(direction, n_hat), direction)
-        energy, alive = new_energy, live_hit
+    def bounce(state, draws_b):
+        r = Ray(state.origin, state.direction, state.exclude)
+        hr = shoot_fn(scene, r) if aux is None else shoot_fn(scene, r, aux)
+        if hr.edge_nbr is None:
+            tri = torch.clamp(hr.tri_id, min=0).long()
+            hr = hr._replace(edge_nbr=scene.tri_meta[tri, 1:4])
+        return bounce_step(state, hr, absorption, scattering, draws_b, sound_speed)
+
+    outs = []
+    for b in range(n_bounces):
+        draws_b = None if draws is None else tuple(x[b] for x in draws)
+        if remat and torch.is_grad_enabled():
+            # The draws are inputs, never drawn inside: the recompute sees
+            # the forward's numbers without restoring any generator.
+            state, out = checkpoint(bounce, state, draws_b, use_reentrant=False,
+                                    preserve_rng_state=False)
+        else:
+            state, out = bounce(state, draws_b)
+        outs.append(out)
     return TraceResult(*(torch.stack(x) for x in zip(*outs)))
 
 

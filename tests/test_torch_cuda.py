@@ -1124,6 +1124,75 @@ def test_trace_on_card_matches_cpu(dev):
         torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-4)
 
 
+def scattering_step(sp, rays, n_polys, bounces, remat=False, seed=4):
+    """A scattering step (coefficients 0.2-0.8 across the polygons, draws
+    from a CPU generator, so the same on every device): the record, the
+    histogram and the gradients w.r.t. absorption and scattering."""
+    where = rays.origin.device
+    a = torch.full((n_polys,), 0.3, device=where, requires_grad=True)
+    s = torch.linspace(0.2, 0.8, n_polys, device=where).requires_grad_()
+    res = th.trace_rays(sp.scene, rays, a, bounces, sp.shoot_fn, aux=sp.aux, scattering=s,
+                        generator=torch.Generator().manual_seed(seed), remat=remat)
+    hist = th.energy_histogram(res, 64)
+    hist.sum().backward()
+    return [x.detach().cpu() for x in res] + [hist.detach().cpu(), a.grad.cpu(), s.grad.cpu()]
+
+
+@pytest.mark.parametrize("accel", ["grid", "kdtree"])
+def test_scattering_trace_on_card_matches_cpu(dev, accel):
+    """The scattering step on the card (the traversal, K2, K3, the scatter
+    of both gradients) against the plain versions on the CPU, on the same
+    draws."""
+    top = th.Topology.build(shapes.shoebox(4, 5, 3))
+    out = {}
+    for where in ("cpu", dev):
+        sp = th.SpatialPartition(top, accel=accel, device=where)
+        rays = rays_of(np.random.default_rng(6), 0.3, 2.7, 2048, where)
+        out[str(where)] = scattering_step(sp, rays, top.n_polys, 4)
+    c, k = out["cpu"], out[str(dev)]
+    assert bool(c[0].all())
+    assert torch.equal(c[0], k[0]) and torch.equal(c[3], k[3])  # hit, poly_id
+    for i in (1, 2, 6, 7, 8):  # energy, time, histogram, both gradients
+        torch.testing.assert_close(k[i], c[i], rtol=1e-4, atol=1e-4 * float(c[i].abs().max()))
+
+
+def test_remat_on_card_is_bitwise(dev):
+    """Per-bounce remat with scattering on the card: every output and both
+    gradients equal to the plain trace's to the bit, K1 and K2 launched
+    twice a bounce."""
+    from hare_tpu_torch.accel.common import finalize_hits as k2
+
+    faces = shapes.shoebox(4, 5, 3) + shapes.icosphere(2, radius=0.7, center=(2.0, 3.5, 1.2))
+    top = th.Topology.build(faces)
+    sp = th.SpatialPartition(top, device=dev)
+    rays = rays_of(np.random.default_rng(9), 0.3, 2.7, 4096, dev)
+    plain = scattering_step(sp, rays, top.n_polys, 6)
+    grid_shoot.launches = k2.launches = 0
+    remat = scattering_step(sp, rays, top.n_polys, 6, remat=True)
+    assert grid_shoot.launches == k2.launches == 12
+    for x, y in zip(plain, remat):
+        assert torch.equal(x, y)
+        if x.is_floating_point():
+            assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+def test_scene_surface_points_on_card(dev):
+    """Area-weighted points on the card: on the room's walls, one seed the
+    same points, and the CPU's points for that seed."""
+    top = th.Topology.build(shapes.shoebox(4, 5, 3))
+    sc = top.scene(device=dev)
+    pts = th.scene_surface_points(sc, 100_000, torch.Generator().manual_seed(4))
+    assert pts.device.type == "cuda" and pts.shape == (100_000, 3)
+    assert torch.equal(pts, th.scene_surface_points(sc, 100_000, torch.Generator().manual_seed(4)))
+    size = torch.tensor([4.0, 5.0, 3.0], device=dev)
+    assert bool(((pts >= -1e-5) & (pts <= size + 1e-5)).all())
+    on = (pts.abs() < 1e-5) | ((pts - size).abs() < 1e-5)
+    assert bool(on.any(dim=1).all())
+    cpu = th.scene_surface_points(top.scene(device="cpu"), 100_000,
+                                  torch.Generator().manual_seed(4), device="cpu")
+    torch.testing.assert_close(pts.cpu(), cpu, rtol=0, atol=1e-5)
+
+
 @pytest.mark.parametrize("rows, cols", [(100, 192), (200_000, 192), (3000, 8)])
 def test_column_sum_matches_plain(dev, rows, cols):
     """P1, one band and many bands of rows (each thread several rows)."""

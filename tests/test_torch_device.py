@@ -54,6 +54,11 @@ ENTRY_POINTS = {
     "ropes_from_numpy": lambda top: convert.ropes_from_numpy(
         SimpleNamespace(**ropes.build_kdtree_ropes_tables(top))).win_ids,
     "uniform_sphere": lambda top: th.uniform_sphere(8, torch.Generator().manual_seed(0)),
+    "triangle_points": lambda top: th.triangle_points(
+        *torch.eye(3), 8, torch.Generator().manual_seed(0)),
+    "polygon_points": lambda top: th.polygon_points(top, 0, 8, torch.Generator().manual_seed(0)),
+    "scene_surface_points": lambda top: th.scene_surface_points(
+        top.scene(device="cpu"), 8, torch.Generator().manual_seed(0)),
 }
 
 

@@ -99,14 +99,19 @@ def test_tpu_knobs_raise(room, knob, accel):
 
 
 def test_unported_trace_features_raise(room):
+    """Scattering and remat are ported: scattering without its generator
+    raises, as the JAX package raises without a key; remat runs.  An
+    unknown triangle kernel raises."""
     sp = th.SpatialPartition(room, domain=4, device=CPU)
     rays = th.Ray.make(torch.full((4, 3), 1.0), torch.tensor([[1.0, 0.0, 0.0]] * 4))
     a = torch.zeros(room.n_polys)
-    with pytest.raises(NotImplementedError, match="scattering"):
+    with pytest.raises(ValueError, match="Generator"):
         th.trace_rays(sp.scene, rays, a, 2, sp.shoot_fn, aux=sp.aux,
                       scattering=torch.zeros(room.n_polys))
-    with pytest.raises(NotImplementedError, match="remat"):
-        th.trace_rays(sp.scene, rays, a, 2, sp.shoot_fn, aux=sp.aux, remat=True)
+    res = th.trace_rays(sp.scene, rays, a, 2, sp.shoot_fn, aux=sp.aux, remat=True,
+                        scattering=torch.zeros(room.n_polys),
+                        generator=torch.Generator().manual_seed(0))
+    assert bool(res.hit.all())
     with pytest.raises(ValueError, match="kernel"):
         th.SpatialPartition(room, domain=4, kernel="fast", device=CPU)
 
