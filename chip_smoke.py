@@ -22,7 +22,10 @@ per-polygon absorption, on the card.  Phases, one line each:
    the wrapper's host cost per call; K2, K3 and K3's backward in its hard
    mode (bit-equal to the torch glue it replaced), K3 and its backward
    beside their one-call PyTorch yardsticks on bins computed once
-   (``torch.bincount``, the gather ``grad_h[bins]``);
+   (``torch.bincount``, the gather ``grad_h[bins]``); K4 ``bounce_kernel``
+   and its backward ``bounce_bwd_kernel`` on each bounce step's inputs,
+   against ``bounce_step`` and autograd through it, timed on the first
+   bounce beside their bounds;
 4. the main path end to end, with its launch counts and invariants;
 5. forward and forward+backward step times, Mrays/s, and where one step's
    device time goes (idle share of the card, kernels a step);
@@ -82,6 +85,15 @@ per-polygon absorption, on the card.  Phases, one line each:
    idle share and peak memory; (c) eval config 2 (concert hall, grid, 100,000
    rays, 3 bounces, forward): every ray hits, Mrays/s and the host build.
    Each line carries the card's name and power limit.
+10. the ray-parallel training step (``hare_tpu_torch.dist``) over a
+   one-rank NCCL group (one card): ``make_train_step`` on the bench scene
+   at full width, w.r.t. absorption, three Adam steps: the loss falls, each
+   step equal to the same step without the group to the bit; its time and
+   kernels a step beside the unsharded step's.
+
+On every path that phases 4-9 drive, K4 forward and backward are held
+against their plain versions on each bounce step's full-width inputs (the
+path's own draws), and every path counts K4's launches.
 
 Any failed check raises: there is no fallback.  The second-to-last line is
 the per-kernel JSON record, the last ``{"ok": true, "device": ...}``.
@@ -127,6 +139,15 @@ K3_TAG = "hist_"
 # gather_sum_rows_* kernel (pass 1, by the table's width) and
 # gather_sum_windows, each launched once a call.
 GATHER_TAG = "gather_sum_"
+# K4's lobe calls cosf and sinf built with -fmad=false, torch's cos and sin
+# round another way on some lanes: a diffuse lane's direction within
+# K4_LOBE_ATOL (an ulp or two of a unit vector's component), the direction's
+# and the normal's gradients through the lobe within K4_LOBE_GRAD_RTOL of
+# the largest.  Everything else K4 computes is bit-equal to its plain
+# version.
+K4_LOBE_ATOL, K4_LOBE_GRAD_RTOL = 1e-6, 1e-5
+# The profiler's names of K4's two kernels.
+K4_FWD_TAG, K4_BWD_TAG = "bounce_fwd_kernel", "bounce_bwd_kernel"
 # The small-input reference: the plain versions on the CPU, which the CPU
 # tests hold against the JAX package.  Summed energies and gradients over
 # thousands of lanes, in another order.
@@ -583,22 +604,26 @@ def k2_agree(label, scene, rays, best_t, best_tri):
     return hk, err
 
 
-def path_kernel_checks(label, sp, rays, absorption, n_bounces, **trace_kw):
-    """K1 and K2 on the rays each bounce of one grid path's trace_rays run
-    shoots (``trace_kw``: its scattering and generator, so the same draws),
-    against their plain versions on the same card tensors: K1 bit-equal,
-    K2 as ``k2_agree``; and the scatter on each bounce's polygon keys (the
-    absorption and scattering gathers' backward) with seeded values, as
-    ``scatter_exact``.  Returns (each bounce's (rays, best_tri, record),
-    K2's max |diff|, the scatter's largest reading against index_add_)."""
+def path_kernel_checks(label, sp, rays, absorption, n_bounces, scattering=None,
+                       generator=None):
+    """K1, K2 and K4 on what each bounce of one grid path's trace_rays run
+    receives (``scattering`` with ``generator``: the same draws), against
+    their plain versions on the same card tensors: K1 bit-equal, K2 as
+    ``k2_agree``, K4 as ``k4_checks``; and the scatter on each bounce's
+    polygon keys (the absorption and scattering gathers' backward) with
+    seeded values, as ``scatter_exact``.  Returns (each bounce's (rays,
+    best_tri, record), K2's max |diff|, the scatter's largest reading
+    against index_add_, K4's readings)."""
     from hare_tpu_torch.accel import voxel
     from hare_tpu_torch.benchmarks import bench_scene
 
     grid, scene = sp.struct, sp.scene
+    kw = {} if scattering is None else dict(scattering=scattering, generator=generator)
+    steps = bench_scene.bounce_inputs(sp, rays, absorption, n_bounces, **kw)
     gen = torch.Generator(device=rays.origin.device).manual_seed(7)
     out, k2_err, scat_err = [], 0.0, 0.0
-    for b, r in enumerate(bench_scene.bounce_rays(sp, rays, absorption, n_bounces, **trace_kw),
-                          1):
+    for b, (state, *_) in enumerate(steps, 1):
+        r = type(rays)(state.origin, state.direction, state.exclude)
         k = voxel.grid_shoot(r, grid)
         same_bits(f"K1 {label} bounce {b}", k, voxel.grid_shoot_plain(r, grid))
         hr, err = k2_agree(f"{label} bounce {b}", scene, r, *k)
@@ -608,7 +633,78 @@ def path_kernel_checks(label, sp, rays, absorption, n_bounces, **trace_kw):
         scat_err = max(scat_err, scatter_exact(f"{label} bounce {b} polygon keys", pid, vals,
                                                scene.n_polys, quiet=True)[1])
         out.append((r, k[1], hr))
-    return out, k2_err, scat_err
+    return out, k2_err, scat_err, k4_checks(label, steps, absorption, scattering)
+
+
+def k4_checks(label, steps, absorption, scattering=None):
+    """K4 forward and backward on each bounce step's inputs of one path
+    (``bench_scene.bounce_inputs``: full width, the path's own draws)
+    against their plain versions on the same card tensors, ``bounce_step``
+    and autograd through it: forward, every output to the bit but a diffuse
+    lane's direction (within K4_LOBE_ATOL); backward from seeded cotangents
+    of all seven differentiable outputs, every gradient asked for: the
+    energy chain (the state's energy, the tables summed by polygon), the
+    distance, t, origin and point to the bit, the direction and the normal
+    to the bit without scattering and within K4_LOBE_GRAD_RTOL of the
+    largest with it; two launches of each bitwise equal.  Returns the
+    readings: the diffuse lanes' largest |diff| and their count with another
+    direction, the backward's direction and normal readings."""
+    from hare_tpu_torch.trace import bounce
+
+    fields = ("origin", "direction", "exclude", "energy", "dist", "alive", "hit",
+              "out energy", "time", "poly_id", "point", "t")
+    fwd_err, fwd_lanes, bwd_err = 0.0, 0, {"direction": 0.0, "normal": 0.0}
+    for b, (state, hr, draws, ss, tri_meta) in enumerate(steps, 1):
+        where = f"K4 {label} bounce {b}"
+        args = (state, hr, absorption, scattering, draws, ss)
+        k, k2 = (bounce.bounce_kernel(*args, tri_meta) for _ in range(2))
+        p = bounce.bounce_step(*args)
+        for name, x, y, z in zip(fields, [*k[0], *k[1]], [*p[0], *p[1]], [*k2[0], *k2[1]]):
+            check(torch.equal(x, z) if x.dtype != torch.float32 else same_floats(x, z),
+                  f"{where}: {name}: two launches differ")
+            if name == "direction" and scattering is not None:
+                dif = draws[0]
+                check(same_floats(x[~dif], y[~dif]), f"{where}: a specular lane's direction")
+                d = (x[dif] - y[dif]).abs()
+                fwd_err = max(fwd_err, float(d.max()) if d.numel() else 0.0)
+                fwd_lanes += int((d > 0).any(1).sum())
+                check(fwd_err <= K4_LOBE_ATOL, f"{where}: a diffuse lane's direction differs "
+                      f"by {fwd_err:.3e}")
+            elif x.dtype == torch.float32:
+                check(same_floats(x, y), f"{where}: {name} differs from its plain version")
+            else:
+                check(torch.equal(x, y), f"{where}: {name} differs from its plain version")
+        n, dev = state.energy.shape[0], state.energy.device
+        g = torch.Generator(device=dev).manual_seed(b)
+        cot = tuple(torch.randn(sh, generator=g, device=dev)
+                    for sh in ((n, 3), (n, 3), (n,), (n,), (n,), (n,), (n,)))
+        bargs = (state, hr, absorption, scattering, draws, cot, (True,) * 9, ss)
+        gk, gk2 = (bounce.bounce_step_bwd(*bargs) for _ in range(2))
+        gp = bounce.bounce_bwd_plain(*bargs)
+        for name, x, y, z in zip(bounce.GRADS, gk, gp, gk2):
+            check((x is None) == (y is None), f"{where} backward: {name} present on one side")
+            if x is None:
+                continue
+            check(same_floats(x, z), f"{where} backward: {name}: two launches differ")
+            if scattering is not None and name in bwd_err:
+                bwd_err[name] = max(bwd_err[name], rel_err(x, y))
+                check(bwd_err[name] <= K4_LOBE_GRAD_RTOL,
+                      f"{where} backward: {name} differs by {bwd_err[name]:.3e} of the largest")
+            else:
+                check(same_floats(x, y), f"{where} backward: {name} differs from its plain "
+                      "version")
+    return dict(bounces=len(steps), fwd_err=fwd_err, fwd_lanes=fwd_lanes, bwd_err=bwd_err)
+
+
+def k4_line(label, r):
+    """One line of ``k4_checks``' readings."""
+    lobe = ("" if r["fwd_lanes"] == 0 and not any(r["bwd_err"].values()) else
+            f"; diffuse lanes with another direction {r['fwd_lanes']} (max |diff| "
+            f"{r['fwd_err']:.3e}), backward direction and normal within "
+            f"{r['bwd_err']['direction']:.3e} and {r['bwd_err']['normal']:.3e} of the largest")
+    return (f"K4 {label} on each of its {r['bounces']} bounces' step inputs: forward and "
+            f"backward (all nine gradients) bit-equal to bounce_step and autograd through it"
+            f"{' but the lobe' if lobe else ''}, two launches bitwise equal{lobe}")
 
 
 def hist_checks(label, res, n_bins, soft=False, hist=None):
@@ -654,6 +750,149 @@ def hist_checks(label, res, n_bins, soft=False, hist=None):
               f"hard backward {label}: differs from its plain version")
         check(same_floats(gk, bwd()), f"hard backward {label}: two launches differ")
     return err, bwd_err
+
+
+def k4_phase(sp, rays, absorption):
+    """Phase 3's K4: forward and backward on each bench bounce's step inputs
+    against their plain versions (``k4_checks``), then on the first
+    bounce's, timed: per call by CUDA events, on the device by the
+    profiler, beside the plain versions and the bounds.  The backward as
+    the main path asks it (the energy chain: d(energy) and the per-ray
+    d(absorption), from the next state's and the output's energy
+    cotangents) and with every gradient (the vertex path's chains and
+    more).  Returns K4's two records."""
+    from hare_tpu_torch.benchmarks import bench_scene, bounds
+    from hare_tpu_torch.trace import bounce
+
+    steps = bench_scene.bounce_inputs(sp, rays, absorption)
+    checked = k4_checks("bench", steps, absorption)
+    print("phase 3 " + k4_line("bench, grid (the vertex step traces the same step inputs)",
+                               checked))
+    state, hr, _, ss, tri_meta = steps[0]
+    n, dev = state.energy.shape[0], state.energy.device
+    g = torch.Generator(device=dev).manual_seed(11)
+    every = tuple(torch.randn(sh, generator=g, device=dev)
+                  for sh in ((n, 3), (n, 3), (n,), (n,), (n,), (n,), (n,)))
+    energy = (None, None, every[2], None, every[4], None, None)
+    want_energy = tuple(k in ("energy", "absorption") for k in bounce.GRADS)
+    cases = [("forward", lambda: bounce.bounce_kernel(state, hr, absorption, None, None, ss,
+                                                      tri_meta),
+              lambda: bounce.bounce_step(state, hr, absorption, None, None, ss), K4_FWD_TAG,
+              bounds.bounce_step_bound(hr.poly_id))]
+    for label, cot, want in (("backward, the energy chain", energy, want_energy),
+                             ("backward, every gradient", every, (True,) * 8 + (False,))):
+        cases.append((label, lambda cot=cot, want=want: bounce.bounce_bwd_kernel(
+            state, hr, absorption, None, None, cot, want, ss),
+            lambda cot=cot, want=want: bounce.bounce_bwd_plain(state, hr, absorption, None, None,
+                                                               cot, want, ss),
+            K4_BWD_TAG, bounds.bounce_step_bwd_bound(hr.poly_id, cot, want)))
+    rows = {}
+    for label, fn, plain, tag, bnd in cases:
+        ms, dev_ms = cuda_time(fn, 50), launch_ms(fn, 10, tag)
+        plain_ms, plain_dev_ms = cuda_time(plain, 10), all_kernels_ms(plain, 5)
+        rows[label] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, plain_device_ms=plain_dev_ms,
+                           bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"], bytes=bnd["bytes"])
+        print(f"phase 3 K4 {label} (bench bounce 1, {n} rays): kernel {ms:.4f} ms per call "
+              f"({dev_ms:.5f} ms on the device), plain {plain_ms:.4f} ms ({plain_dev_ms:.5f} ms on "
+              f"the device{', its ordered scatter included' if 'backward' in label else ''}); "
+              f"bound {bnd['bound_ms']:.5f} ms ({bnd['bound_by']}: {bnd['bytes'] / 1e6:.2f} MB), "
+              f"{bnd['bound_ms'] / dev_ms:.1%} of it")
+    src = "hare_tpu_torch/kernels/csrc/bounce_step.cu"
+    fwd, bwd = rows["forward"], rows["backward, the energy chain"]
+    return [dict(name="bounce_kernel", route="cuda", source=src,
+                 replaces="hare_tpu/trace/bounce.py:175", max_abs_err=0.0, library_ms=None,
+                 **{k: fwd[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "device_ms",
+                                        "plain_device_ms")}),
+            dict(name="bounce_bwd_kernel", route="cuda", source=src,
+                 replaces="hare_tpu/trace/bounce.py:175", max_abs_err=0.0, library_ms=None,
+                 **{k: bwd[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "device_ms",
+                                        "plain_device_ms")},
+                 every_gradient=rows["backward, every gradient"])]
+
+
+def dist_phase(dev, smi, sp, rays, absorption):
+    """Phase 10: ``make_train_step`` over a one-rank NCCL group (the only
+    layout one card allows) on the bench scene at full width, w.r.t.
+    absorption (sigmoid of zeros, Adam lr 0.1) against the histogram of the
+    scene's own absorption: three counted steps, the loss falling, each
+    loss and the parameters after each step equal to the same steps without
+    the group to the bit; then the steps timed, in turns with the unsharded
+    step, with their kernels a step.  The group is destroyed at the end."""
+    import socket
+
+    import torch.distributed as tdist
+
+    import hare_tpu_torch as th
+    from hare_tpu_torch import dist as hd
+    from hare_tpu_torch.accel import common, scatter, voxel
+    from hare_tpu_torch.trace import bounce
+
+    n_polys, n_steps = absorption.shape[0], 3
+    with torch.no_grad():
+        target = th.energy_histogram(th.trace_rays(sp.scene, rays, absorption, N_BOUNCES,
+                                                   sp.shoot_fn, aux=sp.aux), N_BINS, BIN_DT)
+
+    def fresh():
+        p = torch.zeros(n_polys, device=dev, requires_grad=True)
+        return p, torch.optim.Adam([p], lr=0.1)
+
+    def plain_step(p, opt):
+        opt.zero_grad(set_to_none=True)
+        res = th.trace_rays(sp.scene, rays, torch.sigmoid(p), N_BOUNCES, sp.shoot_fn, aux=sp.aux)
+        loss = torch.sum((th.energy_histogram(res, N_BINS, BIN_DT) - target) ** 2) / N_BINS
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    hd.init_distributed("cuda", init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+    try:
+        check(tdist.get_backend() == "nccl" and tdist.get_world_size() == 1,
+              f"phase 10: a {tdist.get_backend()} group of {tdist.get_world_size()}")
+        p, opt = fresh()
+        step = hd.make_train_step(sp.shoot_fn, opt, N_BOUNCES, N_BINS, BIN_DT)
+        counters = (voxel.grid_shoot, common.finalize_hits, bounce.bounce_kernel,
+                    bounce.bounce_bwd_kernel, th.energy_histogram, bounce.hard_histogram_bwd,
+                    scatter.scatter_add_ordered)
+        sharded, launches = counted(counters, lambda: [
+            (step({"absorption": p}, sp.scene, rays, target, sp.aux), p.detach().clone())
+            for _ in range(n_steps)])
+        check(all(launches[c.__name__] == n_steps * N_BOUNCES for c in counters[:4])
+              and launches["energy_histogram"] == n_steps
+              and launches["hard_histogram_bwd"] == n_steps,
+              f"phase 10: launches {launches} in {n_steps} steps")
+        ps, opts = fresh()
+        sstep = hd.make_train_step(sp.shoot_fn, opts, N_BOUNCES, N_BINS, BIN_DT)
+        pu, optu = fresh()
+        steps = {"sharded": lambda: sstep({"absorption": ps}, sp.scene, rays, target, sp.aux),
+                 "unsharded": lambda: plain_step(pu, optu)}
+        ms = {k: [] for k in steps}
+        for which in ("sharded", "unsharded", "unsharded", "sharded"):  # in turns
+            ms[which].append(host_time(steps[which], 5))
+        line = {k: step_ms(fn, 3) for k, fn in steps.items()}
+    finally:
+        tdist.destroy_process_group()
+    p2, opt2 = fresh()
+    plain = [(plain_step(p2, opt2), p2.detach().clone()) for _ in range(n_steps)]
+    for k, ((la, pa), (lb, pb)) in enumerate(zip(sharded, plain), 1):
+        check(same_floats(la.reshape(1), lb.reshape(1)) and same_floats(pa, pb),
+              f"phase 10 step {k}: the sharded step differs from the unsharded one")
+    losses = [float(x) for x, _ in sharded]
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"phase 10: the loss did not fall: {losses}")
+    mean = {k: sum(v) / len(v) for k, v in ms.items()}
+    print(f"phase 10 ray-parallel train step [{smi}] (make_train_step over a one-rank NCCL "
+          f"group, bench scene {sp.scene.n_tris} triangle rows, grid, {N_RAYS} rays, {N_BOUNCES} "
+          f"bounces, {N_BINS} bins, w.r.t. absorption, Adam lr 0.1): losses "
+          f"{', '.join(f'{x:.6f}' for x in losses)} (falling); launches in {n_steps} steps "
+          f"{launches}; each step's loss and parameters equal to the unsharded step's to the "
+          f"bit; sharded {mean['sharded']:.3f} ms a step (turns {ms['sharded']}), busy "
+          f"{line['sharded'][0]:.4f} ms, {line['sharded'][2]:.1f} kernels a step (the NCCL "
+          f"all-reduces {kernel_ms(line['sharded'][1], 'nccl'):.4f} ms); unsharded "
+          f"{mean['unsharded']:.3f} ms (turns {ms['unsharded']}), busy "
+          f"{line['unsharded'][0]:.4f} ms, {line['unsharded'][2]:.1f} kernels a step")
 
 
 def cpu_reference(th, sp, rays, absorption, n_bins, scattering=None, n_bounces=N_BOUNCES,
@@ -862,15 +1101,18 @@ def backends_phase(dev, top, grid_sp, rays, batches, absorption, grid_hist):
 
     # ---- 7.4 each backend's main path, counted, and 7.5 its times.
     rec_launch = {"brute": 0, "tree": 0, "ropes": 0}
+    k4_lines = []
     walk_fn = {"octree": tree.tree_shoot, "kdtree": tree.tree_shoot,
                "kdtree_ropes": ropes.ropes_shoot}
     walk_label = dict(zip(("octree", "kdtree", "kdtree_ropes"), (label for label, *_ in walks)))
     per_shoot = {}
     fb_mrays = {}
     for accel, sp in sps.items():
-        counters = (walk_fn[accel], common.finalize_hits, th.energy_histogram,
-                    bounce.hard_histogram_bwd)
+        counters = (walk_fn[accel], common.finalize_hits, bounce.bounce_kernel,
+                    bounce.bounce_bwd_kernel, th.energy_histogram, bounce.hard_histogram_bwd)
         _, hist, launches, g = drive(th, sp, rays, absorption, N_BINS, counters, True, True)
+        k4_lines.append(k4_line(accel, k4_checks(
+            accel, bench_scene.bounce_inputs(sp, rays, absorption), absorption)))
         rec_launch["ropes" if accel == "kdtree_ropes" else "tree"] += launches[
             walk_fn[accel].__name__]
         # An equal-t tie resolved another way sends that ray down another
@@ -909,6 +1151,7 @@ def backends_phase(dev, top, grid_sp, rays, batches, absorption, grid_hist):
               f"{fb_mrays[accel]:.4f} Mrays/s fwd+bwd; device busy {busy:.4f} ms a fwd+bwd step "
               f"({n_kernels:.1f} kernels), idle share {1 - busy / fb_ms:.3f}")
 
+    print("phase 7 " + "; ".join(k4_lines))
     print(f"phase 7 stack vs ropes (bench scene, same SAH KD tree): B2 stack {per_shoot['kdtree'][0]:.4f} "
           f"ms, B3 ropes {per_shoot['kdtree_ropes'][0]:.4f} ms per first-bounce shoot on the device "
           f"(ropes / stack {per_shoot['kdtree_ropes'][0] / per_shoot['kdtree'][0]:.2f}); mean of "
@@ -926,9 +1169,18 @@ def backends_phase(dev, top, grid_sp, rays, batches, absorption, grid_hist):
     print(f"phase 7 B2 tree_shoot config 3 (concert hall octree, max_depth "
           f"{sp3.struct.max_depth}, stack bound {sp3.struct.stack}, 1M rays): bit-equal to its "
           f"plain version, pops included; plain {p3_ms:.3f} ms")
-    counters = (tree.tree_shoot, common.finalize_hits, th.energy_histogram,
-                bounce.hard_histogram_bwd)
+    counters = (tree.tree_shoot, common.finalize_hits, bounce.bounce_kernel,
+                bounce.bounce_bwd_kernel, th.energy_histogram, bounce.hard_histogram_bwd)
     res3, _, launches, g3 = drive(th, sp3, r3, a3, N_BINS, counters, True, False)
+    steps3 = bench_scene.bounce_inputs(sp3, r3, a3)
+    print(f"phase 7 {k4_line('config 3', k4_checks('config 3', steps3, a3))}")
+    # K4's bounds on the first bounce's 1M rays: the forward's, and the
+    # backward's as the step asks it (the energy chain).
+    hr3 = steps3[0][1]
+    ones3 = torch.ones(hr3.hit.shape, device=dev)
+    k4_b3 = (bounds.bounce_step_bound(hr3.poly_id)["bound_ms"], bounds.bounce_step_bwd_bound(
+        hr3.poly_id, (None, None, ones3, None, ones3, None, None),
+        tuple(k in ("energy", "absorption") for k in bounce.GRADS))["bound_ms"])
     rec_launch["tree"] += launches["tree_shoot"]
     cpu_reference(th, sp3, r3, a3, N_BINS)
 
@@ -983,7 +1235,10 @@ def backends_phase(dev, top, grid_sp, rays, batches, absorption, grid_hist):
           f"step, of which the absorption gradient's scatter_add_ordered "
           f"{kernel_ms(per_name3, 'scatter_ordered'):.4f} ms (3 calls; bounce 1's longest run "
           f"{int(runs3.max())} of {runs3.numel()} polygons), B2 "
-          f"{kernel_ms(per_name3, 'tree_shoot_kernel'):.4f} ms, K2 {k2_ms3:.5f} ms a call (bound "
+          f"{kernel_ms(per_name3, 'tree_shoot_kernel'):.4f} ms, K4 "
+          f"{kernel_ms(per_name3, K4_FWD_TAG):.4f} ms and its backward "
+          f"{kernel_ms(per_name3, K4_BWD_TAG):.4f} ms (3 calls each; bounce 1's bounds "
+          f"{k4_b3[0]:.5f} and {k4_b3[1]:.5f} ms, bytes), K2 {k2_ms3:.5f} ms a call (bound "
           f"{k2_b3:.5f} ms, {k2_bound3[0]['bound_by']} from memory: {k2_b3 / k2_ms3:.1%} of it), K3 "
           f"{kernel_ms(per_name3, K3_TAG):.4f} ms, the hard backward "
           f"{kernel_ms(per_name3, 'hard_bwd_kernel'):.5f} ms; {kernels3:.1f} kernels a step")
@@ -991,7 +1246,8 @@ def backends_phase(dev, top, grid_sp, rays, batches, absorption, grid_hist):
     # Config 1: shoebox, brute, 10k rays, 256 bins, forward.
     sp1 = th.SpatialPartition(room, accel="brute", device=dev)
     a1 = torch.full((room.n_polys,), ABSORPTION, device=dev)
-    counters = (brute.brute_shoot, common.finalize_hits, th.energy_histogram)
+    counters = (brute.brute_shoot, common.finalize_hits, bounce.bounce_kernel,
+                th.energy_histogram)
     _, _, launches, _ = drive(th, sp1, c1_rays, a1, 256, counters, False, True)
     rec_launch["brute"] += launches["brute_shoot"]
     cpu_reference(th, sp1, c1_rays, a1, 256)
@@ -1259,9 +1515,10 @@ def gradients_phase(dev, sp, rays, batches, absorption):
     # ---- 8.5 the bench scene's fwd+bwd w.r.t. the vertices, soft bins.
     counters = (voxel.grid_shoot, common.finalize_hits, th.energy_histogram,
                 common.finalize_hits_bwd, scatter.scatter_add_ordered, bounce.soft_histogram_bwd,
-                bounce.hard_histogram_bwd)
+                bounce.hard_histogram_bwd, bounce.bounce_kernel, bounce.bounce_bwd_kernel)
     names = ("grid_shoot", "finalize_hits", "energy_histogram", "finalize_hits_bwd",
-             "scatter_add_ordered", "soft_histogram_bwd", "hard_histogram_bwd")
+             "scatter_add_ordered", "soft_histogram_bwd", "hard_histogram_bwd", "bounce_kernel",
+             "bounce_bwd_kernel")
     vstep = repeat_check.vertex_step(th, sp, rays, absorption, N_BOUNCES)
     for fn in counters:
         fn.launches = 0
@@ -1270,7 +1527,8 @@ def gradients_phase(dev, sp, rays, batches, absorption):
     launches = dict(zip(names, (fn.launches for fn in counters)))
     check(launches["finalize_hits_bwd"] == N_BOUNCES and launches["scatter_add_ordered"] >= N_BOUNCES
           and launches["energy_histogram"] == 1 and launches["soft_histogram_bwd"] == 1
-          and launches["hard_histogram_bwd"] == 0 and launches["grid_shoot"] == N_BOUNCES,
+          and launches["hard_histogram_bwd"] == 0 and launches["grid_shoot"] == N_BOUNCES
+          and launches["bounce_kernel"] == N_BOUNCES and launches["bounce_bwd_kernel"] == N_BOUNCES,
           f"vertex path launches {launches}")
     check(bool(torch.isfinite(grad).all()) and float(grad.abs().max()) > 0,
           "bench vertex gradient not finite and non-zero")
@@ -1285,7 +1543,9 @@ def gradients_phase(dev, sp, rays, batches, absorption):
           f"Mrays/s; device busy {busy:.4f} ms a step (A3 "
           f"{kernel_ms(per_name, 'finalize_bwd_kernel'):.4f}, scatter "
           f"{kernel_ms(per_name, 'scatter_ordered'):.4f}, K3 {kernel_ms(per_name, K3_TAG):.4f}, "
-          f"soft backward {kernel_ms(per_name, 'soft_bwd_kernel'):.4f}, fill kernels "
+          f"soft backward {kernel_ms(per_name, 'soft_bwd_kernel'):.4f}, K4 "
+          f"{kernel_ms(per_name, K4_FWD_TAG):.4f}, K4's backward "
+          f"{kernel_ms(per_name, K4_BWD_TAG):.4f}, fill kernels "
           f"{kernel_ms(per_name, 'FillFunctor'):.4f} ms; {n_kernels:.1f} kernels), idle share "
           f"{1 - busy / fb_ms:.3f}")
 
@@ -1314,6 +1574,9 @@ def gradients_phase(dev, sp, rays, batches, absorption):
               f"{a3b['bytes'] / 1e6:.2f} MB), K2 finalize_hits {k2b['bound_ms']:.5f} ms "
               f"({k2b['bound_by']}: {k2b['bytes'] / 1e6:.2f} MB)")
         scatter_exact(f"config 4 A3 bounce {b} corners", k[2], k[3], n_v4)
+    k4_4 = k4_checks("config 4", bench_scene.bounce_inputs(sp4, c4.rays, c4.absorption,
+                                                           c4.n_bounces), c4.absorption)
+    print(f"phase 8 {k4_line('config 4', k4_4)}")
 
     def hard_step():
         v = sp4.scene.vertices.clone().requires_grad_()
@@ -1330,9 +1593,11 @@ def gradients_phase(dev, sp, rays, batches, absorption):
     # Launches a step.  The hard loss gives time no cotangent, yet autograd
     # runs A3 (on zero cotangents) and its scatter all the same; the
     # energies need no gradient w.r.t. the vertices, so the hard backward
-    # does not launch.
+    # does not launch.  K4's backward launches on every bounce but the last,
+    # which no cotangent reaches: the earlier ones get A3's zero cotangents
+    # of the next bounce's rays, as autograd through bounce_step did.
     want = dict(grid_shoot=0, tree_shoot=nb4, finalize_hits=nb4, finalize_hits_bwd=nb4,
-                energy_histogram=1, hard_histogram_bwd=0)
+                energy_histogram=1, hard_histogram_bwd=0, bounce_kernel=nb4)
     for label, fn, want_zero in (("(a) hard histogram sum", hard_step, True),
                                  ("(b) soft, first moment", soft_step, False)):
         for f in counters4:
@@ -1346,7 +1611,8 @@ def gradients_phase(dev, sp, rays, batches, absorption):
               f"config 4 {label}: gradient {'non-zero' if want_zero else 'zero'}")
         check(all(launches4[key] == n for key, n in want.items())
               and launches4["scatter_add_ordered"] >= nb4
-              and launches4["soft_histogram_bwd"] == (0 if want_zero else 1),
+              and launches4["soft_histogram_bwd"] == (0 if want_zero else 1)
+              and launches4["bounce_bwd_kernel"] == (nb4 - 1 if want_zero else nb4),
               f"config 4 {label}: launches {launches4}")
         if not want_zero:
             vertex_reference(th, sp4, c4.rays, c4.absorption, c4.n_bounces, c4.n_bins,
@@ -1393,8 +1659,9 @@ def scattering_phase(dev, smi, sp, rays, absorption, records):
     from hare_tpu_torch.benchmarks import configs, repeat_check
     from hare_tpu_torch.trace import bounce
 
-    counters = (voxel.grid_shoot, common.finalize_hits, th.energy_histogram,
-                bounce.hard_histogram_bwd, scatter.scatter_add_ordered)
+    counters = (voxel.grid_shoot, common.finalize_hits, bounce.bounce_kernel,
+                bounce.bounce_bwd_kernel, th.energy_histogram, bounce.hard_histogram_bwd,
+                scatter.scatter_add_ordered)
 
     def note(path, launches):
         for r in records:
@@ -1426,10 +1693,11 @@ def scattering_phase(dev, smi, sp, rays, absorption, records):
 
     (res, hist, grads), launches = counted(counters, scat)
     check(launches["grid_shoot"] == N_BOUNCES and launches["finalize_hits"] == N_BOUNCES
+          and launches["bounce_kernel"] == N_BOUNCES and launches["bounce_bwd_kernel"] == N_BOUNCES
           and launches["energy_histogram"] == 1 and launches["hard_histogram_bwd"] == 1
           and launches["scatter_add_ordered"] == 2 * N_BOUNCES,
-          f"9a: launches {launches}, not {N_BOUNCES} shoots and finalizes, one histogram and "
-          f"its backward, {2 * N_BOUNCES} scatters")
+          f"9a: launches {launches}, not {N_BOUNCES} shoots, finalizes and K4 steps forward and "
+          f"backward, one histogram and its backward, {2 * N_BOUNCES} scatters")
     firsts = {}
     for where, step, (res_, hist_, grads_) in (("host", scat, (res, hist, grads)),
                                                ("card", scat_card, scat_card())):
@@ -1444,15 +1712,17 @@ def scattering_phase(dev, smi, sp, rays, absorption, records):
               f"9a, draws on the {where}: two steps of one seed differ")
     check(not torch.equal(hist, scat(DRAW_SEED + 1)[1]), "9a: another seed, the same histogram")
     masked, _ = cpu_reference(th, sp, rays, absorption, N_BINS, scattering)
-    _, k2_err, scat_err = path_kernel_checks(
+    _, k2_err, scat_err, k4 = path_kernel_checks(
         "9a", sp, rays, absorption, N_BOUNCES, scattering=scattering,
         generator=torch.Generator().manual_seed(DRAW_SEED))
+    print(f"phase 9a {k4_line('bench scattering', k4)}")
     k3_err, _ = hist_checks("9a", res, N_BINS, hist=hist)
     note("bench scattering", launches)
     print(f"phase 9a bench scattering step [{smi}] (82k-tri scene, grid, {N_RAYS} rays, "
           f"{N_BOUNCES} bounces, {N_BINS} bins, absorption {ABSORPTION}, scattering per polygon "
           f"in [0.2, 0.8], fwd+bwd w.r.t. both): launches K1 {launches['grid_shoot']}, K2 "
-          f"{launches['finalize_hits']}, K3 {launches['energy_histogram']}, hard backward "
+          f"{launches['finalize_hits']}, K4 {launches['bounce_kernel']} and its backward "
+          f"{launches['bounce_bwd_kernel']}, K3 {launches['energy_histogram']}, hard backward "
           f"{launches['hard_histogram_bwd']}, scatter {launches['scatter_add_ordered']}; all rays "
           f"hit; hist total {float(hist.sum()):.6f} = bounce energies "
           f"{float(res.energy.sum()):.6f}; first bounce's mean energy {firsts['host']:.5f} "
@@ -1521,8 +1791,11 @@ def scattering_phase(dev, smi, sp, rays, absorption, records):
             (res, hist, grads), launches = counted(v_counters, step)
             grad = grads[0]
             want = cfg.n_bounces * (2 if remat else 1)
-            check(launches["grid_shoot"] == want and launches["finalize_hits"] == want,
-                  f"{label}: K1 and K2 launched {launches}, not {want} times each")
+            check(launches["grid_shoot"] == want and launches["finalize_hits"] == want
+                  and launches["bounce_kernel"] == want
+                  and launches["bounce_bwd_kernel"] == cfg.n_bounces,
+                  f"{label}: K1, K2 and K4 launched {launches}, not {want} times each and K4's "
+                  f"backward {cfg.n_bounces}")
             check(bool(torch.isfinite(hist).all()) and bool(torch.isfinite(grad).all())
                   and float(grad.abs().max()) > 0, f"{label}: not finite, or a zero gradient")
             if res is not None:
@@ -1565,8 +1838,9 @@ def scattering_phase(dev, smi, sp, rays, absorption, records):
     # to the bit); A3, and the scatter on its corners, on the first and the
     # last bounce's rays; then the CPU reference over all 32 bounces.
     res = deep["absorption", False]["res"]
-    path, k2_err, scat_err = path_kernel_checks("deep", cfg.partition, cfg.rays, cfg.absorption,
-                                                cfg.n_bounces)
+    path, k2_err, scat_err, k4 = path_kernel_checks("deep", cfg.partition, cfg.rays,
+                                                     cfg.absorption, cfg.n_bounces)
+    print(f"phase 9b {k4_line('deep (with and without remat, the same step inputs)', k4)}")
     k3_hard = hist_checks("deep hard", res, cfg.n_bins, hist=deep["absorption", False]["hist"])
     k3_soft = hist_checks("deep soft", res, cfg.n_bins, soft=True,
                           hist=deep["vertices, soft", False]["hist"])
@@ -1598,12 +1872,14 @@ def scattering_phase(dev, smi, sp, rays, absorption, records):
                           backward=False)
 
     (res, hist, _), launches = counted(counters, fwd)
-    check(launches["grid_shoot"] == cfg.n_bounces and launches["energy_histogram"] == 1,
+    check(launches["grid_shoot"] == cfg.n_bounces and launches["energy_histogram"] == 1
+          and launches["bounce_kernel"] == cfg.n_bounces and launches["bounce_bwd_kernel"] == 0,
           f"9c: launches {launches}")
     e_sum, total = step_checks("9c config 2", res, hist, [], closed=True)
     note("config 2", launches)
-    _, k2_err, scat_err = path_kernel_checks("config 2", cfg.partition, cfg.rays, cfg.absorption,
-                                             cfg.n_bounces)
+    _, k2_err, scat_err, k4 = path_kernel_checks("config 2", cfg.partition, cfg.rays,
+                                                  cfg.absorption, cfg.n_bounces)
+    print(f"phase 9c {k4_line('config 2', k4)}")
     k3_err, _ = hist_checks("config 2", res, cfg.n_bins, hist=hist)
     masked, _ = cpu_reference(th, cfg.partition, cfg.rays, cfg.absorption, cfg.n_bins,
                               n_bounces=cfg.n_bounces)
@@ -1817,9 +2093,11 @@ def main():
                         library="grad_h[bins] on bins computed once",
                         library_device_ms=glib_dev_ms))
 
+    records += k4_phase(sp, rays, absorption)
+
     # ---- phase 4: the main path end to end, counted.
     counters = (voxel.grid_shoot, common.finalize_hits, th.energy_histogram,
-                bounce.hard_histogram_bwd)
+                bounce.hard_histogram_bwd, bounce.bounce_kernel, bounce.bounce_bwd_kernel)
 
     def step(a):
         res = th.trace_rays(sp.scene, rays, a, N_BOUNCES, sp.shoot_fn, aux=sp.aux)
@@ -1835,6 +2113,8 @@ def main():
     torch.cuda.synchronize()
     launches = [fn.launches for fn in counters]
     check(all(n > 0 for n in launches), f"a kernel was not launched: {launches}")
+    check(launches[4] == launches[5] == N_BOUNCES, f"K4 launched {launches[4:]} times, not "
+          f"{N_BOUNCES} forward and {N_BOUNCES} backward")
     check(bool(res.hit.all()), "a ray missed on some bounce of the closed room")
     check(hist.shape == (N_BINS,) and bool(torch.isfinite(hist).all()), "histogram not finite")
     e_sum = float(res.energy.detach().sum())
@@ -1864,13 +2144,15 @@ def main():
         check(torch.allclose(x, y, rtol=REF_RTOL, atol=REF_RTOL * float(y.abs().max())),
               f"{what} differs from the CPU reference")
     print(f"phase 4 main path: launches grid_shoot {launches[0]}, finalize_hits "
-          f"{launches[1]}, energy_histogram {launches[2]}, hard_histogram_bwd {launches[3]}; all "
+          f"{launches[1]}, energy_histogram {launches[2]}, hard_histogram_bwd {launches[3]}, "
+          f"bounce_kernel {launches[4]}, bounce_bwd_kernel {launches[5]}; all "
           f"{N_RAYS} rays hit on "
           f"{N_BOUNCES} bounces; hist total {total:.6f} = bounce energies "
           f"{e_sum:.6f}; grad sum {float(g.sum()):.4f}, max {float(g.max()):.4e}; "
           f"{REF_RAYS}-ray CPU reference agrees")
-    for r, n in zip(records, launches):
-        r["launches"] = n
+    by_name = {fn.__name__: n for fn, n in zip(counters, launches)}
+    for r in records:
+        r["launches"] = by_name[r["name"]]
 
     # ---- phase 5: step times.
     def fwd():
@@ -1893,7 +2175,7 @@ def main():
     busy, per_name, n_kernels = step_ms(fwd_bwd, 3)
     parts = {k: kernel_ms(per_name, tag) for k, tag in (
         ("K1", "grid_shoot_kernel"), ("K2", "finalize_kernel"), ("K3", K3_TAG),
-        ("hard backward", "hard_bwd_kernel"))}
+        ("hard backward", "hard_bwd_kernel"), ("K4", K4_FWD_TAG), ("K4 backward", K4_BWD_TAG))}
     print(f"phase 5 device time per fwd+bwd step: busy {busy:.4f} ms of {fb_ms:.3f} ms "
           f"(idle share {1 - busy / fb_ms:.3f}); " + ", ".join(
               f"{k} {v:.4f} ms" for k, v in parts.items()) +
@@ -1910,6 +2192,9 @@ def main():
 
     # ---- phase 9: scattering, deep with remat, config 2.
     scattering_phase(dev, smi, sp, rays, absorption, records)
+
+    # ---- phase 10: the ray-parallel train step over a one-rank NCCL group.
+    dist_phase(dev, smi, sp, rays, absorption)
     print(f"chip_smoke.py ran {time.perf_counter() - t_start:.1f} s [{smi}]")
 
     print(json.dumps({"kernels": records}))

@@ -8,11 +8,14 @@ another ``device``; with no card such a call raises.  On CUDA tensors the main p
 hand-written kernels (``kernels/csrc``): the traversal of the chosen
 backend (K1 ``grid_shoot``, B1 ``brute_shoot``, B2 ``tree_shoot`` for the
 octree and KD-tree, B3 ``ropes_shoot``), K2 ``finalize_hits`` and K3
-``energy_histogram``; on CPU tensors it runs their plain PyTorch versions.
-Imports neither JAX nor ``hare_tpu``.
+``energy_histogram``, and each bounce step is K4 (``bounce_step.cu``),
+forward and backward; on CPU tensors it runs their plain PyTorch versions.
+``dist`` runs the ray-parallel histogram and training step over
+``torch.distributed`` (NCCL on the card, gloo on the CPU).  Imports
+neither JAX nor ``hare_tpu``.
 """
 
-from . import accel, convert, geom, kernels, mesh, oracle, trace
+from . import accel, convert, dist, geom, kernels, mesh, oracle, trace
 from .accel import (
     KDRopes,
     SpatialPartition,
@@ -57,6 +60,7 @@ __all__ = [
     "build_scene",
     "convert",
     "cosine_lobe",
+    "dist",
     "energy_histogram",
     "geom",
     "kernels",

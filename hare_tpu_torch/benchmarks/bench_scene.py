@@ -9,7 +9,8 @@ from typing import Dict, Tuple
 
 import torch
 
-__all__ = ["N_BOUNCES", "N_RAYS", "bench_setup", "bounce_rays", "device_ms", "profile_kernels"]
+__all__ = ["N_BOUNCES", "N_RAYS", "bench_setup", "bounce_inputs", "bounce_rays", "device_ms",
+           "profile_kernels"]
 
 N_RAYS, N_BOUNCES, ABSORPTION = 1 << 15, 3, 0.3
 # Profiler windows tried before a device time is given up (profile_kernels).
@@ -48,6 +49,20 @@ def bounce_rays(sp, rays, absorption, n_bounces: int = N_BOUNCES, **trace_kw):
     with torch.no_grad():
         th.trace_rays(sp.scene, rays, absorption, n_bounces, capture, aux=sp.aux, **trace_kw)
     return seen
+
+
+def bounce_inputs(sp, rays, absorption, n_bounces: int = N_BOUNCES, **trace_kw):
+    """What each bounce step of one ``trace_rays`` run receives (K4 on CUDA
+    tensors): ``(state, record, draws, sound_speed, tri_meta)`` a bounce
+    (``trace.bounce.record_steps``); ``trace_kw`` (``scattering``,
+    ``generator``) go to ``trace_rays``."""
+    import hare_tpu_torch as th
+    from hare_tpu_torch.trace import bounce
+
+    with torch.no_grad(), bounce.record_steps() as steps:
+        th.trace_rays(sp.scene, rays, absorption, n_bounces, sp.shoot_fn, aux=sp.aux,
+                      **trace_kw)
+    return steps
 
 
 def profile_kernels(fn, reps: int) -> Dict[str, Tuple[float, int]]:

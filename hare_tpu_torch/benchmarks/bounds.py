@@ -28,6 +28,9 @@ from typing import Dict, Iterable, Optional, Tuple
 import torch
 
 __all__ = [
+    "BOUNCE_DRAW_BYTES",
+    "BOUNCE_IN_BYTES",
+    "BOUNCE_OUT_BYTES",
     "EXIT_OPS",
     "PEAK_BYTES",
     "PEAK_FP32",
@@ -36,6 +39,8 @@ __all__ = [
     "TREE_CHILD_BYTES",
     "TRI_TEST_OPS",
     "bound",
+    "bounce_step_bound",
+    "bounce_step_bwd_bound",
     "brute_shoot_bound",
     "column_sum_bound",
     "finalize_hits_bound",
@@ -114,6 +119,29 @@ TRI_META_BYTES = 32  # scene.tri_meta row (8 i32)
 # K2's hit record per ray: hit (bool), t, u, v, point (3), poly, tri,
 # normal (3), edge_nbr (3).
 HIT_RECORD_BYTES = 1 + 4 * 3 + 12 + 4 * 2 + 12 + 12
+# K4 forward per ray: the state (energy, dist, origin, direction, alive) and
+# the record as the step reads it (hit, t, u, v, point, normal, poly_id,
+# edge_nbr) in; the next state (origin, direction, exclude, energy, dist,
+# live) and the outputs energy, time, poly_id and t out; with scattering
+# the bounce's coin and two uniforms.  Each distinct polygon's absorption
+# (and scattering) entry, 4 B, once.
+BOUNCE_IN_BYTES = (4 + 4 + 12 + 12 + 1) + (1 + 4 + 4 + 4 + 12 + 12 + 4 + 12)
+BOUNCE_OUT_BYTES = (12 + 12 + 8 + 4 + 4 + 1) + (4 + 4 + 4 + 4)
+BOUNCE_DRAW_BYTES = 1 + 4 + 4
+# K4 forward per ray: normalize (3 squares, 2 adds, sqrt, reciprocal, 3
+# products: 10), reflect (dot 5, 2 dt 1, 3 products and 3 subtracts: 12),
+# the energy (1 - a, a product: 2), dist, time (2), the barycentric w (2);
+# with scattering the coin's weight (2 sc or 2 (1 - sc), a product: 3) and
+# on a diffuse lane the lobe (orientation 3, sqrt(r1), sqrt(1 - r1) 3, phi
+# 1, the frame's 11, cos and sin 2, rr cos and rr sin 2, three 3-term
+# sums of products 15: 37).
+BOUNCE_OPS = {False: 28, True: 31}
+LOBE_OPS = 37
+# K4 backward per ray, at the fewest: the energy chain 7 (with scattering
+# 11); the distance 3; the direction and normal 45 (normalize and reflect
+# again 22, their backward 23), with scattering 75 more on every lane (the
+# lobe again 37 and its backward 38).
+BOUNCE_BWD_OPS = {"energy": (7, 11), "dist": (3, 3), "direction": (45, 120)}
 
 
 def bound(ops: float, nbytes: float) -> Dict[str, object]:
@@ -252,6 +280,61 @@ def scatter_bound(keys: torch.Tensor, cols: int, n_keys: int) -> Dict[str, objec
     read once, the ``n_keys`` sums written once; one add a value."""
     m = keys.numel()
     return bound(m * cols, m * (4 + 4 * cols) + n_keys * 4 * cols)
+
+
+def bounce_step_bound(poly_id: torch.Tensor,
+                      diffuse: Optional[torch.Tensor] = None) -> Dict[str, object]:
+    """K4 forward on one bounce's ``poly_id`` (N,): ``BOUNCE_IN_BYTES`` and
+    ``BOUNCE_OUT_BYTES`` a ray, the distinct polygons' table entries; with
+    scattering (``diffuse``, the bounce's coin) the draws and the
+    scattering entries too, and ``LOBE_OPS`` a diffuse lane."""
+    n = poly_id.shape[0]
+    tables = 1 if diffuse is None else 2
+    polys = int(torch.unique(torch.clamp(poly_id, min=0)).numel())
+    nbytes = n * (BOUNCE_IN_BYTES + BOUNCE_OUT_BYTES + (0 if diffuse is None else
+                                                          BOUNCE_DRAW_BYTES)) + polys * 4 * tables
+    ops = n * BOUNCE_OPS[diffuse is not None] + (0 if diffuse is None else
+                                                 int(diffuse.sum()) * LOBE_OPS)
+    return bound(ops, nbytes)
+
+
+def bounce_step_bwd_bound(poly_id: torch.Tensor, cotangents, wanted,
+                          diffuse: Optional[torch.Tensor] = None) -> Dict[str, object]:
+    """K4's backward on one bounce: per ray, what the chains it runs read
+    and write (``trace.bounce.GRADS``, after ``wanted`` is cut to what the
+    ``cotangents`` reach): the energy chain the state's energy, hit, alive,
+    poly_id (with scattering the coin) and the energy cotangents given,
+    each distinct polygon's table entries; the distance the distance
+    cotangents; the origin its cotangent; the direction the state's
+    direction, the normal and the direction's cotangent (with scattering
+    the two uniforms); each gradient asked for written once."""
+    from ..trace.bounce import GRADS, _reached
+
+    n = poly_id.shape[0]
+    scatter = diffuse is not None
+    want = dict(zip(GRADS, _reached(cotangents, wanted, True if scatter else None)))
+    given = [g is not None for g in cotangents]
+    chains = {"energy": want["energy"] or want["absorption"] or want["scattering"],
+              "dist": want["dist"] or want["t"], "origin": want["origin"] or want["point"],
+              "direction": want["direction"] or want["normal"]}
+    per_ray = (1 + 1) if any(chains.values()) else 0  # alive, hit
+    per_ray += (1 if scatter and (chains["energy"] or chains["direction"]) else 0)  # the coin
+    ops = 0
+    if chains["energy"]:
+        per_ray += 4 + 4 + 4 * (given[2] + given[4])
+        ops += BOUNCE_BWD_OPS["energy"][scatter]
+    if chains["dist"]:
+        per_ray += 4 * (given[3] + given[5] + given[6])
+        ops += BOUNCE_BWD_OPS["dist"][scatter]
+    if chains["origin"]:
+        per_ray += 12
+    if chains["direction"]:
+        per_ray += 12 + 12 + 12 + (8 if scatter else 0)
+        ops += BOUNCE_BWD_OPS["direction"][scatter]
+    per_ray += sum(4 if k in ("energy", "dist", "t", "absorption", "scattering") else 12
+                   for k, w in want.items() if w)
+    polys = int(torch.unique(torch.clamp(poly_id, min=0)).numel()) if chains["energy"] else 0
+    return bound(n * ops, n * per_ray + polys * 4 * (2 if scatter else 1))
 
 
 def column_sum_bound(rows: int, cols: int) -> Dict[str, object]:

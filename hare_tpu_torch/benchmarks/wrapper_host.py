@@ -1,4 +1,4 @@
-"""Host cost of one K1 and one K2 call through their wrappers, in this
+"""Host cost of one K1, K2 and K4 call through their wrappers, in this
 checkout or another.
 
     python hare_tpu_torch/benchmarks/wrapper_host.py [--tree DIR] [--reps N]
@@ -6,7 +6,12 @@ checkout or another.
 Imports ``hare_tpu_torch`` from the checkout ``DIR`` (default: the one that
 holds this file), builds the bench scene's grid (``bench.py``: 82k
 triangles, ``domain=48``) on the card and calls ``voxel.grid_shoot`` (K1)
-and ``common.finalize_hits`` (K2) on a 1-ray batch: wall microseconds per
+and ``common.finalize_hits`` (K2) on a 1-ray batch, and where the
+checkout has K4, on that ray's bounce step: ``bounce.bounce_kernel`` (K4),
+``bounce.fused_bounce_step`` (the autograd Function around it, no
+gradient), ``bounce.bounce_bwd_kernel`` (K4's backward, the energy chain)
+and ``bounce.bounce_step`` (the torch ops K4 replaced, enqueued on the
+card): wall microseconds per
 call, the median over ``BLOCKS`` blocks of ``N / BLOCKS`` calls each (a
 block that other work on the host slowed counts once), the card
 synchronised before and after each block, the calls' blocks in turns.  The
@@ -48,6 +53,22 @@ def main(argv=None) -> dict:
     best_t, best_tri = voxel.grid_shoot(one, sp.struct)
     calls = {"k1": lambda: voxel.grid_shoot(one, sp.struct),
              "k2": lambda: common.finalize_hits(sp.scene, one, best_t, best_tri)}
+    from hare_tpu_torch.trace import bounce
+
+    if hasattr(bounce, "bounce_kernel"):
+        hr = common.finalize_hits(sp.scene, one, best_t, best_tri)
+        state = bounce.BounceState(one.origin, one.direction, one.exclude_poly,
+                                   torch.ones(1, device=dev), torch.zeros(1, device=dev),
+                                   torch.ones(1, dtype=torch.bool, device=dev))
+        a = torch.full((sp.scene.n_polys,), 0.3, device=dev)
+        g = torch.ones(1, device=dev)
+        cot = (None, None, g, None, g, None, None)
+        want = tuple(k in ("energy", "absorption") for k in bounce.GRADS)
+        calls.update(
+            k4=lambda: bounce.bounce_kernel(state, hr, a),
+            k4_function=lambda: bounce.fused_bounce_step(state, hr, a, tri_meta=sp.scene.tri_meta),
+            k4_bwd=lambda: bounce.bounce_bwd_kernel(state, hr, a, None, None, cot, want),
+            glue=lambda: bounce.bounce_step(state, hr, a))
     rec = {"tree": str(args.tree), "package": str(Path(th.__file__).parent), "reps": args.reps,
            "device": torch.cuda.get_device_name(0)}
     per_block = args.reps // BLOCKS

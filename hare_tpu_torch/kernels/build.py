@@ -57,6 +57,8 @@ _SIGNATURES = {
     "hare_scatter_add_ordered": [_P, _P, _LL, _I, _I, _I, _P, _LL, _P, _P],
     "hare_energy_histogram": [_P, _P, _P, _LL, _I, _F, _I, _P, _LL, _P, _P],
     "hare_histogram_bwd": [_P, _P, _P, _P, _LL, _LL, _I, _F, _I, _P, _P, _P],
+    "hare_bounce_step": [_P] * 20 + [_I, _F] + [_P] * 10 + [_P],
+    "hare_bounce_step_bwd": [_P] * 18 + [_I, _F] + [_P] * 9 + [_P],
     "hare_column_sum": [_P, _LL, _I, _I, _P, _P, _P],
     "hare_gather_sum_f32": [_P, _LL, _I, _P, _I, _I, _P, _P, _P],
     "hare_gather_sum_i32": [_P, _LL, _I, _P, _I, _I, _P, _P, _P],

@@ -2,10 +2,16 @@
 
 from .bounce import (
     SOUND_SPEED,
+    BounceState,
     TraceResult,
+    bounce_bwd_kernel,
+    bounce_bwd_plain,
+    bounce_kernel,
     bounce_step,
+    bounce_step_bwd,
     cosine_lobe,
     energy_histogram,
+    fused_bounce_step,
     reflect,
     trace_rays,
 )
@@ -18,10 +24,16 @@ from .sampler import (
 
 __all__ = [
     "SOUND_SPEED",
+    "BounceState",
     "TraceResult",
+    "bounce_bwd_kernel",
+    "bounce_bwd_plain",
+    "bounce_kernel",
     "bounce_step",
+    "bounce_step_bwd",
     "cosine_lobe",
     "energy_histogram",
+    "fused_bounce_step",
     "polygon_points",
     "reflect",
     "scene_surface_points",

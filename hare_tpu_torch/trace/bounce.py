@@ -2,12 +2,16 @@
 
 Counterpart of ``hare_tpu/trace/bounce.py`` (specular and scattering
 tracing, per-bounce remat, the hard and the soft histogram).  The bounce
-loop is a Python loop: each bounce shoots (a traversal + K2), then
-:func:`bounce_step` — reflect, the absorption gather, the energy product,
-the scattering coin and lobe, and the coplanar second exclusion — runs as
-torch glue, so autograd sees ``energy * (1 - absorption[poly])``; the
-gathers' backward is the fixed-order scatter (``accel.scatter``), and the
-hit record's is A3 (``accel.common.finalize_hits``), so gradients w.r.t.
+loop is a Python loop: each bounce shoots (a traversal + K2), then the
+bounce step applies the hit record to the carried state — reflect, the
+absorption gather, the energy product, the scattering coin and lobe, and
+the coplanar second exclusion.  On CUDA tensors the step is K4
+(``kernels/csrc/bounce_step.cu``), one launch forward and one backward
+inside ``torch.autograd.Function`` :func:`fused_bounce_step`; its plain
+version is :func:`bounce_step`, torch ops whose autograd is the plain
+backward, which CPU tensors run.  The absorption and scattering gathers'
+backward is the fixed-order scatter (``accel.scatter``), and the hit
+record's is A3 (``accel.common.finalize_hits``), so gradients w.r.t.
 absorption, scattering, vertices and rays are bitwise-repeatable.
 :func:`energy_histogram` is K3 (CUDA, deterministic) inside
 ``torch.autograd.Function``s, whose backwards, hard and soft, are K3's
@@ -27,13 +31,15 @@ explicit ``torch.Generator``'s).
 from __future__ import annotations
 
 import math
-from typing import Callable, NamedTuple, Optional, Tuple
+from contextlib import contextmanager
+from typing import Callable, Iterator, List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..accel.common import check_device
-from ..accel.scatter import gather_rows
+from ..accel.scatter import gather_rows, scatter_add_ordered
 from ..geom.math import dot, normalize
 from ..geom.primitives import NO_POLY, HitRecord, Ray
 from ..kernels import build
@@ -43,13 +49,19 @@ __all__ = [
     "SOUND_SPEED",
     "BounceState",
     "TraceResult",
+    "bounce_bwd_kernel",
+    "bounce_bwd_plain",
+    "bounce_kernel",
     "bounce_step",
+    "bounce_step_bwd",
     "cosine_lobe",
     "energy_histogram",
+    "fused_bounce_step",
     "hard_histogram_bwd",
     "hard_histogram_bwd_plain",
     "histogram_kernel",
     "histogram_plain",
+    "record_steps",
     "reflect",
     "scatter_draws",
     "soft_histogram_bwd",
@@ -195,6 +207,309 @@ def bounce_step(
     return nxt, outs
 
 
+# The gradients K4's backward gives, in order: w.r.t. the state's energy,
+# dist, origin and direction, the record's t, point and normal, and the two
+# tables.  Its cotangents, in order, are those of the next state's origin,
+# direction, energy and dist and of the outputs energy, time and t.
+GRADS = ("energy", "dist", "origin", "direction", "t", "point", "normal", "absorption",
+         "scattering")
+
+
+def _reached(cotangents, wanted, scattering) -> Tuple[bool, ...]:
+    """``wanted`` less the gradients no cotangent reaches (autograd gives
+    None for those) and, without scattering, its table's."""
+    g_o, g_d, g_e, g_dist, g_oe, g_time, g_t = (g is not None for g in cotangents)
+    has_e, has_dist = g_e or g_oe, g_dist or g_time
+    reach = (has_e, has_dist, g_o, g_d, has_dist or g_t, g_o, g_d, has_e,
+             has_e and scattering is not None)
+    return tuple(bool(w) and r for w, r in zip(wanted, reach))
+
+
+def _inv_sound_speed(sound_speed: float) -> float:
+    """``dist / sound_speed`` as torch computes it on the card: a multiply
+    by the f32 reciprocal of the f32 divisor (its backward too)."""
+    return float(np.float32(1.0) / np.float32(sound_speed))
+
+
+def _f32(x: torch.Tensor, shape) -> torch.Tensor:
+    return _as(x, torch.float32, shape)
+
+
+def _as(x: torch.Tensor, dtype: torch.dtype, shape) -> torch.Tensor:
+    """``x`` as K4 reads it: contiguous, of ``dtype`` and ``shape``; raises
+    otherwise."""
+    if x.dtype != dtype or tuple(x.shape) != tuple(shape):
+        raise ValueError(f"K4: expected {dtype} {tuple(shape)}, got {x.dtype} {tuple(x.shape)}")
+    return x.contiguous()
+
+
+def _tables(absorption, scattering, draws, n):
+    """The tables and the bounce's draws as K4 reads them (the backward
+    may go without the uniforms: None)."""
+    a = _f32(absorption, absorption.shape[:1])
+    if scattering is None:
+        return a, None, None, None, None
+    if draws is None:
+        raise ValueError("K4: scattering takes the bounce's draws (diffuse, r1, r2)")
+    diffuse, r1, r2 = draws
+    return (a, _f32(scattering, a.shape), _as(diffuse, torch.bool, (n,)), _opt(r1, (n,)),
+            _opt(r2, (n,)))
+
+
+def _opt(x: Optional[torch.Tensor], shape) -> Optional[torch.Tensor]:
+    return None if x is None else _f32(x, shape)
+
+
+def bounce_kernel(
+    state: BounceState,
+    hr: HitRecord,
+    absorption: torch.Tensor,
+    scattering: Optional[torch.Tensor] = None,
+    draws: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+    sound_speed: float = SOUND_SPEED,
+    tri_meta: Optional[torch.Tensor] = None,
+):
+    """K4's forward on CUDA tensors (``kernels/csrc/bounce_step.cu``): what
+    :func:`bounce_step` returns, in one launch.  A record without
+    ``edge_nbr`` takes the neighbours from ``tri_meta`` lanes 1-3 of its
+    ``tri_id``."""
+    n = state.origin.shape[0]
+    dev = state.origin.device
+    vec, row = (n, 3), (n,)
+    if hr.edge_nbr is None and tri_meta is None:
+        raise ValueError("K4: a record without edge_nbr needs the scene's tri_meta")
+    a, s, diffuse, r1, r2 = _tables(absorption, scattering, draws, n)
+    f = dict(dtype=torch.float32, device=dev)
+    out = dict(origin=torch.empty(vec, **f), direction=torch.empty(vec, **f),
+               exclude=torch.empty(n, 2, dtype=torch.int32, device=dev),
+               energy=torch.empty(row, **f), dist=torch.empty(row, **f),
+               alive=torch.empty(row, dtype=torch.bool, device=dev))
+    oe, time, poly, t = (torch.empty(row, **f), torch.empty(row, **f),
+                         torch.empty(row, dtype=torch.int32, device=dev), torch.empty(row, **f))
+    bounce_kernel.launches += 1
+    build.launch(
+        "hare_bounce_step", _f32(state.energy, row), _f32(state.dist, row),
+        _f32(state.origin, vec), _f32(state.direction, vec), _as(state.alive, torch.bool, row),
+        _as(hr.hit, torch.bool, row), _f32(hr.t, row), _f32(hr.u, row), _f32(hr.v, row),
+        _f32(hr.point, vec), _f32(hr.normal, vec), _as(hr.poly_id, torch.int32, row),
+        _as(hr.tri_id, torch.int32, row),
+        None if hr.edge_nbr is None else _as(hr.edge_nbr, torch.int32, vec),
+        None if hr.edge_nbr is not None else _as(tri_meta, torch.int32, (tri_meta.shape[0], 8)),
+        a, s, diffuse, r1, r2, n, _inv_sound_speed(sound_speed), out["origin"],
+        out["direction"], out["exclude"], out["energy"], out["dist"], out["alive"], oe, time,
+        poly, t,
+    )
+    return BounceState(**out), (out["alive"], oe, time, poly, hr.point, t)
+
+
+bounce_kernel.launches = 0
+
+
+def bounce_bwd_kernel(
+    state: BounceState,
+    hr: HitRecord,
+    absorption: torch.Tensor,
+    scattering: Optional[torch.Tensor],
+    draws,
+    cotangents: Tuple[Optional[torch.Tensor], ...],
+    wanted: Tuple[bool, ...],
+    sound_speed: float = SOUND_SPEED,
+):
+    """K4's backward on CUDA tensors, one launch: the gradients named by
+    ``GRADS`` where ``wanted`` and some cotangent reaches them (the rest
+    None) from the seven cotangents (None where absent, read as no term at
+    all, as autograd adds none).  It reads the state's energy (the energy
+    chain), direction (the direction's) and alive, the record's hit,
+    poly_id and normal (the direction's), the tables and the draws (the
+    uniforms: the direction's), each None where no chain asked for reads
+    it; the tables' two gradients come per ray, before their sum by polygon
+    (:func:`bounce_step_bwd` sums them)."""
+    n = hr.hit.shape[0]
+    dev = hr.hit.device
+    vec, row = (n, 3), (n,)
+    a, s, diffuse, r1, r2 = _tables(absorption, scattering, draws, n)
+    shapes = (vec, vec, row, row, row, row, row)
+    g = [None if x is None else _f32(x, sh) for x, sh in zip(cotangents, shapes)]
+    wanted = _reached(cotangents, wanted, scattering)
+    f = dict(dtype=torch.float32, device=dev)
+    out = [torch.empty(sh, **f) if w else None
+           for w, sh in zip(wanted, (row, row, vec, vec, row, vec, vec, row, row))]
+    d_energy, d_dist, d_origin, d_direction, d_t, d_point, d_normal, d_a, d_s = out
+    bounce_bwd_kernel.launches += 1
+    build.launch(
+        "hare_bounce_step_bwd", _opt(state.energy, row), _opt(state.direction, vec),
+        _opt(hr.normal, vec), _as(state.alive, torch.bool, row), _as(hr.hit, torch.bool, row),
+        _as(hr.poly_id, torch.int32, row), a, s, diffuse, r1, r2, *g, n,
+        _inv_sound_speed(sound_speed), d_energy, d_dist, d_origin, d_direction, d_normal,
+        d_point, d_t, d_a, d_s,
+    )
+    return tuple(out)
+
+
+bounce_bwd_kernel.launches = 0
+
+
+def bounce_bwd_plain(state, hr, absorption, scattering, draws, cotangents, wanted,
+                     sound_speed: float = SOUND_SPEED):
+    """Plain version of K4's backward: autograd through :func:`bounce_step`
+    on the same inputs, the gradients named by ``GRADS`` where ``wanted``
+    and some cotangent reaches them (the tables' summed by polygon through
+    ``gather_rows``' ordered scatter), the rest None."""
+    wanted = _reached(cotangents, wanted, scattering)
+    diff = (state.energy, state.dist, state.origin, state.direction, hr.t, hr.point, hr.normal,
+            absorption, scattering)
+    with torch.enable_grad():
+        leaves = [x.detach().requires_grad_() if w else (None if x is None else x.detach())
+                  for x, w in zip(diff, wanted)]
+        e, dist, o, d, t, point, normal, a, s = leaves
+        st = state._replace(origin=o, direction=d, energy=e, dist=dist)
+        rec = hr._replace(t=t, point=point, normal=normal)
+        nxt, outs = bounce_step(st, rec, a, s, draws, sound_speed)
+        ys = (nxt.origin, nxt.direction, nxt.energy, nxt.dist, outs[1], outs[2], outs[5])
+        pairs = [(y, g) for y, g in zip(ys, cotangents) if g is not None and y.requires_grad]
+        want = [x for x, w in zip(leaves, wanted) if w]
+        got = iter(torch.autograd.grad([y for y, _ in pairs], want, [g for _, g in pairs],
+                                       allow_unused=True) if pairs and want else ())
+    return tuple(next(got) if w else None for w in wanted)
+
+
+def bounce_step_bwd(state, hr, absorption, scattering, draws, cotangents, wanted,
+                    sound_speed: float = SOUND_SPEED):
+    """The bounce step's backward, as :func:`bounce_bwd_plain` returns it:
+    K4's backward on CUDA tensors, the tables' per-ray gradients then
+    summed by polygon with ``scatter_add_ordered`` (as ``gather_rows``'
+    backward sums them); :func:`bounce_bwd_plain` on CPU tensors."""
+    if check_device(hr.hit, hr.poly_id) == "cpu":
+        return bounce_bwd_plain(state, hr, absorption, scattering, draws, cotangents, wanted,
+                                sound_speed)
+    out = list(bounce_bwd_kernel(state, hr, absorption, scattering, draws, cotangents, wanted,
+                                 sound_speed))
+    pid = torch.clamp(hr.poly_id, min=0)
+    for k, table in ((7, absorption), (8, scattering)):
+        if out[k] is not None:
+            out[k] = scatter_add_ordered(pid, out[k], table.shape[0])
+    return tuple(out)
+
+
+class _BounceStep(torch.autograd.Function):
+    """The bounce step: K4 on CUDA tensors, forward and backward;
+    :func:`bounce_step` and autograd through it on CPU tensors.  Inputs:
+    the differentiable ``GRADS`` tensors, then ``rest`` = (alive, exclude,
+    hit, u, v, poly_id, tri_id, edge_nbr, tri_meta, draws, sound_speed).
+    Each float output is differentiable only where an input it depends on
+    requires grad, as the torch ops' outputs are; absent cotangents stay
+    None (``set_materialize_grads(False)``), and the backward computes only
+    the gradients ``needs_input_grad`` asks for that some cotangent
+    reaches."""
+
+    @staticmethod
+    def forward(ctx, energy, dist, origin, direction, t, point, normal, absorption, scattering,
+                rest):
+        alive, exclude, hit, u, v, poly_id, tri_id, edge_nbr, tri_meta, draws, sound_speed = rest
+        state = BounceState(origin, direction, exclude, energy, dist, alive)
+        hr = HitRecord(hit, t, u, v, point, poly_id, tri_id, normal, edge_nbr)
+        cpu = check_device(energy, origin, normal, absorption) == "cpu"
+        if cpu:
+            nxt, outs = bounce_step(state, hr, absorption, scattering, draws, sound_speed)
+        else:
+            nxt, outs = bounce_kernel(state, hr, absorption, scattering, draws, sound_speed,
+                                      tri_meta)
+        ctx.set_materialize_grads(False)
+        need = dict(zip(GRADS, ctx.needs_input_grad))
+        fixed = [nxt.exclude, nxt.alive, outs[3]]
+        for y, deps in ((nxt.origin, ("origin", "point")), (nxt.direction, ("direction", "normal")),
+                        (nxt.energy, ("energy", "absorption", "scattering")),
+                        (outs[1], ("energy", "absorption", "scattering")),
+                        (nxt.dist, ("dist", "t")), (outs[2], ("dist", "t")), (outs[5], ("t",))):
+            if not any(need[k] for k in deps):
+                fixed.append(y)
+        ctx.mark_non_differentiable(*fixed)
+        diffuse, r1, r2 = (None, None, None) if draws is None else draws
+        ctx.cpu, ctx.sound_speed = cpu, sound_speed
+        if cpu:  # the plain backward runs bounce_step again
+            ctx.save_for_backward(energy, dist, origin, direction, t, point, normal, absorption,
+                                  scattering, alive, exclude, hit, u, v, poly_id, tri_id,
+                                  edge_nbr, diffuse, r1, r2)
+        else:  # what K4's backward reads for the chains a loss may reach
+            chain_e = need["energy"] or need["absorption"] or need["scattering"]
+            geo = need["direction"] or need["normal"]
+            ctx.save_for_backward(energy if chain_e else None, direction if geo else None,
+                                  normal if geo else None, absorption, scattering, alive, hit,
+                                  poly_id, diffuse, r1 if geo else None, r2 if geo else None)
+        return (nxt.origin, nxt.direction, nxt.exclude, nxt.energy, nxt.dist, nxt.alive,
+                outs[1], outs[2], outs[3], outs[5])
+
+    @staticmethod
+    def backward(ctx, g_origin, g_direction, _exclude, g_energy, g_dist, _alive, g_out_energy,
+                 g_time, _poly, g_t):
+        cot = (g_origin, g_direction, g_energy, g_dist, g_out_energy, g_time, g_t)
+        if not any(_reached(cot, ctx.needs_input_grad[:len(GRADS)], True)):
+            return (None,) * (len(GRADS) + 1)  # no cotangent reaches a gradient
+        if ctx.cpu:
+            (energy, dist, origin, direction, t, point, normal, absorption, scattering, alive,
+             exclude, hit, u, v, poly_id, tri_id, edge_nbr, diffuse, r1, r2) = ctx.saved_tensors
+            state = BounceState(origin, direction, exclude, energy, dist, alive)
+            hr = HitRecord(hit, t, u, v, point, poly_id, tri_id, normal, edge_nbr)
+        else:
+            (energy, direction, normal, absorption, scattering, alive, hit, poly_id, diffuse, r1,
+             r2) = ctx.saved_tensors
+            state = BounceState(None, direction, None, energy, None, alive)
+            hr = HitRecord(hit, None, None, None, None, poly_id, None, normal)
+        draws = None if diffuse is None else (diffuse, r1, r2)
+        grads = bounce_step_bwd(state, hr, absorption, scattering, draws, cot,
+                                ctx.needs_input_grad[:len(GRADS)], ctx.sound_speed)
+        return (*grads, None)
+
+
+# The list :func:`record_steps` collects into, or None.
+_steps: Optional[List[tuple]] = None
+
+
+@contextmanager
+def record_steps() -> Iterator[List[tuple]]:
+    """Collect what every :func:`fused_bounce_step` call inside the block
+    receives, ``(state, record, draws, sound_speed, tri_meta)`` a call:
+    the inputs ``chip_smoke.py`` and the card tests hold K4 against its
+    plain version on (``benchmarks.bench_scene.bounce_inputs``)."""
+    global _steps
+    outer, _steps = _steps, []
+    try:
+        yield _steps
+    finally:
+        _steps = outer
+
+
+def fused_bounce_step(
+    state: BounceState,
+    hr: HitRecord,
+    absorption: torch.Tensor,
+    scattering: Optional[torch.Tensor] = None,
+    draws: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+    sound_speed: float = SOUND_SPEED,
+    tri_meta: Optional[torch.Tensor] = None,
+):
+    """The bounce step as :func:`trace_rays` runs it: what
+    :func:`bounce_step` returns, differentiable in the state, the record's
+    t, point and normal and the tables.  CUDA tensors launch K4 forward
+    (:func:`bounce_kernel`) and, in the backward, K4's backward
+    (:func:`bounce_step_bwd`); CPU tensors run :func:`bounce_step` and
+    autograd through it.  A record without ``edge_nbr`` takes the
+    neighbours from ``tri_meta`` (the scene's) by ``tri_id``."""
+    if _steps is not None:
+        _steps.append((state, hr, draws, sound_speed, tri_meta))
+    if hr.edge_nbr is None and check_device(state.origin) == "cpu":
+        if tri_meta is None:
+            raise ValueError("a record without edge_nbr needs the scene's tri_meta")
+        hr = hr._replace(edge_nbr=tri_meta[torch.clamp(hr.tri_id, min=0).long(), 1:4])
+    rest = (state.alive, state.exclude, hr.hit, hr.u, hr.v, hr.poly_id, hr.tri_id, hr.edge_nbr,
+            tri_meta, draws, sound_speed)
+    origin, direction, exclude, energy, dist, live, out_energy, time, poly, t = _BounceStep.apply(
+        state.energy, state.dist, state.origin, state.direction, hr.t, hr.point, hr.normal,
+        absorption, scattering, rest)
+    return (BounceState(origin, direction, exclude, energy, dist, live),
+            (live, out_energy, time, poly, hr.point, t))
+
+
 def trace_rays(
     scene: Scene,
     rays: Ray,
@@ -206,6 +521,7 @@ def trace_rays(
     generator: Optional[torch.Generator] = None,
     sound_speed: float = SOUND_SPEED,
     remat: bool = False,
+    draws: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
 ) -> TraceResult:
     """Trace ``rays`` for up to ``n_bounces`` reflections.
 
@@ -226,8 +542,8 @@ def trace_rays(
         specular direction, the energy reweighted ``2 s`` / ``2 (1 - s)``
         (module docstring); differentiable in ``scattering``.
       generator: the ``torch.Generator`` the scattering draws come from
-        (:func:`scatter_draws`); required with ``scattering``.  One seed
-        gives a bitwise-identical trace.
+        (:func:`scatter_draws`); required with ``scattering`` unless
+        ``draws`` is given.  One seed gives a bitwise-identical trace.
       remat: recompute each bounce, its shoot included, in the backward
         (``torch.utils.checkpoint``).  Each bounce's input state is kept
         and its activations are recomputed one bounce at a time, so the
@@ -235,8 +551,14 @@ def trace_rays(
         bounce than that state, as the geometry of a loss w.r.t. the
         vertices; w.r.t. the absorption alone it can rise.  Values and
         gradients are unchanged.
+      draws: the trace's scattering draws ``(diffuse, r1, r2)``, each
+        ``(n_bounces, N)`` as :func:`scatter_draws` returns them, in place
+        of drawing from ``generator`` (the sharded path hands each rank its
+        rays' columns of the whole batch's draws).
+
+    Each bounce's step is :func:`fused_bounce_step`: K4 on CUDA tensors.
     """
-    if scattering is not None and generator is None:
+    if scattering is not None and generator is None and draws is None:
         raise ValueError("scattering requires a torch.Generator (generator=)")
     o = rays.origin
     n = o.shape[0]
@@ -248,17 +570,16 @@ def trace_rays(
         dist=torch.zeros(n, dtype=o.dtype, device=o.device),
         alive=torch.ones(n, dtype=torch.bool, device=o.device),
     )
-    draws = None
-    if scattering is not None:
+    if scattering is None:
+        draws = None
+    elif draws is None:
         draws = scatter_draws(generator, n_bounces, n, o.dtype, o.device)
 
     def bounce(state, draws_b):
         r = Ray(state.origin, state.direction, state.exclude)
         hr = shoot_fn(scene, r) if aux is None else shoot_fn(scene, r, aux)
-        if hr.edge_nbr is None:
-            tri = torch.clamp(hr.tri_id, min=0).long()
-            hr = hr._replace(edge_nbr=scene.tri_meta[tri, 1:4])
-        return bounce_step(state, hr, absorption, scattering, draws_b, sound_speed)
+        return fused_bounce_step(state, hr, absorption, scattering, draws_b, sound_speed,
+                                 scene.tri_meta)
 
     outs = []
     for b in range(n_bounces):

@@ -1281,3 +1281,155 @@ def test_gather_sum_repeats_bitwise(dev, case):
     b = probes.gather_sum(tab, idx, iters, out_dtype)
     torch.cuda.synchronize()
     assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+# ---------------------------------------------------------------- K4
+# K4's lobe calls cosf and sinf built with -fmad=false, torch's cos and sin
+# may round another way: a diffuse lane's direction within an ulp or two of
+# a unit vector's component, and the gradients through the lobe within a
+# few ulps of the largest.
+K4_LOBE_ATOL = 1e-6
+K4_LOBE_GRAD_RTOL = 1e-5
+
+
+def k4_inputs(dev, scattering, n=8192, bounces=3):
+    """Each bounce's step inputs of a grid trace on the card: the room with a
+    sphere, rays from inside, per-polygon absorption and scattering."""
+    from hare_tpu_torch.benchmarks.bench_scene import bounce_inputs
+
+    faces = shapes.shoebox(4, 5, 3) + shapes.icosphere(2, radius=0.7, center=(2.0, 3.5, 1.2))
+    top = th.Topology.build(faces)
+    sp = th.SpatialPartition(top, device=dev)
+    rays = rays_of(np.random.default_rng(12), 0.3, 2.7, n, dev)
+    a = torch.linspace(0.1, 0.6, top.n_polys, device=dev)
+    s = torch.linspace(0.8, 0.2, top.n_polys, device=dev) if scattering else None
+    kw = dict(scattering=s, generator=torch.Generator().manual_seed(2)) if scattering else {}
+    return sp, a, s, bounce_inputs(sp, rays, a, bounces, **kw)
+
+
+def k4_cotangents(dev, n, seed):
+    g = torch.Generator().manual_seed(seed)
+    shapes_ = [(n, 3), (n, 3), (n,), (n,), (n,), (n,), (n,)]
+    return tuple(torch.randn(sh, generator=g).to(dev) for sh in shapes_)
+
+
+@pytest.mark.parametrize("scattering", [False, True], ids=["specular", "scattering"])
+def test_bounce_kernel_matches_plain(dev, scattering):
+    """K4 forward against bounce_step on the same card tensors, each bounce:
+    every output to the bit, the direction of a diffuse lane (the lobe's
+    cos and sin) within K4_LOBE_ATOL; two launches bitwise equal; a record
+    without edge_nbr reads tri_meta to the same bits."""
+    from hare_tpu_torch.trace import bounce
+
+    sp, a, s, steps = k4_inputs(dev, scattering)
+    for state, hr, draws, ss, tri_meta in steps:
+        k = bounce.bounce_kernel(state, hr, a, s, draws, ss, tri_meta)
+        p = bounce.bounce_step(state, hr, a, s, draws, ss)
+        again = bounce.bounce_kernel(state, hr._replace(edge_nbr=None), a, s, draws, ss, tri_meta)
+        for x, y, z in zip(list(k[0]) + list(k[1]), list(p[0]) + list(p[1]),
+                           list(again[0]) + list(again[1])):
+            assert same_bits(x, z)
+            if x is k[0].direction and scattering:
+                dif = draws[0]
+                assert same_bits(x[~dif], y[~dif])
+                torch.testing.assert_close(x[dif], y[dif], rtol=0, atol=K4_LOBE_ATOL)
+            else:
+                assert same_bits(x, y)
+
+
+@pytest.mark.parametrize("wanted", ["energy", "geometry", "all"])
+@pytest.mark.parametrize("scattering", [False, True], ids=["specular", "scattering"])
+def test_bounce_bwd_kernel_matches_plain(dev, scattering, wanted):
+    """K4's backward against autograd through bounce_step on the same card
+    tensors, from seeded cotangents: the energy chain (energy, the tables
+    summed by polygon) and the distance, origin and point to the bit; the
+    direction and normal to the bit on the specular branch, within
+    K4_LOBE_GRAD_RTOL of the largest with scattering; absent cotangents
+    and gradients not asked for stay None."""
+    from hare_tpu_torch.trace import bounce
+
+    sp, a, s, steps = k4_inputs(dev, scattering)
+    flags = {"energy": (1, 0, 0, 0, 0, 0, 0, 1, 1), "geometry": (0, 1, 1, 1, 1, 1, 1, 0, 0),
+             "all": (1,) * 9}[wanted]
+    want = tuple(bool(f) and not (k == 8 and s is None) for k, f in enumerate(flags))
+    for b, (state, hr, draws, ss, _) in enumerate(steps):
+        cot = k4_cotangents(dev, state.energy.shape[0], b)
+        if b == len(steps) - 1:  # the last bounce: no next state
+            cot = (None, None, None, None) + cot[4:]
+        args = (state, hr, a, s, draws, cot, want, ss)
+        k = bounce.bounce_step_bwd(*args)
+        p = bounce.bounce_bwd_plain(*args)
+        assert all(same_bits(x, y) for x, y in zip(k, bounce.bounce_step_bwd(*args))
+                   if x is not None)
+        for name, x, y in zip(bounce.GRADS, k, p):
+            assert (x is None) == (y is None), name
+            if x is None:
+                continue
+            if scattering and name in ("direction", "normal"):
+                torch.testing.assert_close(x, y, rtol=0,
+                                           atol=K4_LOBE_GRAD_RTOL * float(y.abs().max()))
+            else:
+                assert same_bits(x, y), name
+
+
+def test_bounce_kernel_launches_and_remat(dev):
+    """A trace on the card launches K4 once a bounce forward and once a
+    bounce backward; with remat the forward twice; the same bits."""
+    from hare_tpu_torch.trace import bounce
+
+    sp, a, s, _ = k4_inputs(dev, True, n=4096, bounces=1)
+    rays = rays_of(np.random.default_rng(13), 0.3, 2.7, 4096, dev)
+    out = []
+    for remat in (False, True):
+        bounce.bounce_kernel.launches = bounce.bounce_bwd_kernel.launches = 0
+        aa, ss_ = a.clone().requires_grad_(), s.clone().requires_grad_()
+        res = th.trace_rays(sp.scene, rays, aa, 5, sp.shoot_fn, aux=sp.aux, scattering=ss_,
+                            generator=torch.Generator().manual_seed(1), remat=remat)
+        th.energy_histogram(res, 64).sum().backward()
+        torch.cuda.synchronize()
+        assert bounce.bounce_kernel.launches == (10 if remat else 5)
+        assert bounce.bounce_bwd_kernel.launches == 5
+        out.append([res.energy.detach(), res.time.detach(), aa.grad, ss_.grad])
+    assert all(same_bits(x, y) for x, y in zip(*out))
+
+
+def test_nccl_world_one_train_step_is_unsharded(dev):
+    """make_train_step over a one-rank NCCL group: two Adam steps equal the
+    same steps without the group (trace, histogram, loss, backward, Adam) to
+    the bit."""
+    import socket
+
+    import torch.distributed as tdist
+
+    from hare_tpu_torch import dist as hd
+
+    sp, a, _, _ = k4_inputs(dev, False, n=4096, bounces=1)
+    rays = rays_of(np.random.default_rng(14), 0.3, 2.7, 4096, dev)
+    n_polys = a.shape[0]
+    with torch.no_grad():
+        target = th.energy_histogram(th.trace_rays(sp.scene, rays, a, 3, sp.shoot_fn,
+                                                   aux=sp.aux), 64)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    hd.init_distributed("cuda", init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+    try:
+        p1 = {"absorption": torch.zeros(n_polys, device=dev, requires_grad=True)}
+        opt1 = torch.optim.Adam(p1.values(), lr=0.1)
+        step = hd.make_train_step(sp.shoot_fn, opt1, 3, 64)
+        sharded = [step(p1, sp.scene, rays, target, sp.aux) for _ in range(2)]
+    finally:
+        tdist.destroy_process_group()
+    p2 = torch.zeros(n_polys, device=dev, requires_grad=True)
+    opt2 = torch.optim.Adam([p2], lr=0.1)
+    plain = []
+    for _ in range(2):
+        opt2.zero_grad(set_to_none=True)
+        res = th.trace_rays(sp.scene, rays, torch.sigmoid(p2), 3, sp.shoot_fn, aux=sp.aux)
+        loss = torch.sum((th.energy_histogram(res, 64) - target) ** 2) / 64
+        loss.backward()
+        opt2.step()
+        plain.append(loss.detach())
+    assert all(same_bits(x, y) for x, y in zip(sharded, plain))
+    assert same_bits(p1["absorption"].detach(), p2.detach())
+    assert float(sharded[1]) < float(sharded[0])
