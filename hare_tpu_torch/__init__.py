@@ -11,11 +11,13 @@ octree and KD-tree, B3 ``ropes_shoot``), K2 ``finalize_hits`` and K3
 ``energy_histogram``, and each bounce step is K4 (``bounce_step.cu``),
 forward and backward; on CPU tensors it runs their plain PyTorch versions.
 ``dist`` runs the ray-parallel histogram and training step over
-``torch.distributed`` (NCCL on the card, gloo on the CPU).  Imports
-neither JAX nor ``hare_tpu``.
+``torch.distributed`` (NCCL on the card, gloo on the CPU); ``utils`` holds
+the run configuration, profiling, metrics, checkpoints and checks, and
+``examples`` the two inverse-design programs.  Imports neither JAX nor
+``hare_tpu``.
 """
 
-from . import accel, convert, dist, geom, kernels, mesh, oracle, trace
+from . import accel, convert, dist, geom, kernels, mesh, oracle, trace, utils
 from .accel import (
     KDRopes,
     SpatialPartition,
@@ -28,7 +30,7 @@ from .accel import (
     shoot_kdtree_ropes,
     shoot_octree,
 )
-from .geom import NO_POLY, HitRecord, Ray
+from .geom import AABB, NO_POLY, HitRecord, Ray
 from .mesh import Scene, Topology, build_scene
 from .trace import (
     TraceResult,
@@ -40,10 +42,13 @@ from .trace import (
     triangle_points,
     uniform_sphere,
 )
+from .utils import HareConfig
 
 __version__ = "0.1.0"
 
 __all__ = [
+    "AABB",
+    "HareConfig",
     "HitRecord",
     "KDRopes",
     "NO_POLY",
@@ -76,4 +81,5 @@ __all__ = [
     "trace_rays",
     "triangle_points",
     "uniform_sphere",
+    "utils",
 ]

@@ -35,6 +35,7 @@ import torch.distributed as dist
 from ..geom.primitives import HitRecord, Ray
 from ..mesh.scene import Scene
 from ..trace.bounce import SOUND_SPEED, energy_histogram, scatter_draws, trace_rays
+from ..utils.checks import check_finite
 
 __all__ = ["backend_for", "init_distributed", "make_train_step", "sharded_histogram"]
 
@@ -212,7 +213,9 @@ def make_train_step(
     the same binning.  With scattering, pass a generator seeded alike on
     every rank (a fresh one of one seed each step repeats the draws, as the
     JAX package's one key does); the draws are the whole batch's, split by
-    ray (:func:`sharded_histogram`).
+    ray (:func:`sharded_histogram`).  With ``utils.enable_debug_checks``
+    on, a NaN in the loss or the updated parameters raises
+    ``FloatingPointError``.
     """
     soft_hist = fit_vertices if soft is None else soft
 
@@ -230,6 +233,7 @@ def make_train_step(
         loss = torch.sum((hist - target) ** 2) / n_bins
         loss.backward()
         optimizer.step()
+        check_finite("make_train_step", loss, *params.values())
         return loss.detach()
 
     return step

@@ -2,7 +2,9 @@
 
 Counterpart of ``hare_tpu/geom/primitives.py``: ``Ray`` carries the
 reference's ``poly_origin1/2`` exclusion pair, ``HitRecord`` the ``X_Event``
-fields.  All fields share one batch prefix and live on one device.
+fields, ``AABB`` the box record (``AABB_Main.cs:24-84``; the slab test is
+``geom.intersect.ray_aabb``).  All fields share one batch prefix and live
+on one device.
 """
 
 from __future__ import annotations
@@ -11,7 +13,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-__all__ = ["Ray", "HitRecord", "NO_POLY"]
+__all__ = ["Ray", "HitRecord", "AABB", "NO_POLY"]
 
 # Sentinel polygon id meaning "no exclusion" / "no hit".
 NO_POLY = -1
@@ -43,6 +45,16 @@ class Ray(NamedTuple):
             )
         return cls(origin, direction, exclude_poly)
 
+    def at(self, t: torch.Tensor) -> torch.Tensor:
+        """Point along the ray: origin + t * direction."""
+        return self.origin + t[..., None] * self.direction
+
+    def reverse(self) -> "Ray":
+        """Flipped-direction copy (``Ray.Reverse()``,
+        ``Hare_Geometry_Primitives.cs:421-428``; a new batch, the rays stay
+        unchanged)."""
+        return self._replace(direction=-self.direction)
+
 
 class HitRecord(NamedTuple):
     """A batch of intersection results (the ``X_Event`` analog).
@@ -63,3 +75,46 @@ class HitRecord(NamedTuple):
     tri_id: torch.Tensor  # (...) int32
     normal: torch.Tensor  # (..., 3) float
     edge_nbr: Optional[torch.Tensor] = None  # (..., 3) int32
+
+    @classmethod
+    def miss(cls, batch_shape, dtype: torch.dtype = torch.float32, device="cuda") -> "HitRecord":
+        """An all-miss record (t = +inf, ids ``NO_POLY``, normal +x), the
+        ``X_Event()`` empty constructor's analog, on ``device``."""
+        batch_shape = tuple(batch_shape)
+        z = torch.zeros(batch_shape, dtype=dtype, device=device)
+        normal = torch.zeros(batch_shape + (3,), dtype=dtype, device=device)
+        normal[..., 0] = 1.0
+        return cls(
+            hit=torch.zeros(batch_shape, dtype=torch.bool, device=device),
+            t=torch.full(batch_shape, float("inf"), dtype=dtype, device=device),
+            u=z,
+            v=z.clone(),
+            point=torch.zeros(batch_shape + (3,), dtype=dtype, device=device),
+            poly_id=torch.full(batch_shape, NO_POLY, dtype=torch.int32, device=device),
+            tri_id=torch.full(batch_shape, NO_POLY, dtype=torch.int32, device=device),
+            normal=normal,
+        )
+
+
+class AABB(NamedTuple):
+    """Axis-aligned box batch (``AABB_Main.cs:26-68``); the derived
+    quantities are computed on demand."""
+
+    min: torch.Tensor  # (..., 3)
+    max: torch.Tensor  # (..., 3)
+
+    @property
+    def center(self) -> torch.Tensor:
+        return 0.5 * (self.min + self.max)
+
+    @property
+    def width(self) -> torch.Tensor:
+        return self.max - self.min
+
+    @property
+    def half_width(self) -> torch.Tensor:
+        return 0.5 * (self.max - self.min)
+
+    def contains(self, p: torch.Tensor) -> torch.Tensor:
+        """Point-in-box test (``AABB_Main.cs:75-84``, inclusive bounds)."""
+        return torch.all((p >= self.min) & (p <= self.max), dim=-1)

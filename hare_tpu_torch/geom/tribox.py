@@ -1,7 +1,8 @@
 """Vectorized triangle/AABB overlap (separating-axis test) — build time only.
 
-A NumPy copy of ``hare_tpu/geom/tribox.py`` ``tri_box_overlap`` (the grid
-build must run where JAX is not installed); the tests hold the two equal.
+A NumPy copy of ``hare_tpu/geom/tribox.py`` — ``tri_box_overlap`` and
+``poly_box_overlap_area`` (the grid build must run where JAX is not
+installed); the tests hold the two equal.
 
 Re-expression of the Akenine-Möller SAT translated in ``AABB_Tri_Int.cs:22-260``
 (9 edge-axis tests, 3 face-axis tests, plane/box test).  The reference version
@@ -19,7 +20,7 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["tri_box_overlap"]
+__all__ = ["poly_box_overlap_area", "tri_box_overlap"]
 
 
 def _axis_test(v_a, v_b, half, a_idx, b_idx, ea, eb):
@@ -88,3 +89,48 @@ def tri_box_overlap(
     sep |= (d > r) | (d < -r)
 
     return ~sep
+
+
+def poly_box_overlap_area(pts: np.ndarray, box_min, box_max) -> float:
+    """Area of (planar convex polygon) ∩ (axis-aligned box).
+
+    Replaces ``AABB.Poly_Overlap_Area`` (``AABB_Main.cs:299-379``), whose
+    corner / crossing collection and polar-angle fan sum has a malformed box
+    ``Edge(i)`` enumeration for cases 9-11 (``AABB_Main.cs:414-419``, a
+    documented defect): the polygon is clipped against the six box
+    half-spaces (Sutherland–Hodgman) and the clipped polygon's area returned,
+    exact for convex planar input, in float64.
+
+    Args:
+      pts: ``(K, 3)`` polygon corners (convex, planar).
+      box_min, box_max: ``(3,)`` box corners.
+    Returns:
+      The clipped area (0.0 when disjoint).
+    """
+    pts = np.asarray(pts, np.float64)
+    box_min = np.asarray(box_min, np.float64)
+    box_max = np.asarray(box_max, np.float64)
+    poly = list(pts)
+    for axis in range(3):
+        for sign, bound in ((1.0, box_min[axis]), (-1.0, box_max[axis])):
+            if not poly:
+                return 0.0
+            # keep points with sign*(p[axis] - bound) >= 0
+            out = []
+            k = len(poly)
+            for i in range(k):
+                a, b = poly[i], poly[(i + 1) % k]
+                da = sign * (a[axis] - bound)
+                db = sign * (b[axis] - bound)
+                if da >= 0:
+                    out.append(a)
+                    if db < 0:
+                        out.append(a + (b - a) * (da / (da - db)))
+                elif db >= 0:
+                    out.append(a + (b - a) * (da / (da - db)))
+            poly = out
+    if len(poly) < 3:
+        return 0.0
+    p = np.asarray(poly)
+    fan = np.cross(p[1:-1] - p[0], p[2:] - p[0])
+    return float(0.5 * np.linalg.norm(fan, axis=-1).sum())

@@ -2,13 +2,15 @@
 
 from . import shapes
 from .scene import PAD_POLY, Scene
-from .topology import GroupedRows, Topology, build_scene
+from .topology import EdgeAux, GroupedRows, Topology, build_scene, merge_topologies
 
 __all__ = [
+    "EdgeAux",
     "GroupedRows",
     "PAD_POLY",
     "Scene",
     "Topology",
     "build_scene",
+    "merge_topologies",
     "shapes",
 ]

@@ -1,11 +1,13 @@
 """Host-side mesh compiler: welding, adjacency, planes — emits a torch `Scene`.
 
-A NumPy copy of ``hare_tpu/mesh/topology.py`` (``Topology.build`` and
-``build_scene``; the per-polygon queries, ``device_aux`` and
-``closest_point`` are not ported yet): the machine that runs the port has
-no JAX, so the port cannot import the JAX package's host code.  The tests hold every array this
-module makes bit-equal to the JAX package's.  ``build_scene`` ends in torch
-tensors on the requested device.
+A NumPy copy of ``hare_tpu/mesh/topology.py`` (``Topology.build``, the
+per-polygon queries, ``set_vertex``, ``poly_frames``, ``device_aux``,
+``build_scene`` and ``merge_topologies``): the machine that runs the port
+has no JAX, so the port cannot import the JAX package's host code.  The
+tests hold every array this module makes bit-equal to the JAX package's.
+``build_scene`` and ``device_aux`` end in torch tensors on the requested
+device; ``closest_point`` goes through the port's
+``geom.closest_point_triangle`` on CPU tensors.
 
 Semantics preserved from the reference (``Hare_Geometry_Topology.cs``):
 welding by rounding to ``precision`` decimals then ``np.unique``; degenerate
@@ -18,14 +20,30 @@ incident polygon normals.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Sequence
+from typing import List, NamedTuple, Sequence
 
 import numpy as np
 import torch
 
 from .scene import PAD_POLY, Scene
 
-__all__ = ["GroupedRows", "Topology", "build_scene"]
+__all__ = ["EdgeAux", "GroupedRows", "Topology", "build_scene", "merge_topologies"]
+
+
+class EdgeAux(NamedTuple):
+    """Device-side edge-diffraction arrays (see ``Topology.device_aux``).
+
+    Ragged per-edge incident-polygon lists are padded to ``kmax`` lanes
+    (``edge_poly == -1`` marks padding).
+    """
+
+    vertex_normals: torch.Tensor  # (V, 3)
+    edges: torch.Tensor  # (E, 2) i32 vertex pairs
+    edge_poly: torch.Tensor  # (E, kmax) i32, -1 padded
+    edge_tributary_area: torch.Tensor  # (E, kmax)
+    edge_tributary_length: torch.Tensor  # (E, kmax)
+    edge_tangent: torch.Tensor  # (E, kmax, 3) unit toward poly centroid
+    poly_frame: torch.Tensor  # (P, 3, 3) rows (diffx, diffy, diffz)
 
 # Degenerate-edge threshold (Hare_Geometry_Topology.cs:282).
 MIN_EDGE_LEN = 1e-4
@@ -357,6 +375,119 @@ class Topology:
         """Emit the padded device :class:`Scene` on ``device``."""
         return build_scene([self], pad_to=pad_to, device=device)
 
+    # -------------------------------------------------- per-polygon queries
+    # Host-side analogs of the reference Topology utility surface
+    # (Hare_Geometry_Topology.cs:550-675).
+    def polygon_area(self, poly_id: int) -> float:
+        """``Polygon_Area`` (``Hare_Geometry_Topology.cs:550-560``)."""
+        return float(self.poly_area[poly_id])
+
+    def polygon_centroid(self, poly_id: int) -> np.ndarray:
+        """``Polygon_Centroid`` (``:562-566``)."""
+        return self.poly_centroid[poly_id]
+
+    def dist_to_plane(self, p, poly_id: int) -> float:
+        """``DistToPlane(Point, Poly_ID)`` (``:583-587``): signed distance
+        from p to the polygon's plane."""
+        n = self.poly_normal[poly_id]
+        q = self.vertices[self.poly_verts[poly_id][0]]
+        return float(np.dot(n, np.asarray(p, np.float64) - q))
+
+    def closest_point(self, p, poly_id: int) -> np.ndarray:
+        """``Closest_Point(Point, Poly_ID)`` (``:589-615``): closest point on
+        the polygon (min over its triangle fans, Voronoi-region exact), by
+        :func:`~..geom.closest.closest_point_triangle` on float32 CPU
+        tensors, as the JAX package computes it (JAX's default 32-bit
+        arrays)."""
+        from ..geom.closest import closest_point_triangle
+
+        p = np.asarray(p, np.float64)
+        tris = self.tri_v[self.tri_poly == poly_id]
+        v = self.vertices
+        best, best_d = None, np.inf
+        for t in tris:
+            q = closest_point_triangle(
+                *(torch.from_numpy(x.astype(np.float32)) for x in (p, v[t[0]], v[t[1]], v[t[2]]))
+            ).numpy()
+            dd = float(np.sum((q - p) ** 2))
+            if dd < best_d:
+                best, best_d = q, dd
+        return best
+
+    def set_vertex(self, index: int, xyz) -> None:
+        """In-place coordinate update (``Set_Vertex``,
+        ``Hare_Geometry_Topology.cs:506-511``).  Derived host quantities are
+        NOT recomputed (the reference also leaves polygon normals stale);
+        the device kernels recompute from the vertices."""
+        self.vertices[index] = np.asarray(xyz, np.float64)
+
+    def poly_frames(self) -> np.ndarray:
+        """Per-polygon orthonormal local frame, ``(P, 3, 3)`` with rows
+        (diffx, diffy, diffz) — the stored frame of
+        ``Hare_Geometry_Polygons.cs:173-182``: diffz = unit normal, diffx =
+        first edge normalized, diffy = diffz x diffx.  Degenerate polygons
+        get a zero frame."""
+        P = self.n_polys
+        v = self.vertices
+        i0 = np.fromiter((pv[0] for pv in self.poly_verts), np.int64, P)
+        i1 = np.fromiter((pv[1] for pv in self.poly_verts), np.int64, P)
+        dx = v[i1] - v[i0]
+        ln = np.linalg.norm(dx, axis=1, keepdims=True)
+        dx = np.where(ln > 0, dx / np.where(ln > 0, ln, 1), 0.0)
+        dz = self.poly_normal
+        dy = np.cross(dz, dx)
+        frames = np.stack([dx, dy, dz], axis=1)
+        frames[self.poly_degenerate] = 0.0
+        return frames
+
+    def device_aux(self, dtype: torch.dtype = torch.float32, device="cuda") -> EdgeAux:
+        """Device-side consumer arrays for edge diffraction on ``device``:
+        vertex normals (``Hare_Geometry_Topology.cs:169-179``), per-edge
+        tributary area / length / tangent per incident polygon
+        (``Hare_Geometry_Primitives.cs:288-299``) and polygon local frames,
+        the ragged lists padded to rectangles, so a consumer can gather them
+        per hit on the device."""
+        E = len(self.edges)
+        counts = (
+            np.diff(self.edge_polys.start)
+            if isinstance(self.edge_polys, GroupedRows)
+            else np.fromiter((len(g) for g in self.edge_polys), np.int64, E)
+        )
+        kmax = int(counts.max(initial=1))
+        np_dtype = torch.empty((), dtype=dtype).numpy().dtype
+        ep = np.full((E, kmax), -1, np.int32)
+        ta = np.zeros((E, kmax), np_dtype)
+        tl = np.zeros((E, kmax), np_dtype)
+        tg = np.zeros((E, kmax, 3), np_dtype)
+        lane = np.arange(kmax)
+        msk = lane[None, :] < counts[:, None]
+        if isinstance(self.edge_polys, GroupedRows):
+            pos = (self.edge_polys.start[:-1, None] + lane)[msk]
+            ep[msk] = self.edge_polys.values[pos]
+            ta[msk] = self.edge_tributary_area.values[pos]
+            tl[msk] = self.edge_tributary_length.values[pos]
+            tg[msk] = self.edge_tangents.values[pos]
+        else:  # plain list-of-arrays
+            for e in range(E):
+                k = counts[e]
+                ep[e, :k] = self.edge_polys[e]
+                ta[e, :k] = self.edge_tributary_area[e]
+                tl[e, :k] = self.edge_tributary_length[e]
+                tg[e, :k] = self.edge_tangents[e]
+
+        def dev(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+        return EdgeAux(
+            vertex_normals=dev(self.vertex_normals.astype(np_dtype)),
+            edges=dev(self.edges),
+            edge_poly=dev(ep),
+            edge_tributary_area=dev(ta),
+            edge_tributary_length=dev(tl),
+            edge_tangent=dev(tg),
+            poly_frame=dev(self.poly_frames().astype(np_dtype)),
+        )
+
 
 def _ceil_to(n: int, m: int) -> int:
     return max(m, ((n + m - 1) // m) * m)
@@ -488,3 +619,9 @@ def build_scene(
         tri_meta=dev(tri_meta),
         tri_geom=dev(tri_geom),
     )
+
+
+def merge_topologies(topologies: Sequence[Topology], device="cuda") -> Scene:
+    """Pack several topologies into one Scene on ``device``
+    (:func:`build_scene`)."""
+    return build_scene(topologies, device=device)

@@ -44,6 +44,7 @@ from ..geom.math import dot, normalize
 from ..geom.primitives import NO_POLY, HitRecord, Ray
 from ..kernels import build
 from ..mesh.scene import Scene
+from ..utils.checks import check_finite
 
 __all__ = [
     "SOUND_SPEED",
@@ -557,6 +558,8 @@ def trace_rays(
         rays' columns of the whole batch's draws).
 
     Each bounce's step is :func:`fused_bounce_step`: K4 on CUDA tensors.
+    With ``utils.enable_debug_checks`` on, a NaN in the energies or times
+    raises ``FloatingPointError``.
     """
     if scattering is not None and generator is None and draws is None:
         raise ValueError("scattering requires a torch.Generator (generator=)")
@@ -592,7 +595,9 @@ def trace_rays(
         else:
             state, out = bounce(state, draws_b)
         outs.append(out)
-    return TraceResult(*(torch.stack(x) for x in zip(*outs)))
+    res = TraceResult(*(torch.stack(x) for x in zip(*outs)))
+    check_finite("trace_rays", res.energy, res.time)
+    return res
 
 
 def _bins(time: torch.Tensor, n_bins: int, bin_dt: float) -> torch.Tensor:
@@ -809,10 +814,14 @@ def energy_histogram(
     energies.  ``soft=True``: tent binning (:func:`soft_histogram_plain`),
     which also conserves totals and is differentiable in the arrival times
     too, hence in the vertex positions — what vertex fitting descends on.
-    K3 on CUDA tensors, its plain version on CPU tensors.
+    K3 on CUDA tensors, its plain version on CPU tensors.  With
+    ``utils.enable_debug_checks`` on, a NaN in the bins raises
+    ``FloatingPointError``.
     """
     fn = _SoftHistogram if soft else _HardHistogram
-    return fn.apply(result.energy, result.time, result.hit, n_bins, bin_dt)
+    hist = fn.apply(result.energy, result.time, result.hit, n_bins, bin_dt)
+    check_finite("energy_histogram", hist)
+    return hist
 
 
 energy_histogram.launches = 0

@@ -1433,3 +1433,95 @@ def test_nccl_world_one_train_step_is_unsharded(dev):
     assert all(same_bits(x, y) for x, y in zip(sharded, plain))
     assert same_bits(p1["absorption"].detach(), p2.detach())
     assert float(sharded[1]) < float(sharded[0])
+
+
+@pytest.fixture
+def nccl_group(dev):
+    """An NCCL group of one, as the programs join it, destroyed after."""
+    from hare_tpu_torch.examples._group import join_group, leave_group
+
+    made = join_group(dev)
+    yield
+    leave_group(made)
+
+
+def small_config(**kw):
+    from hare_tpu_torch.utils import HareConfig
+
+    return HareConfig(n_rays=2048, n_bounces=3, n_bins=64, **kw)
+
+
+def test_fit_absorption_on_card_matches_cpu(dev):
+    """chip_smoke.py phase 11 at a small size: the program's loop on the
+    card (an NCCL group of one) against the same loop on the CPU (a gloo
+    group of one) on the same rays: the parameters within 1e-4 (f32 sums
+    in another order); each step's loss within 1e-3, since K2's floats
+    agree with its plain version's within 1e-5, not to the bit, so a lane
+    whose arrival time sits at a bin edge may bin apart (chip_smoke.py's
+    CPU references mask such lanes; here one moved the loss by 1.9e-4)."""
+    from hare_tpu_torch.examples import fit_absorption as fa
+    from hare_tpu_torch.examples._group import join_group, leave_group
+
+    cfg = small_config()
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        made = join_group(where)
+        try:
+            out[where.type] = fa.fit(fa.setup(cfg, False, where), cfg, 3, where, time_iters=0)
+        finally:
+            leave_group(made)
+    card, host = out["cuda"], out["cpu"]
+    np.testing.assert_allclose(card["losses"], host["losses"], rtol=1e-3)
+    for k, v in host["params"].items():
+        np.testing.assert_allclose(card["params"][k].cpu().numpy(), v.numpy(), rtol=0, atol=1e-4)
+
+
+def test_fit_programs_on_card_repeat_and_resume(dev, nccl_group, tmp_path):
+    """One step of each program repeats to the bit (determinism_check);
+    torch.rand of the card's generator does not; an absorption fit with
+    scattering interrupted at step 2 and resumed from its checkpoint
+    (parameters, Adam's state, the generator's state, the cursor) ends
+    bit-equal, its parameters restored onto the card."""
+    from hare_tpu_torch.examples import fit_absorption as fa
+    from hare_tpu_torch.examples import fit_vertices as fv
+    from hare_tpu_torch.utils import determinism_check
+
+    cfg = small_config()
+    prob = fa.setup(cfg, True, dev)
+    prob_v = fv.setup(cfg, dev)
+    assert determinism_check(lambda: fa.fit(prob, cfg, 1, dev, time_iters=0)["params"])
+    assert determinism_check(lambda: fv.fit(prob_v, cfg, 1, 25, dev, time_iters=0)["params"])
+    with pytest.raises(AssertionError, match="differs"):
+        determinism_check(lambda: torch.rand(100, device=dev))
+    ref = fa.fit(prob, cfg, 4, dev, time_iters=0)
+    ck = cfg.replace(checkpoint_dir=str(tmp_path / "ck"))
+
+    def fail(i):
+        if i == 2:
+            raise RuntimeError("injected")
+
+    with pytest.raises(RuntimeError, match="injected"):
+        fa.fit(prob, ck, 4, dev, on_step=fail, time_iters=0)
+    resumed = fa.fit(prob, ck, 4, dev, time_iters=0)
+    assert resumed["start"] == 1 and resumed["losses"] == ref["losses"][1:]
+    for k, v in ref["params"].items():
+        assert same_bits(resumed["params"][k], v) and resumed["params"][k].device.type == "cuda"
+
+
+def test_restore_state_places_on_the_template_device(dev, tmp_path):
+    """restore_state puts each tensor on its template tensor's device (the
+    card where the template is there), never on the CPU instead; timed
+    synchronises the result's device."""
+    from hare_tpu_torch.utils import restore_state, save_state, timed
+
+    x = torch.arange(6.0, device=dev)
+    save_state(str(tmp_path), 0, {"x": x, "y": torch.ones(2), "n": 3})
+    out = restore_state(str(tmp_path), {"x": torch.zeros(6, device=dev), "y": torch.zeros(2),
+                                        "n": 0})
+    assert out["x"].device == x.device and out["y"].device.type == "cpu"
+    assert torch.equal(out["x"], x) and out["n"] == 3
+    only = restore_state(str(tmp_path), {"x": torch.zeros(6, device=dev),
+                                         "y": torch.zeros(2, device=dev), "n": 0})
+    assert only["y"].device.type == "cuda"
+    dt, y = timed(lambda: x * 2, iters=3)
+    assert dt > 0 and y.device.type == "cuda"

@@ -27,7 +27,7 @@ from hare_tpu_torch.trace.bounce import (  # noqa: E402
 CPU = "cpu"
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "hare_tpu")  # compared as whole first components
+FORBIDDEN = ("jax", "hare_tpu", "optax", "orbax")  # compared as whole first components
 
 
 def test_import_loads_no_jax():
@@ -50,9 +50,24 @@ def test_benchmarks_load_no_jax():
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
 
 
+def test_utils_and_examples_load_no_jax():
+    """The utilities and both programs import neither JAX nor the JAX
+    package, optax or orbax."""
+    code = (
+        "import sys, hare_tpu_torch.utils\n"
+        "import hare_tpu_torch.examples.fit_absorption, hare_tpu_torch.examples.fit_vertices\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'hare_tpu', 'optax', 'orbax')]\n"
+        "assert not bad, bad\n"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+
+
 def test_no_jax_or_hare_tpu_imports_in_source():
-    files = sorted((ROOT / "hare_tpu_torch").rglob("*.py"))
+    files = sorted((ROOT / "hare_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    assert {"fit_absorption.py", "fit_vertices.py", "checkpoint.py", "closest.py"} <= {
+        f.name for f in files}
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):
             if isinstance(node, ast.Import):
