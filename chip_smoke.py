@@ -44,7 +44,8 @@ per-polygon absorption, on the card.  Phases, one line each:
    against their plain versions, bit-equal, at each path's full width (B2
    and B3 on the rays of each of the 3 bounces of the bench scene, with
    device time, pops or steps and bound per bounce; B2 on config 3's hall;
-   B1 on config 1, timed, and on the bench scene) and B1 against the
+   B1 on config 1 (``configs.config1_setup``), timed, and on the bench
+   scene) and B1 against the
    float64 oracle; B2 and B3 against B1 on the bench scene's first bounce;
    the main path through ``octree``, ``kdtree`` and ``kdtree_ropes`` on the
    bench scene,
@@ -56,7 +57,9 @@ per-polygon absorption, on the card.  Phases, one line each:
    bounce's 1M rays and K3's hard backward on its 3M lanes against their
    plain versions on the card, and K2's time a call inside the step beside
    its bound; K3 hard and its backward on config 3's 3M lanes beside their
-   yardsticks; stack against ropes.
+   yardsticks; stack against ropes on the bench scene, on a KD tree of
+   depth 22 (``random_soup(600, seed=19)``, one triangle a leaf, 32,768
+   rays) and on the hall's KD tree with config 3's 1M rays.
 8. vertex gradients and the soft histogram: A3 ``finalize_hits_bwd`` on
    the rays of each bench bounce against its plain version (autograd
    through the triangle test), element by element; the fixed-order
@@ -90,6 +93,22 @@ per-polygon absorption, on the card.  Phases, one line each:
    at full width, w.r.t. absorption, three Adam steps: the loss falls, each
    step equal to the same step without the group to the bit; its time and
    kernels a step beside the unsharded step's.
+11. the two inverse-design programs (``hare_tpu_torch.examples``) at their
+   defaults, counted and gated on what the JAX loops reach.
+12. in a process of its own (``CONFIG5_ARG``), eval config 5 at full size
+   (``configs.config5_setup``: 5,242,892 triangles, a 256^3 grid, 2^20
+   rays, 2 bounces, 1024 bins), built once:
+   the host build and K1's march per ray (``voxel.grid_work``); forward
+   and fwd+bwd w.r.t. absorption, counted, gated (every ray hits, the
+   histogram total equals the bounce energies, the gradient finite and
+   non-positive, two steps bitwise equal) and timed; K1, K2, K4 and its
+   backward, K3 and its backward, the scatter (5,242,892 keys: its 64-bit
+   pairs) against their plain versions on the config's own inputs and the
+   CPU sub-batch; each kernel's device time beside its bound, the scatter
+   beside ``index_add_``; and the sustained run, 100 batches of 2^20 rays
+   (``configs.config5_batches``, 104,857,600 rays) through the fwd+bwd
+   step, summed on the card and gated (the rays the reference's grid
+   march loses, ``NEAR_AXIS``, found again and checked one by one).
 
 On every path that phases 4-9 drive, K4 forward and backward are held
 against their plain versions on each bounce step's full-width inputs (the
@@ -101,8 +120,10 @@ the per-kernel JSON record, the last ``{"ok": true, "device": ...}``.
 
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -710,12 +731,15 @@ def k4_line(label, r):
 def hist_checks(label, res, n_bins, soft=False, hist=None):
     """K3 (hard or soft bins) and its backward on a path's trace record
     against their plain versions on the same card tensors: the histogram
-    within HIST_REL_TOL of its total (and, where given, the path's own
-    ``hist`` equal to it to the bit), the backward from seeded bin
-    gradients bit-equal to its plain version where hard, within
-    SOFT_BWD_REL_TOL of the largest where soft; two launches of each
-    bitwise equal.  Returns (the histogram's max |diff| over its total,
-    the backward's max |diff| over its largest)."""
+    within HIST_REL_TOL of its total from the plain version's float64 sums
+    of the same f32 lanes (their exact sums to f64 rounding: at millions
+    of lanes a bin's f32 sum, K3's or the plain version's float atomics',
+    rounds by more than HIST_REL_TOL of the total between two orders), and,
+    where given, the path's own ``hist`` equal to it to the bit; the
+    backward from seeded bin gradients bit-equal to its plain version where
+    hard, within SOFT_BWD_REL_TOL of the largest where soft; two launches of
+    each bitwise equal.  Returns (the histogram's max |diff| over its
+    total, the backward's max |diff| over its largest)."""
     from hare_tpu_torch.trace import bounce
 
     lanes = (res.energy, res.time, res.hit)
@@ -725,8 +749,8 @@ def hist_checks(label, res, n_bins, soft=False, hist=None):
         return bounce.histogram_kernel(*lanes, n_bins, BIN_DT, soft=soft)
 
     plain = bounce.soft_histogram_plain if soft else bounce.histogram_plain
-    hk, hp = fwd(), plain(*lanes, n_bins, BIN_DT)
-    err = float((hk - hp).abs().max()) / float(hp.sum())
+    hk, h64 = fwd(), plain(res.energy.double(), res.time, res.hit, n_bins, BIN_DT)
+    err = float((hk.double() - h64).abs().max()) / float(h64.sum())
     check(err <= HIST_REL_TOL, f"K3 {label}: differs by {err:.3e} of the total")
     check(same_floats(hk, fwd()), f"K3 {label}: two launches differ")
     check(hist is None or same_floats(hist, hk), f"K3 {label}: the path's histogram differs")
@@ -960,11 +984,31 @@ def cpu_reference(th, sp, rays, absorption, n_bins, scattering=None, n_bounces=N
     return int(masked.sum()), int(flips.sum())
 
 
-def config_rays(th, origin, n, dev):
-    """``benchmarks/configs.py``'s rays: n uniform directions (seed 0) from
-    one source point."""
-    d = th.uniform_sphere(n, torch.Generator().manual_seed(0), device=dev)
-    return th.Ray.make(torch.tensor(origin, device=dev).expand(n, 3).contiguous(), d)
+def stack_vs_ropes(label, top, rays, dev, **kw):
+    """B2's KD stack walk and B3's ropes on the same SAH KD tree (``kw`` to
+    both builders) and the same rays: each bit-equal to its plain version,
+    pops or steps included, and timed on the device.  Prints one line;
+    returns the depths the two builds reached."""
+    from hare_tpu_torch.accel import kdtree, ropes, tree
+
+    kd = kdtree.build_kdtree(top, device=dev, **kw)
+    kr = ropes.build_kdtree_ropes(top, device=dev, **kw)
+    out = {}
+    for name, fn, plain, st, tag in (
+            ("B2 stack", tree.tree_shoot, tree.tree_shoot_plain, kd, "tree_shoot_kernel"),
+            ("B3 ropes", ropes.ropes_shoot, ropes.ropes_shoot_plain, kr, "ropes_shoot_kernel")):
+        k = fn(rays, st, with_stats=True)
+        same_bits(f"{name} {label}", k, plain(rays, st, with_stats=True))
+        visits = k[2].double()
+        out[name] = (launch_ms(lambda: fn(rays, st), 5, tag), float(visits.mean()),
+                     int(visits.max()))
+    (b2, pops, max_pops), (b3, steps, max_steps) = out["B2 stack"], out["B3 ropes"]
+    print(f"phase 7 stack vs ropes, {label} ({top.n_tris} tris, SAH KD tree max_depth "
+          f"{kd.max_depth} (ropes {kr.max_depth}), {kd.n_nodes} nodes, {rays.origin.shape[0]} "
+          f"rays): both bit-equal to their plain versions, pops and steps included; B2 stack "
+          f"{b2:.4f} ms on the device, pops per ray mean {pops:.2f} max {max_pops}; B3 ropes "
+          f"{b3:.4f} ms, steps mean {steps:.2f} max {max_steps}; ropes / stack {b3 / b2:.2f}")
+    return kd.max_depth, kr.max_depth
 
 
 def backends_phase(dev, top, grid_sp, rays, batches, absorption, grid_hist):
@@ -1048,9 +1092,9 @@ def backends_phase(dev, top, grid_sp, rays, batches, absorption, grid_hist):
               f"{mean['bound_ms'] / mean['device_ms']:.2%} of it")
 
     # B1 on config 1 at full size (the bench scene's full width is in 7.3).
-    room = th.Topology.build(shapes.shoebox(4, 5, 3))
-    room_sc = room.scene(device=dev)
-    c1_rays = config_rays(th, (2.0, 2.5, 1.5), 10_000, dev)
+    c1 = configs.config1_setup(dev)
+    room, sp1, c1_rays = c1.topology, c1.partition, c1.rays
+    room_sc = sp1.scene
     same_bits("B1 config 1", brute.brute_shoot(room_sc, c1_rays),
               brute.brute_shoot_plain(room_sc, c1_rays))
     c1_ms = cuda_time(lambda: brute.brute_shoot(room_sc, c1_rays), 50)
@@ -1275,24 +1319,36 @@ def backends_phase(dev, top, grid_sp, rays, batches, absorption, grid_hist):
           f"{kernel_ms(per_name3, K3_TAG):.4f} ms, the hard backward "
           f"{kernel_ms(per_name3, 'hard_bwd_kernel'):.5f} ms; {kernels3:.1f} kernels a step")
 
+    # Stack against ropes on trees deeper than 20 levels, and on the hall's
+    # KD tree at its defaults with config 3's rays.
+    g = torch.Generator().manual_seed(19)
+    soup_rays = th.Ray.make((torch.rand(1 << 15, 3, generator=g) * 12.0 - 1.0).to(dev),
+                            th.uniform_sphere(1 << 15, g, device=dev))
+    depths = stack_vs_ropes("random_soup(600, seed=19), depth 22", th.Topology.build(
+        shapes.random_soup(600, seed=19)), soup_rays, dev, max_depth=22, max_tris_per_node=1)
+    check(depths == (22, 22), f"the soup's KD trees reached depths {depths}, not 22")
+    stack_vs_ropes("config 3's hall at the builders' defaults", hall, r3, dev)
+
     # Config 1: shoebox, brute, 10k rays, 256 bins, forward.
-    sp1 = th.SpatialPartition(room, accel="brute", device=dev)
-    a1 = torch.full((room.n_polys,), ABSORPTION, device=dev)
+    a1, nb1 = c1.absorption, c1.n_bounces
+    check(nb1 == N_BOUNCES, f"config 1 has {nb1} bounces")
     counters = (brute.brute_shoot, common.finalize_hits, bounce.bounce_kernel,
                 th.energy_histogram)
-    _, _, launches, _ = drive(th, sp1, c1_rays, a1, 256, counters, False, True)
+    _, _, launches, _ = drive(th, sp1, c1_rays, a1, c1.n_bins, counters, False, True)
     rec_launch["brute"] += launches["brute_shoot"]
-    cpu_reference(th, sp1, c1_rays, a1, 256)
+    cpu_reference(th, sp1, c1_rays, a1, c1.n_bins)
 
     def fwd1():
         with torch.no_grad():
-            r = th.trace_rays(sp1.scene, c1_rays, a1, N_BOUNCES, sp1.shoot_fn)
-            th.energy_histogram(r, 256, BIN_DT)
+            r = th.trace_rays(sp1.scene, c1_rays, a1, nb1, sp1.shoot_fn)
+            th.energy_histogram(r, c1.n_bins, BIN_DT)
 
     f1 = host_time(fwd1, 10)
-    print(f"phase 7 config 1 (shoebox 12 tris, brute, 10k rays, {N_BOUNCES} bounces, fwd): "
-          f"launches {launches}; all rays hit; {f1:.3f} ms, "
-          f"{1e4 * N_BOUNCES / f1 / 1e3:.4f} Mrays/s fwd; {REF_RAYS}-ray CPU reference agrees")
+    n1 = c1_rays.origin.shape[0]
+    print(f"phase 7 config 1 (shoebox {room.n_tris} tris, brute, {n1} rays, {nb1} bounces, "
+          f"{c1.n_bins} bins, fwd; configs.config1_setup, host build {c1.build_s:.3f} s): "
+          f"launches {launches}; all rays hit; {f1:.3f} ms, {n1 * nb1 / f1 / 1e3:.4f} Mrays/s "
+          f"fwd; {REF_RAYS}-ray CPU reference agrees")
 
     src = "hare_tpu_torch/kernels/csrc/"
     oct_r, kd_r, rp_r = (walk_rec[label] for label, *_ in walks)
@@ -1771,9 +1827,9 @@ def scattering_phase(dev, smi, sp, rays, absorption, records):
           f"equal and floats within {RTOL:g} (max |diff| {k2_err:.3e}), the scatter on the "
           f"bounce's polygon keys equal to its plain version on the CPU to the bit (within "
           f"{scat_err:.3e} of index_add_); K3 within {k3_err:.3e} of the total of its plain "
-          f"version and equal to the step's histogram, the hard backward bit-equal to its plain "
-          f"version; absorption grad sum {float(grads[0].sum()):.4f}, scattering grad sum "
-          f"{float(grads[1].sum()):.4f}")
+          f"version in float64 and equal to the step's histogram, the hard backward bit-equal "
+          f"to its plain version; absorption grad sum {float(grads[0].sum()):.4f}, scattering "
+          f"grad sum {float(grads[1].sum()):.4f}")
 
     def draws(where):
         return lambda: bounce.scatter_draws(torch.Generator(device=where).manual_seed(DRAW_SEED),
@@ -2252,6 +2308,329 @@ def programs_phase(dev, smi, records):
         leave_group(made)
 
 
+# Phase 12: the sustained run's batches (config5_batches: 104,857,600 rays
+# at 100), and the batch run again alone, which must repeat its first run.
+SUSTAINED_BATCHES, REPEAT_BATCH = 100, 37
+# The reference's grid march loses a ray that starts on a cell boundary
+# (config 5's source, (20, 20, 20), lies on one along every axis) with a
+# direction component this close to zero: that axis's next boundary stays
+# at t = 0, and every distance-field jump, measured from it, lands in the
+# same cell until the march's step bound (the JAX package's shoot_grid
+# loses the same rays; ROADMAP.md, Queue C).
+NEAR_AXIS = 1e-6
+
+
+def config5_phase(dev, smi, records):
+    """Phase 12: eval config 5 at full size (``big_scene("5M")``, 5,242,892
+    triangles, a 256^3 grid, 2^20 rays, 2 bounces, 1024 bins), built once:
+    (a) the host build and K1's march; (b) forward and (c) fwd+bwd w.r.t.
+    absorption, counted, gated and timed; (d) each kernel against its plain
+    version on the config's own full-width inputs, and the CPU sub-batch;
+    (e) each kernel's device ms beside its bound, the scatter beside
+    ``index_add_``; (f) the sustained run over ``SUSTAINED_BATCHES``
+    batches of ``configs.config5_batches``.  Adds the config's launches and
+    times to the records."""
+    import itertools
+
+    import hare_tpu_torch as th
+    from hare_tpu_torch.accel import brute, common, scatter, voxel
+    from hare_tpu_torch.benchmarks import bench_scene, bounds, configs
+    from hare_tpu_torch.trace import bounce
+
+    t_phase = time.perf_counter()
+    cfg = configs.config5_setup(dev)
+    torch.cuda.synchronize()
+    top, sp, rays, a = cfg.topology, cfg.partition, cfg.rays, cfg.absorption
+    grid, scene = sp.struct, sp.scene
+    nb, n_bins, n = cfg.n_bounces, cfg.n_bins, rays.origin.shape[0]
+    st = cfg.stats()
+    check(top.n_tris == 5_242_892, f"config 5 has {top.n_tris} triangles, not 5,242,892")
+    check(grid.dims == (256, 256, 256), f"config 5's grid is {grid.dims}")
+    check((n, nb, n_bins) == (1 << 20, 2, 1024), f"config 5: {n} rays, {nb} bounces, {n_bins} bins")
+
+    # ---- 12a: the build, and K1's march on each bounce's 2^20 rays.
+    batches = bench_scene.bounce_rays(sp, rays, a, nb)
+    works = [voxel.grid_work(r, grid) for r in batches]
+    march = "; ".join(
+        f"bounce {b}: cells a ray mean {float(w.cells.double().mean()):.2f}, p99 "
+        f"{float(torch.quantile(w.cells.double(), 0.99)):.0f}, max {int(w.cells.max())} (bound "
+        f"{sum(grid.dims) + 3} steps); triangle slots a ray mean "
+        f"{float(w.slots.double().mean()):.1f}, max {int(w.slots.max())}; {w.cells_touched} cells "
+        f"and {w.slots_touched} slots touched" for b, w in enumerate(works, 1))
+    print(f"phase 12a config 5 host build [{smi}]: topology {cfg.topology_s:.2f} s, grid "
+          f"{cfg.grid_s:.2f} s (domain 256, with the scene's placement): {top.n_tris} tris, "
+          f"{top.n_polys} polys, {scene.vertices.shape[0]} vertices; grid {st['grid_dims']}, "
+          f"{st['win_rows']} window rows, max_cell_wins {st['max_cell_wins']}, "
+          f"{st['dup_slots_per_tri']:.2f} slots a triangle; win_data {st['win_data_MB']:.1f} MB "
+          f"(+ ids {st['win_ids_MB']:.1f}), cell_meta {st['meta_MB']:.1f} MB; on the device the "
+          f"scene {st['scene_MB']:.1f} MB and the grid {st['grid_MB']:.1f} MB")
+    print(f"phase 12a K1's march (voxel.grid_work): {march}")
+
+    counters = (voxel.grid_shoot, common.finalize_hits, bounce.bounce_kernel,
+                bounce.bounce_bwd_kernel, th.energy_histogram, bounce.hard_histogram_bwd,
+                scatter.scatter_add_ordered)
+    names = [c.__name__ for c in counters]
+
+    def step(backward):
+        return lambda: trace_step(th, sp, rays, a, nb, n_bins, backward=backward)
+
+    # ---- 12b forward, and 12c fwd+bwd w.r.t. absorption.
+    steps = {}
+    for label, backward, want in (
+            ("12b forward", False, (nb, nb, nb, 0, 1, 0, 0)),
+            ("12c fwd+bwd", True, (nb, nb, nb, nb, 1, 1, nb))):
+        fn = step(backward)
+        (res, hist, grads), launches = counted(counters, fn)
+        check([launches[k] for k in names] == list(want),
+              f"{label}: launches {launches}, not {dict(zip(names, want))}")
+        e_sum, total = step_checks(f"{label} config 5", res, hist, grads, closed=True)
+        if backward:
+            _, hist2, grads2 = fn()
+            check(same_floats(hist, hist2) and same_floats(grads[0], grads2[0]),
+                  f"{label}: two steps differ")
+            del hist2, grads2
+        ms = host_time(fn, 5)
+        busy, per_name, kernels = step_ms(fn, 3)
+        peak = peak_mib(fn)
+        steps[label] = (res, hist, grads, launches)
+        grad_note = (f"; grad finite, <= 0, sum {float(grads[0].sum()):.4f}; two steps bitwise "
+                     "equal" if backward else "")
+        print(f"phase {label} config 5 [{smi}] ({top.n_tris} tris, grid 256^3, {n} rays, {nb} "
+              f"bounces, {n_bins} bins): launches {launches}; every ray hits on every bounce; "
+              f"hist total {total:.3f} = bounce energies {e_sum:.3f}{grad_note}; {ms:.3f} ms, "
+              f"{n * nb / ms / 1e3:.4f} Mrays/s {label.split()[1]} ({n * nb} ray queries a step); "
+              f"device busy {busy:.4f} ms, idle share {1 - busy / ms:.3f}, {kernels:.1f} kernels a "
+              f"step (K1 {kernel_ms(per_name, 'grid_shoot_kernel'):.4f}, K2 "
+              f"{kernel_ms(per_name, 'finalize_kernel'):.4f}, K4 "
+              f"{kernel_ms(per_name, K4_FWD_TAG):.4f}, K4's backward "
+              f"{kernel_ms(per_name, K4_BWD_TAG):.4f}, K3 "
+              f"{kernel_ms(per_name, K3_TAG):.4f}, the hard backward "
+              f"{kernel_ms(per_name, 'hard_bwd_kernel'):.4f}, the scatter "
+              f"{kernel_ms(per_name, 'scatter_ordered'):.4f} ms); peak {peak:.1f} MiB above the "
+              f"step's start")
+    res, hist, grads, launches = steps["12c fwd+bwd"]
+
+    # ---- 12d: each kernel against its plain version on the config's inputs.
+    _, k2_err, scat_err, k4 = path_kernel_checks("config 5", sp, rays, a, nb)
+    print(f"phase 12d {k4_line('config 5', k4)}")
+    k3_err, _ = hist_checks("config 5", res, n_bins, hist=hist)
+    lanes = (res.energy, res.time, res.hit)
+    h64 = bounce.histogram_plain(res.energy.double(), *lanes[1:], n_bins, BIN_DT)
+    plain32_err = float((bounce.histogram_plain(*lanes, n_bins, BIN_DT).double() - h64).abs().max()
+                        ) / float(h64.sum())
+    masked, flips = cpu_reference(th, sp, rays, a, n_bins, n_bounces=nb, bin_edges=True)
+    print(f"phase 12d config 5 checks: on each of the {nb} bounces' {n} rays K1 bit-equal to "
+          f"its plain version, K2's ids equal and floats within {RTOL:g} (max |diff| "
+          f"{k2_err:.3e}), the scatter on the bounce's polygon keys ({scene.n_polys} keys, the "
+          f"64-bit pairs) equal to its plain version on the CPU to the bit (within "
+          f"{scat_err:.3e} of index_add_); on {res.hit.numel()} lanes K3 within {k3_err:.3e} of "
+          f"the total of its plain version in float64 (the f32 plain version, float atomics, "
+          f"{plain32_err:.3e}) and equal to the step's histogram, its hard backward bit-equal to "
+          f"its plain version; the {REF_RAYS}-ray CPU reference agrees ({masked} rays masked; "
+          f"{flips} lanes in a neighbouring bin, their arrival times within {REF_RTOL:g})")
+
+    # ---- 12e: each kernel's device ms beside its bound.
+    timed = {}
+    for b, (r, w) in enumerate(zip(batches, works), 1):
+        bnd = bounds.grid_shoot_bound(w)
+        timed[f"K1 bounce {b}"] = (launch_ms(lambda: voxel.grid_shoot(r, grid), 5,
+                                             "grid_shoot_kernel"), bnd)
+    r1 = batches[0]
+    best_t, best_tri = voxel.grid_shoot(r1, grid)
+    timed["K2 bounce 1"] = (launch_ms(lambda: common.finalize_hits(scene, r1, best_t, best_tri), 5,
+                                      "finalize_kernel"), bounds.finalize_hits_bound(best_tri))
+    state, hr, _, ss, tri_meta = bench_scene.bounce_inputs(sp, rays, a, nb)[0]
+    ones = torch.ones(n, device=dev)
+    energy_cot = (None, None, ones, None, ones, None, None)
+    want_energy = tuple(k in ("energy", "absorption") for k in bounce.GRADS)
+    timed["K4 bounce 1"] = (launch_ms(lambda: bounce.bounce_kernel(state, hr, a, None, None, ss,
+                                                                    tri_meta), 5, K4_FWD_TAG),
+                            bounds.bounce_step_bound(hr.poly_id))
+    timed["K4 backward bounce 1 (energy chain)"] = (
+        launch_ms(lambda: bounce.bounce_bwd_kernel(state, hr, a, None, None, energy_cot,
+                                                   want_energy, ss), 5, K4_BWD_TAG),
+        bounds.bounce_step_bwd_bound(hr.poly_id, energy_cot, want_energy))
+    g_bins = torch.randn(n_bins, generator=torch.Generator().manual_seed(3)).to(dev)
+    timed["K3 hard"] = (launch_ms(lambda: bounce.histogram_kernel(*lanes, n_bins, BIN_DT), 5,
+                                  K3_TAG), bounds.histogram_bound(res.hit, n_bins))
+    timed["hard backward"] = (
+        launch_ms(lambda: bounce.hard_histogram_bwd(res.time, res.hit, g_bins, n_bins, BIN_DT), 5,
+                  "hard_bwd_kernel"), bounds.hard_histogram_bwd_bound(res.hit, n_bins))
+    kk = torch.clamp(res.poly_id[0], min=0)
+    vv = torch.randn(n, generator=torch.Generator(device=dev).manual_seed(7), device=dev)
+    n_keys = scene.n_polys
+
+    def scat():
+        return scatter.scatter_add_ordered(kk, vv, n_keys)
+
+    lib_out, lib_idx = torch.zeros(n_keys, device=dev), kk.long()
+
+    def library():
+        return lib_out.index_add_(0, lib_idx, vv)
+
+    timed["scatter bounce 1"] = (launch_ms(scat, 5, "scatter_ordered"),
+                                 bounds.scatter_bound(kk, 1, n_keys))
+    passes = [launch_ms(scat, 5, tag) for tag in ("scatter_ordered_chunks", "scatter_ordered_keys")]
+    scat_ms, lib_ms = cuda_time(scat, 20), cuda_time(library, 20)
+    lib_dev = all_kernels_ms(library, 5)
+    print("phase 12e config 5 kernels on the device [" + smi + "]: " + "; ".join(
+        f"{k} {ms:.5f} ms, bound {bnd['bound_ms']:.5f} ms ({bnd['bound_by']}: "
+        f"{bnd['bytes'] / 1e6:.2f} MB, {bnd['ops'] / 1e9:.4f} GFLOP), {bnd['bound_ms'] / ms:.1%} "
+        f"of it" for k, (ms, bnd) in timed.items()))
+    print(f"phase 12e the scatter at {n_keys} keys ({n} values of bounce 1's polygon keys, "
+          f"{int(torch.unique(kk).numel())} used): pass 1 {passes[0]:.5f} ms, pass 2 "
+          f"{passes[1]:.5f} ms on the device, {scat_ms:.5f} ms a call by CUDA events; index_add_ "
+          f"{lib_dev:.5f} ms on the device, {lib_ms:.5f} ms a call")
+
+    # ---- 12f: the sustained run, the histograms and gradients summed on
+    # the card in batch order; no sync but where the gates read.
+    del steps, batches, works, best_t, best_tri, state, hr, lanes, kk, vv, lib_out, lib_idx
+    del res, hist, grads
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # Every ray hits on both bounces but for two reference behaviours the
+    # port keeps (the JAX package traces these rays so): a ray the grid
+    # march loses (NEAR_AXIS) misses on bounce 1, and one whose first hit
+    # lies exactly on an edge where two walls of the shell meet excludes
+    # one wall and may leave through the other.
+    lo, hi = scene.vertices.amin(0), scene.vertices.amax(0)
+
+    def sustained():
+        hist_sum = torch.zeros(n_bins, device=dev)
+        grad_sum = torch.zeros_like(a)
+        energy = torch.zeros((), dtype=torch.float64, device=dev)
+        # per batch: rays missing on bounce 1; leaving on bounce 2 from a
+        # shell edge; leaving otherwise
+        lost = torch.zeros(SUSTAINED_BATCHES, 3, dtype=torch.int64, device=dev)
+        kept = None
+        for b, r in enumerate(configs.config5_batches(SUSTAINED_BATCHES, n, dev)):
+            res_b, h, g = trace_step(th, sp, r, a, nb, n_bins)
+            hist_sum += h
+            grad_sum += g[0]
+            energy += res_b.energy.double().sum()
+            p = res_b.point[0]
+            edge = ((p == lo) | (p == hi)).sum(1) >= 2
+            left = res_b.hit[0] & ~res_b.hit[1]
+            lost[b] = torch.stack([(~res_b.hit[0]).sum(), (left & edge).sum(),
+                                   (left & ~edge).sum()])
+            if b == REPEAT_BATCH:
+                kept = (h, g[0])
+        return hist_sum, grad_sum, energy, lost, kept
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (hist_sum, grad_sum, energy, lost, kept), launches_run = counted(counters, sustained)
+    wall = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    n_rays = SUSTAINED_BATCHES * n
+    check(all(launches_run[k] == SUSTAINED_BATCHES * v for k, v in launches.items()),
+          f"12f: launches {launches_run} in {SUSTAINED_BATCHES} steps")
+    per_batch = lost.cpu()
+    missed1, edge_escapes, other_escapes = per_batch.sum(0).tolist()
+    check(other_escapes == 0 and missed1 + edge_escapes <= MAX_TIE_SHARE * n_rays,
+          f"12f: {missed1} rays missed on bounce 1, {other_escapes} left the shell on bounce 2 "
+          f"from elsewhere than an edge where two walls meet, {edge_escapes} from such an edge")
+    # The rays lost on bounce 1, found again in their batches: K1 misses
+    # them as its plain version does, B1 hits each, and each lies within
+    # NEAR_AXIS of an axis plane.
+    parts = []
+    for b in torch.nonzero(per_batch[:, 0]).squeeze(1).tolist():
+        r = next(itertools.islice(configs.config5_batches(b + 1, n, dev), b, None))
+        miss = ~torch.isfinite(voxel.grid_shoot(r, grid)[0])
+        parts.append(th.Ray(*(x[miss] for x in r)))
+    near = 0.0
+    if parts:
+        gone = th.Ray(*(torch.cat(xs) for xs in zip(*parts)))
+        check(gone.origin.shape[0] == missed1, f"12f: {gone.origin.shape[0]} rays lost again, "
+              f"not {missed1}")
+        same_bits("12f the rays lost on bounce 1", voxel.grid_shoot(gone, grid),
+                  voxel.grid_shoot_plain(gone, grid))
+        check(bool(torch.isfinite(brute.brute_shoot(scene, gone)[0]).all()),
+              "12f: B1 misses a ray the grid march lost")
+        near = float(gone.direction.abs().amin(1).max())
+        check(near < NEAR_AXIS, f"12f: a lost ray's smallest direction component is {near:.3e}")
+    total, e_total = float(hist_sum.double().sum()), float(energy)
+    check(math.isclose(total, e_total, rel_tol=1e-5),
+          f"12f: summed histogram total {total} != summed bounce energies {e_total}")
+    check(bool(torch.isfinite(grad_sum).all()) and bool((grad_sum <= 0).all()),
+          "12f: the summed gradient is not finite and non-positive")
+    r37 = next(itertools.islice(configs.config5_batches(REPEAT_BATCH + 1, n, dev), REPEAT_BATCH,
+                                None))
+    _, h37, g37 = trace_step(th, sp, r37, a, nb, n_bins)
+    check(same_floats(h37, kept[0]) and same_floats(g37[0], kept[1]),
+          f"12f: batch {REPEAT_BATCH} run alone differs from its run in the sequence")
+    del kept, r37, h37, g37
+    busy = all_kernels_ms(sustained, 1)
+    print(f"phase 12f config 5 sustained run [{smi}]: {SUSTAINED_BATCHES} batches of {n} rays "
+          f"(configs.config5_batches, drawn on the card) = {n_rays} rays x {nb} bounces, fwd+bwd "
+          f"w.r.t. absorption, histograms and gradients summed on the card: wall {wall:.3f} s, "
+          f"{n_rays * nb / wall / 1e6:.4f} Mrays/s sustained; device busy {busy:.2f} ms of "
+          f"{wall * 1e3:.2f} (a profiled run), idle share {1 - busy / (wall * 1e3):.3f}; peak "
+          f"{peak:.1f} MiB above the run's start; every ray hits on bounce 1 but {missed1} the "
+          f"grid march loses as the reference's does (each K1 bit-equal to its plain version, hit "
+          f"by B1, its smallest direction component at most {near:.3e}), and on bounce 2 all but "
+          f"{edge_escapes} whose first hit lay on an edge where two walls of the shell meet (the "
+          f"reference's exclusion rule lets them leave); summed hist total {total:.3f} = "
+          f"summed bounce energies {e_total:.3f}; summed gradient finite, <= 0, sum "
+          f"{float(grad_sum.sum()):.3f}; batch {REPEAT_BATCH} run alone bitwise equal to its run "
+          f"in the sequence")
+
+    # ---- 12g: the records.
+    for r in records:
+        if r["name"] in launches and r.get("mode") != "soft":
+            r["config5_launches"] = launches[r["name"]]
+    src = {"grid_shoot": "K1 bounce 1", "finalize_hits": "K2 bounce 1",
+           "bounce_kernel": "K4 bounce 1",
+           "bounce_bwd_kernel": "K4 backward bounce 1 (energy chain)",
+           "energy_histogram": "K3 hard", "hard_histogram_bwd": "hard backward",
+           "scatter_add_ordered": "scatter bounce 1"}
+    for r in records:
+        if r["name"] in src and r.get("mode") != "soft":
+            ms, bnd = timed[src[r["name"]]]
+            r["config5"] = dict(device_ms=ms, bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"])
+            if r["name"] == "scatter_add_ordered":
+                r["config5"].update(library_device_ms=lib_dev, library="index_add_",
+                                    pass_ms=passes)
+    print(f"phase 12 ran {time.perf_counter() - t_phase:.1f} s [{smi}]")
+
+
+# Phase 12 runs in a process of its own (``python3 chip_smoke.py
+# --config5 OUT``): in one that has profiled the hundreds of windows of
+# phases 3-11, torch.profiler on the card's host drops kernel records (6 of
+# config 2's 31 kernels a step in one run) and, on phase 12's
+# single-kernel windows, recorded none in five windows in two runs, where
+# a fresh process records them all.
+CONFIG5_ARG = "--config5"
+
+
+def card():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+
+
+def config5_main(out_path):
+    """Phase 12 in this process: its records (launches and times by
+    kernel) into ``out_path`` as JSON."""
+    from hare_tpu_torch.kernels import build
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("phase 12 needs a CUDA device")
+    build.library()
+    records = [dict(name=name) for name in (
+        "grid_shoot", "finalize_hits", "bounce_kernel", "bounce_bwd_kernel",
+        "hard_histogram_bwd", "scatter_add_ordered")] + [dict(name="energy_histogram",
+                                                               mode="hard")]
+    config5_phase(torch.device("cuda"), card(), records)
+    with open(out_path, "w") as fh:
+        json.dump(records, fh)
+
+
 def to_device(nt, device):
     """A NamedTuple of tensors (Scene, VoxelGrid, Ray) on ``device``."""
     return type(nt)(*(x.to(device) if isinstance(x, torch.Tensor) else x for x in nt))
@@ -2272,10 +2651,7 @@ def main():
     name = torch.cuda.get_device_name(0)
 
     # ---- phase 1: the card and the kernel build.
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
+    smi = card()
     print(smi)
     t0 = time.perf_counter()
     build.library()
@@ -2552,6 +2928,21 @@ def main():
 
     # ---- phase 11: the two inverse-design programs at their defaults.
     programs_phase(dev, smi, records)
+
+    # ---- phase 12: eval config 5 at full size, and its sustained run, in a
+    # process of its own (CONFIG5_ARG), its records merged into these.
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    sys.stdout.flush()
+    with tempfile.TemporaryDirectory(prefix="hare_phase12_") as tmp:
+        out = os.path.join(tmp, "records.json")
+        subprocess.run([sys.executable, os.path.abspath(__file__), CONFIG5_ARG, out], check=True,
+                       timeout=900)
+        with open(out) as fh:
+            for r in json.load(fh):
+                for mine in records:
+                    if mine["name"] == r["name"] and mine.get("mode") != "soft":
+                        mine.update(r)
     print(f"chip_smoke.py ran {time.perf_counter() - t_start:.1f} s [{smi}]")
 
     print(json.dumps({"kernels": records}))
@@ -2560,4 +2951,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(config5_main(sys.argv[2]) if sys.argv[1:2] == [CONFIG5_ARG] else main())

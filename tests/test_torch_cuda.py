@@ -175,6 +175,45 @@ def test_grid_shoot_reflected_rays(dev, name, faces, kw, box, kernel):
         assert_ties_genuine(sp.scene, th.Ray(*(x[near] for x in r)), k_b, b_b, kernel)
 
 
+# Three of the directions config 5's sustained run lost on bounce 1.
+NEAR_AXIS_LOST = [[0.8620668053627014, -0.5067946314811707, -5.960464477539063e-08],
+                  [0.3428290784358978, -1.035315051467478e-07, -0.9393978118896484],
+                  [-1.643455647126757e-07, 0.5825172066688538, 0.8128184080123901]]
+
+
+@pytest.mark.parametrize("kernel", ["watertight", "mt"])
+def test_grid_shoot_on_a_256_grid(dev, kernel):
+    """Eval config 5's grid (domain 256: 16.8M cells) over config 4's
+    655,372-triangle scene: K1 bit-equal to its plain version on 2^16 rays
+    from the scene's centre, as config 5 shoots them, on the rays of their
+    second bounce (their polygon excluded), and on rays from anywhere in the
+    shell.  A ray without an exclusion hits the closed shell; one reflected
+    where two walls meet may leave it (the reference's exclusion rule)."""
+    from hare_tpu_torch.benchmarks.configs import big_scene
+
+    top = th.Topology.build(big_scene("650k"))
+    sp = th.SpatialPartition(top, accel="grid", domain=256, kernel=kernel, device=dev)
+    assert sp.struct.dims == (256, 256, 256)
+    d = th.uniform_sphere(1 << 16, torch.Generator().manual_seed(0), device=dev)
+    centre = th.Ray.make(torch.full_like(d, 20.0), d)
+    a = torch.full((top.n_polys,), 0.3, device=dev)
+    batches = bounce_rays(sp, centre, a, 2) + [rays_of(np.random.default_rng(6), 0.5, 39.5,
+                                                       1 << 16, dev)]
+    for r in batches:
+        k = grid_shoot(r, sp.struct, kernel)
+        assert_bit_equal(k, grid_shoot_plain(r, sp.struct, kernel))
+        free = r.exclude_poly[:, 0] < 0
+        assert bool(torch.isfinite(k[0][free]).all())
+    # From the centre, on a cell boundary along every axis, the reference's
+    # march loses a ray with a direction component within ~1e-7 of zero
+    # (tests/test_torch_configs.py): K1 loses these as its plain version does.
+    lost = torch.tensor(NEAR_AXIS_LOST, device=dev)
+    lost = th.Ray.make(torch.full_like(lost, 20.0), lost)
+    k = grid_shoot(lost, sp.struct, kernel)
+    assert_bit_equal(k, grid_shoot_plain(lost, sp.struct, kernel))
+    assert not bool(torch.isfinite(k[0]).any())
+
+
 @pytest.mark.parametrize("kernel", ["watertight", "mt"])
 def test_grid_shoot_cells_of_many_rows(dev, kernel):
     """A coarse grid over a dense sphere: cells of many window rows, which
@@ -712,6 +751,35 @@ def test_scatter_matches_cpu(dev, m, n_keys, keys, cols):
     got = scatter_add_ordered(k_t.to(dev), v_t.to(dev), n_keys)
     assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
     again = scatter_add_ordered(k_t.to(dev), v_t.to(dev), n_keys)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
+# Eval config 5's absorption gradient: 2^20 values into its 5,242,892
+# polygons, above the 2^22 - 1 keys that the sort's 32-bit pairs hold.
+CONFIG5_POLYS = 5_242_892
+
+
+@pytest.mark.parametrize("keys", ["sparse", "dense"])
+def test_scatter_at_config5_keys(dev, keys):
+    """The scatter at config 5's width, 2^20 values into 5,242,892 keys:
+    sparse as a bounce's hits spread over the spheres (most keys unused,
+    a few runs) or dense (every value on the top 65,536 keys, keys above
+    2^22, 16 a key); equal to its plain version on the CPU to the bit, and
+    two launches give the same bits."""
+    rng = np.random.default_rng(14)
+    m = 1 << 20
+    if keys == "sparse":
+        k = rng.integers(0, CONFIG5_POLYS, m)
+        k[: m // 8] = rng.integers(0, 12, m // 8)  # the shell's few walls: long runs
+        k = rng.permutation(k)
+    else:
+        k = CONFIG5_POLYS - 1 - rng.integers(0, 1 << 16, m)
+    k_t = torch.from_numpy(k.astype(np.int32))
+    v_t = torch.from_numpy(rng.normal(size=m).astype(np.float32))
+    want = scatter_add_plain(k_t, v_t, CONFIG5_POLYS)
+    got = scatter_add_ordered(k_t.to(dev), v_t.to(dev), CONFIG5_POLYS)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    again = scatter_add_ordered(k_t.to(dev), v_t.to(dev), CONFIG5_POLYS)
     assert torch.equal(got.view(torch.int32), again.view(torch.int32))
 
 
