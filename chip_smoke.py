@@ -105,7 +105,8 @@ per-polygon absorption, on the card.  Phases, one line each:
    backward, K3 and its backward, the scatter (5,242,892 keys: its 64-bit
    pairs) against their plain versions on the config's own inputs and the
    CPU sub-batch; each kernel's device time beside its bound, the scatter
-   beside ``index_add_``; and the sustained run, 100 batches of 2^20 rays
+   (each of its launches, and its (range, chunk) pairs) beside
+   ``index_add_``; and the sustained run, 100 batches of 2^20 rays
    (``configs.config5_batches``, 104,857,600 rays) through the fwd+bwd
    step, summed on the card and gated (the rays the reference's grid
    march loses, ``NEAR_AXIS``, found again and checked one by one).
@@ -2470,17 +2471,29 @@ def config5_phase(dev, smi, records):
 
     timed["scatter bounce 1"] = (launch_ms(scat, 5, "scatter_ordered"),
                                  bounds.scatter_bound(kk, 1, n_keys))
-    passes = [launch_ms(scat, 5, tag) for tag in ("scatter_ordered_chunks", "scatter_ordered_keys")]
+    # Each launch of the call by its kernel's name: pass 1 and pass 2, and
+    # where pass 2 reads listed (range, chunk) pairs, the launches that
+    # zero, scan and place them.
+    key_range, listed = scatter.pass2_plan(n, n_keys)
+    passes = {tag: launch_ms(scat, 5, tag) for tag in (
+        ("scatter_ordered_zero", "scatter_ordered_chunks", "scatter_ordered_scan",
+         "scatter_ordered_place", "scatter_ordered_listed") if listed else
+        ("scatter_ordered_chunks", "scatter_ordered_keys"))}
+    pairs = scatter.pair_count(kk, n_keys, key_range)
     scat_ms, lib_ms = cuda_time(scat, 20), cuda_time(library, 20)
     lib_dev = all_kernels_ms(library, 5)
     print("phase 12e config 5 kernels on the device [" + smi + "]: " + "; ".join(
         f"{k} {ms:.5f} ms, bound {bnd['bound_ms']:.5f} ms ({bnd['bound_by']}: "
         f"{bnd['bytes'] / 1e6:.2f} MB, {bnd['ops'] / 1e9:.4f} GFLOP), {bnd['bound_ms'] / ms:.1%} "
         f"of it" for k, (ms, bnd) in timed.items()))
-    print(f"phase 12e the scatter at {n_keys} keys ({n} values of bounce 1's polygon keys, "
-          f"{int(torch.unique(kk).numel())} used): pass 1 {passes[0]:.5f} ms, pass 2 "
-          f"{passes[1]:.5f} ms on the device, {scat_ms:.5f} ms a call by CUDA events; index_add_ "
-          f"{lib_dev:.5f} ms on the device, {lib_ms:.5f} ms a call")
+    scat_dev = timed["scatter bounce 1"][0]
+    print(f"phase 12e the scatter at {n_keys} keys [{smi}] ({n} values of bounce 1's polygon "
+          f"keys, {int(torch.unique(kk).numel())} used; pass 2 in ranges of {key_range} keys, "
+          f"{'reading' if listed else 'searching for'} its {pairs} (range, chunk) pairs): "
+          + ", ".join(f"{tag} {ms:.5f} ms" for tag, ms in passes.items())
+          + f" on the device, {scat_dev:.5f} ms a call, {scat_ms:.5f} ms a call by CUDA events; "
+          f"index_add_ {lib_dev:.5f} ms on the device, {lib_ms:.5f} ms a call: the kernel "
+          f"{lib_dev / scat_dev:.2f}x as fast on the device (a yardstick, not gated)")
 
     # ---- 12f: the sustained run, the histograms and gradients summed on
     # the card in batch order; no sync but where the gates read.
@@ -2593,7 +2606,7 @@ def config5_phase(dev, smi, records):
             r["config5"] = dict(device_ms=ms, bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"])
             if r["name"] == "scatter_add_ordered":
                 r["config5"].update(library_device_ms=lib_dev, library="index_add_",
-                                    pass_ms=passes)
+                                    pass_ms=passes, pairs=pairs, key_range=key_range)
     print(f"phase 12 ran {time.perf_counter() - t_phase:.1f} s [{smi}]")
 
 

@@ -37,11 +37,12 @@ SCATTER_COLS = (1, 3)
 # Original positions summed apart before a key's chunk sums are added.  The
 # kernel is passed it and refuses any chunk but its own.
 CHUNK = 1024
+# The fewest keys a block of the kernel's pass 2 takes.
+MIN_RANGE = 32
 
-# The kernel's scratch (per chunk its distinct keys, their sums and their
-# count), one int32 buffer per (device index, raw stream), grown on demand.
-# Every word the kernel reads it wrote in the same call, so it is never
-# reset.
+# The kernel's scratch, one int32 buffer per (device index, raw stream),
+# grown on demand.  Every word the kernel reads it wrote in the same call,
+# so it is never reset.
 _SCRATCH: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
@@ -58,6 +59,42 @@ def scatter_add_plain(keys: torch.Tensor, values: torch.Tensor, n_keys: int) -> 
     for s in range(0, k.shape[0], CHUNK):
         out += torch.zeros_like(out).index_add_(0, k[s:s + CHUNK], values[s:s + CHUNK])
     return out
+
+
+def scratch_words(m: int, cols: int, n_keys: int) -> int:
+    """The int32 words of scratch the kernel takes for ``m`` values of
+    ``cols`` columns into ``n_keys`` keys; it refuses fewer.  Per chunk of
+    ``CHUNK`` positions: its distinct keys, their sums, their count, where
+    its pairs start, their places in their ranges and their count; per
+    range of ``MIN_RANGE`` keys (at least as many as pass 2's ranges) a
+    count and an offset, and one more offset; per value at most one (range,
+    chunk) pair, two words (``kernels/csrc/scatter.cu`` scratch_words)."""
+    n_chunks = -(-m // CHUNK)
+    ranges = -(-n_keys // MIN_RANGE)
+    return n_chunks * (CHUNK * (3 + cols) + 2) + 2 * ranges + 1 + 2 * m
+
+
+def pass2_plan(m: int, n_keys: int) -> Tuple[int, bool]:
+    """How the kernel's pass 2 runs for ``m`` values into ``n_keys`` keys:
+    the keys a block takes, and whether it reads the (range, chunk) pairs
+    that pass 1 listed (True) or binary-searches every chunk's keys
+    (False).  Asks the built library (``kernels/csrc/scatter.cu`` plan), so
+    it needs the card."""
+    out = torch.zeros(2, dtype=torch.int32)
+    build.launch("hare_scatter_plan", m, n_keys, out)
+    return int(out[0]), bool(out[1])
+
+
+def pair_count(keys: torch.Tensor, n_keys: int, key_range: int) -> int:
+    """The (range, chunk) pairs the kernel's pass 1 lists for ``keys`` with
+    ranges of ``key_range`` keys: the distinct (chunk of ``CHUNK``
+    positions, range) of the keys in ``[0, n_keys)``.  For measurement; the
+    kernel counts its own."""
+    k = keys.long()
+    pos = torch.arange(k.numel(), device=k.device)
+    inside = (k >= 0) & (k < n_keys)
+    ids = pos[inside] // CHUNK * -(-n_keys // key_range) + k[inside] // key_range
+    return int(torch.unique(ids).numel())
 
 
 def _scratch(device: torch.device, words: int) -> torch.Tensor:
@@ -89,9 +126,7 @@ def scatter_add_ordered(keys: torch.Tensor, values: torch.Tensor, n_keys: int) -
     if keys.shape != (m,) or values.shape[0] != m or values.dim() > 2 or cols not in SCATTER_COLS:
         raise ValueError(f"keys (M,) and values (M,) or (M, 3); got {tuple(keys.shape)}, "
                          f"{tuple(values.shape)}")
-    # The words the kernel's scratch takes; it refuses fewer.
-    words = -(-m // CHUNK) * (CHUNK * (1 + cols) + 1)
-    buf = _scratch(values.device, words)
+    buf = _scratch(values.device, scratch_words(m, cols, n_keys))
     out = torch.empty((n_keys,) + tuple(values.shape[1:]), dtype=torch.float32,
                       device=values.device)
     scatter_add_ordered.launches += 1

@@ -9,29 +9,44 @@ the two scatters of the bench gradient paths on its rays: A3's corner
 cotangents onto the vertices (98,304 x 3 values) and seeded values onto
 the polygons' absorption keys (32,768 values into 81,932 keys); eval
 config 3's absorption keys (1M rays' first polygons in the concert hall,
-octree); and eval config 4's A3 corner cotangents of its first bounce
-(98,304 x 3 values into 327,698 vertex keys, SAH KD tree).  For each, and
-for one ``index_add_`` on the same inputs (its yardstick):
+octree); eval config 4's A3 corner cotangents of its first bounce
+(98,304 x 3 values into 327,698 vertex keys, SAH KD tree); and eval config
+5's absorption keys of its first bounce, drawn (``config5_keys``: 2^20
+values into 5,242,892 keys).  For each, and for one ``index_add_`` on the
+same inputs (its yardstick):
 
 - host microseconds a call: wall time over ``REPS`` calls, the card
   synchronised before and after (the card runs each call faster than the
   host issues it, so this is the wrapper's own cost);
 - device milliseconds a call: every kernel the call launches (a sort's
   too, where the checkout's wrapper sorts), by torch.profiler, with each
-  kernel's milliseconds and launches a call.
+  kernel's milliseconds and launches a call (each pass of the kernel by
+  its name);
+- the keys used and, where the checkout's wrapper tells how its pass 2
+  runs, the keys a pass-2 block takes, whether it reads listed (range,
+  chunk) pairs, and how many pairs there are.
 
 Run it on this tree and a parent checkout in turns.  Prints one JSON line.
 """
 
 import argparse
 import json
+import math
 import sys
 import time
 from pathlib import Path
 
+import numpy as np
+
 SEED = 7
 # Eval config 3 (benchmarks/configs.py): rays and source point.
 HALL_RAYS, HALL_ORIGIN = 1_000_000, (15.0, 24.0, 8.0)
+# Eval config 5 (benchmarks/configs.py big_scene("5M"), config5_setup): its
+# polygons are the shell's 12 triangles (keys 0-11), then four icospheres
+# of radius 6 and 1,310,720 triangles each; its rays leave (20, 20, 20).
+CONFIG5_POLYS, CONFIG5_SHELL, CONFIG5_SPHERE = 5_242_892, 12, 1_310_720
+CONFIG5_CENTRES, CONFIG5_RADIUS = ((10, 10, 10), (30, 10, 12), (10, 30, 14), (28, 28, 28)), 6.0
+CONFIG5_SOURCE, CONFIG5_RAYS = (20.0, 20.0, 20.0), 1 << 20
 # Calls profiled for the device time; a sort launches some kernels more
 # than once a call, so the time a call is the window's sum over the calls.
 PROFILED = 20
@@ -49,6 +64,26 @@ def host_us(fn) -> float:
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t) / REPS * 1e6
+
+
+def config5_keys(seed: int) -> np.ndarray:
+    """Config 5's bounce-1 polygon keys, drawn: a sphere at distance d takes
+    (1 - sqrt(1 - (r / d)^2)) / 2 of the uniform directions (15% for the
+    four), each hit uniform over the (1 - r / d) / 2 of its faces it shows,
+    taken as a block of its keys; the shell's 12 keys take the rest, in
+    long runs.  About 150k keys used, as in chip_smoke.py phase 12e."""
+    rng = np.random.default_rng(seed)
+    share, shown = [], []
+    for c in CONFIG5_CENTRES:
+        d = math.dist(c, CONFIG5_SOURCE)
+        share.append((1 - math.sqrt(1 - (CONFIG5_RADIUS / d) ** 2)) / 2)
+        shown.append(int((1 - CONFIG5_RADIUS / d) / 2 * CONFIG5_SPHERE))
+    which = rng.choice(len(share) + 1, CONFIG5_RAYS, p=[1 - sum(share)] + share)
+    keys = rng.integers(0, CONFIG5_SHELL, CONFIG5_RAYS)
+    for s, n in enumerate(shown):
+        hit = which == s + 1
+        keys[hit] = CONFIG5_SHELL + s * CONFIG5_SPHERE + rng.integers(0, n, int(hit.sum()))
+    return keys.astype(np.int32)
 
 
 def corner_cotangents(scene, rays, best_tri, hr, g):
@@ -109,7 +144,11 @@ def main(argv=None) -> dict:
              "config 3 absorption": (pid3, torch.randn(HALL_RAYS, generator=g, device=dev),
                                      hall.n_polys),
              "config 4 A3 bounce 1 corners": corner_cotangents(scene4, rays4, best_tri4, hr4, g)
-             + (scene4.vertices.shape[0],)}
+             + (scene4.vertices.shape[0],),
+             "config 5 absorption (drawn)": (
+                 torch.from_numpy(config5_keys(SEED)).to(dev),
+                 torch.randn(CONFIG5_RAYS, generator=g, device=dev), CONFIG5_POLYS)}
+    plan = getattr(scatter, "pass2_plan", None)  # absent in a checkout before it
     rec = {"tree": str(args.tree), "package": str(Path(th.__file__).parent),
            "device": torch.cuda.get_device_name(0), "reps": REPS}
     for label, (keys, values, n_keys) in cases.items():
@@ -118,6 +157,10 @@ def main(argv=None) -> dict:
                  "index_add_": lambda: lib_out.index_add_(0, lib_idx, values)}
         rec[label] = {"values": keys.numel(), "cols": 1 if values.dim() == 1 else values.shape[1],
                       "keys": n_keys, "keys_used": int(torch.unique(keys).numel())}
+        if plan is not None:
+            key_range, listed = plan(keys.numel(), n_keys)
+            rec[label]["pass2"] = {"key_range": key_range, "listed": listed,
+                                   "pairs": scatter.pair_count(keys, n_keys, key_range)}
         for name, fn in calls.items():
             per_name = profile_kernels(fn, PROFILED)
             rec[label][name] = {

@@ -55,6 +55,7 @@ _SIGNATURES = {
     "hare_finalize_hits": [_P, _P, _P, _P, _P, _P, _I, _I] + [_P] * 9 + [_P],
     "hare_finalize_hits_bwd": [_P] * 12 + [_I] + [_P] * 5,
     "hare_scatter_add_ordered": [_P, _P, _LL, _I, _I, _I, _P, _LL, _P, _P],
+    "hare_scatter_plan": [_LL, _I, _P, _P],
     "hare_energy_histogram": [_P, _P, _P, _LL, _I, _F, _I, _P, _LL, _P, _P],
     "hare_histogram_bwd": [_P, _P, _P, _P, _LL, _LL, _I, _F, _I, _P, _P, _P],
     "hare_bounce_step": [_P] * 20 + [_I, _F] + [_P] * 10 + [_P],

@@ -25,7 +25,12 @@ from hare_tpu.accel import shoot_grid as j_shoot_grid  # noqa: E402
 
 import hare_tpu_torch as th  # noqa: E402
 from hare_tpu_torch.accel.common import repack_windows  # noqa: E402
-from hare_tpu_torch.accel.scatter import CHUNK, scatter_add_plain  # noqa: E402
+from hare_tpu_torch.accel.scatter import (  # noqa: E402
+    CHUNK,
+    MIN_RANGE,
+    scatter_add_plain,
+    scratch_words,
+)
 from hare_tpu_torch.accel.voxel import grid_shoot_plain  # noqa: E402
 from hare_tpu_torch.benchmarks import configs  # noqa: E402
 from hare_tpu_torch.benchmarks.bench_scene import bounce_rays  # noqa: E402
@@ -270,3 +275,60 @@ def test_scatter_plain_at_config5_keys():
     got = scatter_add_plain(torch.from_numpy(keys.astype(np.int32)), torch.from_numpy(values),
                             n_keys)
     np.testing.assert_array_equal(got.numpy().view(np.int32), want.view(np.int32))
+
+
+# The transpose of absorption[pid] (hare_tpu/trace/bounce.py:194) against
+# the port's in another order: JAX's scatter-add sums each key's values in
+# one pass, the port a chunk of CHUNK positions at a time, then the chunks'
+# sums.  Each sum is within a few float32 roundings of its |values|' sum.
+SCATTER_JAX_RTOL = 1e-5
+
+
+def test_scatter_plain_at_config5_keys_against_jax():
+    """The scatter's plain version at config 5's 5,242,892 polygon keys
+    against JAX's transpose of the absorption gather (jax.grad of
+    sum(absorption[pid] * v)) on the same seeded keys and values, runs
+    across chunks: within SCATTER_JAX_RTOL of the largest per-key sum of
+    |values|."""
+    n_keys, m = 5_242_892, 3 * CHUNK + 17
+    rng = np.random.default_rng(15)
+    pid = rng.integers(0, n_keys, m)
+    pid[CHUNK - 300:CHUNK + 300] = n_keys - 1 - rng.integers(0, 3, 600)
+    pid[2 * CHUNK - 50:] = rng.integers(0, 12, m - 2 * CHUNK + 50)  # the walls: long runs
+    v = rng.normal(size=m).astype(np.float32)
+
+    def loss(absorption):
+        return jnp.sum(absorption[jnp.asarray(pid, jnp.int32)] * v)
+
+    want = np.asarray(jax.grad(loss)(jnp.zeros(n_keys, jnp.float32)))
+    got = scatter_add_plain(torch.from_numpy(pid.astype(np.int32)), torch.from_numpy(v),
+                            n_keys).numpy()
+    scale = np.zeros(n_keys, np.float64)
+    np.add.at(scale, pid, np.abs(v).astype(np.float64))
+    assert got.shape == want.shape == (n_keys,)
+    assert np.abs(got.astype(np.float64) - want).max() <= SCATTER_JAX_RTOL * scale.max()
+    np.testing.assert_array_equal(got != 0, scale != 0)
+
+
+@pytest.mark.parametrize("m, cols, n_keys", [
+    (0, 1, 0), (1, 3, 1), (CHUNK + 1, 1, 4_000), (3 * CHUNK + 17, 3, 5_242_892)])
+def test_scatter_scratch_words_cover_the_pairs(m, cols, n_keys):
+    """scratch_words holds the kernel's worst case: each chunk's distinct
+    keys, their sums and counts, where its pairs start, their places in
+    their ranges and their count;
+    two words for every (range, chunk) pair, as many as the values where
+    every value of a chunk lies in a range of MIN_RANGE keys of its own;
+    a count and an offset for every such range, and one offset more.  It
+    grows by two words a range of MIN_RANGE keys."""
+    n_chunks = -(-m // CHUNK)
+    ranges = -(-n_keys // MIN_RANGE)
+    pos = np.arange(m)
+    keys = pos % CHUNK * MIN_RANGE % max(n_keys, 1)  # distinct ranges in a chunk, where they fit
+    pairs = len(set(zip((pos // CHUNK).tolist(), (keys // MIN_RANGE).tolist())))
+    chunk_words = n_chunks * (CHUNK * (3 + cols) + 2)
+    words = scratch_words(m, cols, n_keys)
+    assert words >= chunk_words + 2 * pairs + 2 * ranges + 1
+    assert words == chunk_words + 2 * m + 2 * ranges + 1
+    if n_keys >= CHUNK * MIN_RANGE:
+        assert pairs == m
+    assert scratch_words(m, cols, n_keys + MIN_RANGE) == words + 2

@@ -22,7 +22,13 @@ from hare_tpu_torch.accel.common import (  # noqa: E402
 from hare_tpu_torch.accel.kdtree import build_kdtree  # noqa: E402
 from hare_tpu_torch.accel.octree import build_octree  # noqa: E402
 from hare_tpu_torch.accel.ropes import build_kdtree_ropes, ropes_shoot, ropes_shoot_plain  # noqa: E402
-from hare_tpu_torch.accel.scatter import CHUNK, scatter_add_ordered, scatter_add_plain  # noqa: E402
+from hare_tpu_torch.accel.scatter import (  # noqa: E402
+    CHUNK,
+    pass2_plan,
+    scatter_add_ordered,
+    scatter_add_plain,
+    scratch_words,
+)
 from hare_tpu_torch.accel.tree import tree_shoot, tree_shoot_plain  # noqa: E402
 from hare_tpu_torch.accel.voxel import build_voxel_grid, grid_shoot, grid_shoot_plain  # noqa: E402
 from hare_tpu_torch.benchmarks import a3_check  # noqa: E402
@@ -718,15 +724,24 @@ def test_soft_histogram_bwd_matches_plain(dev):
 
 
 # (m, n_keys, keys): zipf-skewed keys (long runs and many short ones,
-# unused keys), one key holding every value (eval config 3's wall), or keys
-# partly outside [0, n_keys).  5,000,000 keys take the sort's 64-bit pairs.
+# unused keys), one key holding every value (eval config 3's wall), keys
+# partly outside [0, n_keys), or uniform keys with a tenth of the values on
+# three keys ("wide").  5,000,000 and 5,242,892 keys take the sort's 64-bit
+# pairs.  Pass 2 lists (range, chunk) pairs where n_chunks x n_ranges >
+# 2^20 (scatter.cu plan()): 100,000 values (98 chunks) into 2,738,944 keys
+# (10,699 ranges of 256) still search, one key more lists
+# (test_scatter_plan_sides); 1,200,000 values into 300,000 keys list, and
+# the range of keys 0-255, met by all 1,172 chunks, is searched (more than
+# the 1,024 pairs a block ranks).
 SCATTER_CASES = [
     (0, 4, "zipf"), (1, 4, "zipf"), (CHUNK - 1, 100, "zipf"), (CHUNK, 100, "zipf"),
     (CHUNK + 1, 100, "zipf"), (5000, 3, "zipf"), (100_000, 1, "zipf"),
     (98_304, 81_932, "zipf"), (98_304, 327_698, "zipf"), (300_000, 40_000, "zipf"),
     (1_000_000, 200, "zipf"), (147_389, 1_608, "one"), (50_000, 1000, "outside"),
-    (100_000, 5_000_000, "zipf"),
+    (100_000, 5_000_000, "zipf"), (300_001, 5_242_892, "wide"), (100_000, 2_738_944, "wide"),
+    (100_000, 2_738_945, "wide"), (1_200_000, 300_000, "zipf"),
 ]
+RULE_SIDES = ((100_000, 2_738_944, False), (100_000, 2_738_945, True))
 
 
 @pytest.mark.parametrize("cols", [1, 3])
@@ -741,6 +756,10 @@ def test_scatter_matches_cpu(dev, m, n_keys, keys, cols):
         k = np.full(m, n_keys - 1, np.int32)
     elif keys == "outside":
         k = rng.integers(-5, n_keys + 5, m).astype(np.int32)
+    elif keys == "wide":
+        k = rng.integers(0, n_keys, m)
+        k[: m // 10] = n_keys - 1 - rng.integers(0, 3, m // 10)
+        k = rng.permutation(k).astype(np.int32)
     else:
         k = (rng.zipf(1.5, m) % n_keys).astype(np.int32)  # skewed: long runs
     values = rng.normal(size=(m,) if cols == 1 else (m, cols)).astype(np.float32)
@@ -754,24 +773,41 @@ def test_scatter_matches_cpu(dev, m, n_keys, keys, cols):
     assert torch.equal(got.view(torch.int32), again.view(torch.int32))
 
 
+def test_scatter_plan_sides(dev):
+    """The n_keys of SCATTER_CASES that straddle the rule picking how pass 2
+    finds its entries (searched below, listed pairs above) do straddle it,
+    with ranges of 256 keys."""
+    for m, n_keys, listed in RULE_SIDES:
+        assert pass2_plan(m, n_keys) == (256, listed)
+
+
 # Eval config 5's absorption gradient: 2^20 values into its 5,242,892
 # polygons, above the 2^22 - 1 keys that the sort's 32-bit pairs hold.
 CONFIG5_POLYS = 5_242_892
 
 
-@pytest.mark.parametrize("keys", ["sparse", "dense"])
+@pytest.mark.parametrize("keys", ["sparse", "dense", "spread", "one a chunk"])
 def test_scatter_at_config5_keys(dev, keys):
     """The scatter at config 5's width, 2^20 values into 5,242,892 keys:
     sparse as a bounce's hits spread over the spheres (most keys unused,
-    a few runs) or dense (every value on the top 65,536 keys, keys above
-    2^22, 16 a key); equal to its plain version on the CPU to the bit, and
-    two launches give the same bits."""
+    a few runs), dense (every value on the top 65,536 keys, keys above
+    2^22, 16 a key), spread (the most pairs: each chunk's 1,024 values in
+    1,024 ranges of 256 keys, each such range met by all 1,024 chunks), or
+    sparse with one key in every chunk (its range met by all 1,024 chunks);
+    equal to its plain version on the CPU to the bit, and two launches give
+    the same bits."""
     rng = np.random.default_rng(14)
     m = 1 << 20
+    assert pass2_plan(m, CONFIG5_POLYS) == (256, True)
     if keys == "sparse":
         k = rng.integers(0, CONFIG5_POLYS, m)
         k[: m // 8] = rng.integers(0, 12, m // 8)  # the shell's few walls: long runs
         k = rng.permutation(k)
+    elif keys == "one a chunk":
+        k = rng.integers(0, CONFIG5_POLYS, m)
+        k[500::CHUNK] = 7
+    elif keys == "spread":
+        k = np.arange(m) % CHUNK * (CONFIG5_POLYS // CHUNK) + rng.integers(0, 256, m)
     else:
         k = CONFIG5_POLYS - 1 - rng.integers(0, 1 << 16, m)
     k_t = torch.from_numpy(k.astype(np.int32))
@@ -790,7 +826,7 @@ def test_scatter_refuses_another_layout(dev, chunk, short):
     m, cols, n_keys = 3000, 3, 50
     keys = torch.zeros(m, dtype=torch.int32, device=dev)
     values = torch.ones(m, cols, device=dev)
-    words = -(-m // CHUNK) * (CHUNK * (1 + cols) + 1) - short
+    words = scratch_words(m, cols, n_keys) - short
     scratch = torch.empty(words, dtype=torch.int32, device=dev)
     out = torch.empty(n_keys, cols, device=dev)
     with pytest.raises(RuntimeError, match="invalid argument"):
