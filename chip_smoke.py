@@ -92,7 +92,9 @@ per-polygon absorption, on the card.  Phases, one line each:
    one-rank NCCL group (one card): ``make_train_step`` on the bench scene
    at full width, w.r.t. absorption, three Adam steps: the loss falls, each
    step equal to the same step without the group to the bit; its time and
-   kernels a step beside the unsharded step's.
+   kernels a step beside the unsharded step's; then the ray-parallel dry
+   run (``hare_tpu_torch.entry.dryrun_multichip``) over the same group,
+   equal to the same step without the group to the bit.
 11. the two inverse-design programs (``hare_tpu_torch.examples``) at their
    defaults, counted and gated on what the JAX loops reach.
 12. in a process of its own (``CONFIG5_ARG``), eval config 5 at full size
@@ -110,6 +112,15 @@ per-polygon absorption, on the card.  Phases, one line each:
    (``configs.config5_batches``, 104,857,600 rays) through the fwd+bwd
    step, summed on the card and gated (the rays the reference's grid
    march loses, ``NEAR_AXIS``, found again and checked one by one).
+13. before phase 12, in the main process: the flagship workload's forward
+   (``hare_tpu_torch.entry.entry``: the concert hall on a grid of
+   ``avg_polys=12``, 1,024 seeded rays, 4 bounces, 512 bins) on the card,
+   counted; K1, K2, K4 and K3 against their plain versions on its inputs;
+   its trace against the CPU plain versions' ray by ray
+   (``entry.compare_traces``), every lost ray missed by B1 too; its
+   forward ms, busy ms, idle share, kernels a step and Mrays/s; and
+   ``Scene.tri_normals``' vertex gradient on the bench scene, two calls
+   equal to the bit and within REF_RTOL of the CPU's.
 
 On every path that phases 4-9 drive, K4 forward and backward are held
 against their plain versions on each bounce step's full-width inputs (the
@@ -842,13 +853,17 @@ def dist_phase(dev, smi, sp, rays, absorption):
     scene's own absorption: three counted steps, the loss falling, each
     loss and the parameters after each step equal to the same steps without
     the group to the bit; then the steps timed, in turns with the unsharded
-    step, with their kernels a step.  The group is destroyed at the end."""
+    step, with their kernels a step; then ``entry.dryrun_multichip`` over
+    the same group, counted, its target, loss and parameters equal to
+    ``entry.dryrun_reference`` (no group) to the bit.  The group is
+    destroyed at the end."""
     import socket
 
     import torch.distributed as tdist
 
     import hare_tpu_torch as th
     from hare_tpu_torch import dist as hd
+    from hare_tpu_torch import entry as pe
     from hare_tpu_torch.accel import common, scatter, voxel
     from hare_tpu_torch.trace import bounce
 
@@ -897,8 +912,14 @@ def dist_phase(dev, smi, sp, rays, absorption):
         for which in ("sharded", "unsharded", "unsharded", "sharded"):  # in turns
             ms[which].append(host_time(steps[which], 5))
         line = {k: step_ms(fn, 3) for k, fn in steps.items()}
+        dry, dry_launches = counted(counters, lambda: pe.dryrun_multichip())
     finally:
         tdist.destroy_process_group()
+    check(all(n > 0 for n in dry_launches.values()),
+          f"phase 10 dryrun_multichip: a kernel was not launched: {dry_launches}")
+    dry_ref = pe.dryrun_reference()
+    check(all(same_floats(x.reshape(-1), y.reshape(-1)) for x, y in zip(dry, dry_ref)),
+          "phase 10 dryrun_multichip: differs from the same step without the group")
     p2, opt2 = fresh()
     plain = [(plain_step(p2, opt2), p2.detach().clone()) for _ in range(n_steps)]
     for k, ((la, pa), (lb, pb)) in enumerate(zip(sharded, plain), 1):
@@ -918,6 +939,140 @@ def dist_phase(dev, smi, sp, rays, absorption):
           f"all-reduces {kernel_ms(line['sharded'][1], 'nccl'):.4f} ms); unsharded "
           f"{mean['unsharded']:.3f} ms (turns {ms['unsharded']}), busy "
           f"{line['unsharded'][0]:.4f} ms, {line['unsharded'][2]:.1f} kernels a step")
+    print(f"phase 10 dryrun_multichip [{smi}] (entry.dryrun_multichip over the same group: "
+          f"shoebox 4x5x3, grid domain=4, {pe.DRY_RAYS} rays a rank, target from "
+          f"sharded_histogram at absorption {pe.DRY_ABSORPTION}, one Adam step, lr {pe.DRY_LR}): "
+          f"loss {float(dry.loss):.6f}, launches {dry_launches}; target, loss and parameters "
+          f"equal to entry.dryrun_reference (no group) to the bit")
+
+
+def entry_phase(dev, smi, records, normals_scene):
+    """Phase 13: the flagship workload (``hare_tpu_torch.entry.entry``: the
+    concert hall on a grid of ``avg_polys=12``, 1,024 seeded rays, 4
+    bounces, absorption 0.2, 512 bins), its forward on the card through the
+    entry point, counted (K1, K2 and K4 4 times, K3 once); K1 bit-equal to
+    its plain version on each bounce's full-width rays, K2, K4 and K3 held
+    to theirs (``path_kernel_checks``, ``hist_checks``); the card's trace
+    against the CPU plain versions' on all the rays by the tie-aware
+    ``entry.compare_traces``, and every ray the card loses missed by B1 on
+    the same query; the forward timed (ms a step, busy ms, idle share,
+    kernels a step, Mrays/s, each kernel's device ms a step beside
+    its bound).  Then ``Scene.tri_normals``' vertex gradient
+    on ``normals_scene`` (the bench scene): two calls equal to the bit, and
+    within REF_RTOL of the CPU's."""
+    import hare_tpu_torch as th
+    from hare_tpu_torch import entry as pe
+    from hare_tpu_torch.accel import brute, common, scatter, voxel
+    from hare_tpu_torch.benchmarks import bench_scene, bounds
+    from hare_tpu_torch.trace import bounce
+
+    t0 = time.perf_counter()
+    fwd, args = pe.entry()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    scene, grid, o, d, a = args
+    check(all(x.is_cuda for x in (scene.vertices, grid.cell_meta, o, d, a)),
+          "phase 13: entry() placed a tensor off the card")
+    sp, rays = fwd.partition, th.Ray.make(o, d)
+
+    counters = (voxel.grid_shoot, common.finalize_hits, bounce.bounce_kernel,
+                th.energy_histogram)
+    want = {"grid_shoot": pe.N_BOUNCES, "finalize_hits": pe.N_BOUNCES,
+            "bounce_kernel": pe.N_BOUNCES, "energy_histogram": 1}
+    with torch.no_grad():
+        hist, launches = counted(counters, lambda: fwd(*args))
+        res = fwd.trace(*args)
+    check(launches == want, f"phase 13: launches {launches}, not {want}")
+    for r in records:
+        if r["name"] in launches and r.get("mode") != "soft":
+            r["phase13_launches"] = launches[r["name"]]
+    check(hist.shape == (pe.N_BINS,) and bool(torch.isfinite(hist).all()),
+          "phase 13: histogram not finite")
+    total, e_sum = float(hist.sum()), float(res.energy.sum())
+    check(math.isclose(total, e_sum, rel_tol=1e-5),
+          f"phase 13: histogram total {total} != summed bounce energies {e_sum}")
+
+    # Each kernel against its plain version on what each bounce receives.
+    bounces, k2_err, scat_err, k4 = path_kernel_checks("entry", sp, rays, a, pe.N_BOUNCES)
+    k3_err, _ = hist_checks("entry", res, pe.N_BINS, hist=hist)
+    # Each kernel's bound over one step: the sum of its calls' bounds.
+    step_bound = {
+        "K1": sum(bounds.grid_shoot_bound(voxel.grid_work(r, grid))["bound_ms"]
+                  for r, _, _ in bounces),
+        "K2": sum(bounds.finalize_hits_bound(tri)["bound_ms"] for _, tri, _ in bounces),
+        "K4": sum(bounds.bounce_step_bound(hr.poly_id)["bound_ms"] for _, _, hr in bounces),
+        "K3": bounds.histogram_bound(res.hit, pe.N_BINS)["bound_ms"]}
+
+    # The card's trace against the plain versions' on the CPU, ray by ray.
+    cpu = torch.device("cpu")
+    with torch.no_grad():
+        res_c = fwd.trace(to_device(scene, cpu), to_device(grid, cpu), o.cpu(), d.cpu(), a.cpu())
+    v = scene.vertices
+    extent = float((v.max(0).values - v.min(0).values).max())
+    parted = pe.compare_traces(type(res)(*(x.cpu() for x in res)), res_c, extent)
+
+    # Every ray the card loses is missed by B1 on the same query.
+    alive, lost_rays = torch.ones(pe.N_RAYS, dtype=torch.bool, device=dev), []
+    for b, r in enumerate(bench_scene.bounce_rays(sp, rays, a, pe.N_BOUNCES), 1):
+        lost = alive & ~res.hit[b - 1]
+        if bool(lost.any()):
+            bt, _ = brute.brute_shoot(scene, th.Ray(*(x[lost] for x in r)))
+            check(not bool(torch.isfinite(bt).any()), f"phase 13 bounce {b}: B1 hits a ray the "
+                  "grid lost")
+            lost_rays += [(i, b) for i in torch.nonzero(lost).squeeze(1).tolist()]
+        alive = res.hit[b - 1]
+
+    def step():
+        with torch.no_grad():
+            fwd(*args)
+
+    fwd_ms = host_time(step, 20)
+    busy, per_name, n_kernels = step_ms(step, 5)
+    parts = {k: kernel_ms(per_name, tag) for k, tag in (
+        ("K1", "grid_shoot_kernel"), ("K2", "finalize_kernel"), ("K4", K4_FWD_TAG),
+        ("K3", K3_TAG))}
+    print(f"phase 13 entry workload (concert hall {scene.n_tris} triangle rows, grid "
+          f"{grid.dims}, {pe.N_RAYS} rays, {pe.N_BOUNCES} bounces, absorption {pe.ABSORPTION}, "
+          f"{pe.N_BINS} bins): host build {host_s:.2f} s; forward launches {launches}; hist "
+          f"total {total:.6f} = bounce energies {e_sum:.6f}; K1 bit-equal to its plain version "
+          f"on each bounce's {pe.N_RAYS} rays, K2 within {k2_err:.3e}, K3 {k3_err:.3e} of the "
+          f"total, the scatter within {scat_err:.3e}; {k4_line('entry', k4)}")
+    print(f"phase 13 entry card against the CPU plain versions (entry.compare_traces): "
+          f"{len(parted['parted'])} of {pe.N_RAYS} rays part, {list(zip(parted['parted'], parted['bounce'], parted['kind']))} "
+          f"(ray, bounce, kind); the rest agree on every bounce; {len(lost_rays)} rays lost "
+          f"(ray, bounce) {lost_rays}, each missed by B1 too")
+    print(f"phase 13 entry metric [{smi}]: forward {fwd_ms:.3f} ms a step, busy {busy:.4f} ms "
+          f"(idle share {1 - busy / fwd_ms:.3f}), {n_kernels:.1f} kernels a step, "
+          f"{pe.N_RAYS * pe.N_BOUNCES / fwd_ms / 1e3:.4f} Mrays/s; on the device a step, "
+          f"beside the bound of the same calls: " + ", ".join(
+              f"{k} {v:.5f} ms (bound {step_bound[k]:.6f}, {step_bound[k] / v:.1%})" if v > 0
+              else f"{k} not recorded by the profiler (bound {step_bound[k]:.6f})"
+              for k, v in parts.items()))
+
+    # Scene.tri_normals' vertex gradient on the bench scene.
+    bscene = normals_scene
+    w = torch.randn(bscene.n_tris, 3, generator=torch.Generator().manual_seed(13))
+
+    def normals_grad(sc, weights):
+        vv = sc.vertices.clone().requires_grad_()
+        n = sc._replace(vertices=vv).tri_normals()
+        torch.sum(weights * n).backward()
+        return n.detach(), vv.grad
+
+    (n1, g1), scat = counted([scatter.scatter_add_ordered],
+                             lambda: normals_grad(bscene, w.to(dev)))
+    n2, g2 = normals_grad(bscene, w.to(dev))
+    check(scat["scatter_add_ordered"] == 3, f"phase 13 tri_normals: scatter launches {scat}")
+    check(same_floats(n1, n2) and same_floats(g1, g2), "phase 13 tri_normals: two calls differ")
+    nc, gc = normals_grad(to_device(bscene, cpu), w)
+    check(torch.allclose(n1.cpu(), nc, rtol=REF_RTOL, atol=REF_RTOL)
+          and torch.allclose(g1.cpu(), gc, rtol=REF_RTOL, atol=REF_RTOL * float(gc.abs().max())),
+          "phase 13 tri_normals: differs from the CPU")
+    print(f"phase 13 Scene.tri_normals on the bench scene ({bscene.n_tris} triangle rows): the "
+          f"vertex gradient of a seeded weighted sum through {scat['scatter_add_ordered']} "
+          f"ordered scatters, two calls equal to the bit; normals within "
+          f"{float((n1.cpu() - nc).abs().max()):.3e}, gradient within "
+          f"{rel_err(g1.cpu(), gc):.3e} of the largest of the CPU's")
 
 
 def cpu_reference(th, sp, rays, absorption, n_bins, scattering=None, n_bounces=N_BOUNCES,
@@ -2941,6 +3096,9 @@ def main():
 
     # ---- phase 11: the two inverse-design programs at their defaults.
     programs_phase(dev, smi, records)
+
+    # ---- phase 13: the flagship workload's forward, and Scene.tri_normals.
+    entry_phase(dev, smi, records, sp.scene)
 
     # ---- phase 12: eval config 5 at full size, and its sustained run, in a
     # process of its own (CONFIG5_ARG), its records merged into these.

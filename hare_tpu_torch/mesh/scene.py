@@ -14,6 +14,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from ..geom.math import cross, normalize
+
 __all__ = ["Scene", "PAD_POLY"]
 
 # Polygon id used for padding triangles: never matches a real poly nor the
@@ -63,6 +65,18 @@ class Scene(NamedTuple):
         from ..accel.scatter import gather_rows
 
         return tuple(gather_rows(self.vertices, self.tri_v[:, k]) for k in range(3))
+
+    def tri_normals(self, unit: bool = True) -> torch.Tensor:
+        """Per-triangle normals ``cross(v1 - v0, v2 - v0)`` from the current
+        vertices, ``(T, 3)``, unit unless ``unit=False``
+        (``hare_tpu/mesh/scene.py:101-109``; ``Polygon`` ctor,
+        ``Hare_Geometry_Polygons.cs:158-172``).  Built on
+        :meth:`tri_vertices`, so the vertex gradient repeats to the bit; a
+        pad triangle (all corners at one vertex) has a zero normal and adds
+        nothing to the gradient."""
+        v0, v1, v2 = self.tri_vertices()
+        n = cross(v1 - v0, v2 - v0)
+        return normalize(n) if unit else n
 
     def with_vertices(self, vertices: torch.Tensor) -> "Scene":
         """``Set_Vertex`` (``Hare_Geometry_Topology.cs:506-511``): the same

@@ -51,11 +51,13 @@ def test_benchmarks_load_no_jax():
 
 
 def test_utils_and_examples_load_no_jax():
-    """The utilities and both programs import neither JAX nor the JAX
-    package, optax or orbax."""
+    """The utilities, both programs and the flagship workload
+    (``hare_tpu_torch.entry``) import neither JAX nor the JAX package, optax
+    or orbax."""
     code = (
         "import sys, hare_tpu_torch.utils\n"
         "import hare_tpu_torch.examples.fit_absorption, hare_tpu_torch.examples.fit_vertices\n"
+        "from hare_tpu_torch.entry import dryrun_multichip, entry\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'hare_tpu', 'optax', 'orbax')]\n"
         "assert not bad, bad\n"
@@ -66,8 +68,8 @@ def test_utils_and_examples_load_no_jax():
 def test_no_jax_or_hare_tpu_imports_in_source():
     files = sorted((ROOT / "hare_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
-    assert {"fit_absorption.py", "fit_vertices.py", "checkpoint.py", "closest.py"} <= {
-        f.name for f in files}
+    assert {"fit_absorption.py", "fit_vertices.py", "checkpoint.py", "closest.py",
+            "entry.py"} <= {f.name for f in files}
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):
             if isinstance(node, ast.Import):
@@ -194,3 +196,77 @@ def test_kernel_sources_present():
     src = "".join(p.read_text() for p in sorted(build.CSRC.glob("*.cu")))
     for name in build._SIGNATURES:
         assert f'extern "C" int {name}(' in src, name
+
+
+# What the JAX package has and the port has not, each with its reason.
+UNPORTED = {
+    "make_ray_mesh": "a torch.distributed process group takes the device mesh's place",
+    "straggler_tiers": "TPU workaround: resume rounds for rays a round leaves unfinished",
+    "collect": "TPU workaround: candidate buffers filled before the triangle test",
+    "run_round": "TPU workaround: bounded traversal rounds",
+    "quant": "TPU workaround: 8-bit quantised packed stacks",
+}
+# The classes whose public methods and fields the port keeps.
+CLASSES = {"Scene": "mesh/scene.py", "Topology": "mesh/topology.py",
+           "SpatialPartition": "accel/partition.py", "TraceResult": "trace/bounce.py"}
+
+
+def _all_names(path):
+    """A module's ``__all__`` literal, read from its source."""
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.Assign) and any(getattr(t, "id", None) == "__all__"
+                                                for t in node.targets):
+            return ast.literal_eval(node.value)
+    return []
+
+
+def _defs(path, nested=False):
+    """Public function and class names defined in a module's source: at
+    its top level, or (``nested``) anywhere."""
+    body = ast.walk(ast.parse(path.read_text())) if nested else ast.parse(path.read_text()).body
+    return {n.name for n in body if isinstance(n, (ast.FunctionDef, ast.ClassDef))
+            and not n.name.startswith("_")}
+
+
+def _members(path, cls):
+    """Public methods, properties and fields of class ``cls`` in ``path``."""
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.ClassDef) and node.name == cls:
+            return {getattr(b, "name", None) or b.target.id for b in node.body
+                    if isinstance(b, (ast.FunctionDef, ast.AnnAssign))
+                    and not (getattr(b, "name", None) or b.target.id).startswith("_")}
+    raise AssertionError(f"no class {cls} in {path}")
+
+
+def test_api_parity():
+    """The port does everything the JAX package does: every name in each
+    ``hare_tpu`` package's ``__all__``, every public function and class of
+    each of its modules (read from the source, so no JAX is imported), and
+    every public method and field of Scene, Topology, SpatialPartition and
+    TraceResult has a counterpart in ``hare_tpu_torch``, but the UNPORTED
+    names, each with its reason, which the JAX package has and the port
+    has not."""
+    import importlib
+
+    jax_root, port_root = ROOT / "hare_tpu", ROOT / "hare_tpu_torch"
+    missing, jax_defs, port_defs = [], set(), set()
+    for init in sorted(jax_root.rglob("__init__.py")):
+        sub = init.parent.relative_to(jax_root).parts
+        port = importlib.import_module(".".join(("hare_tpu_torch",) + sub))
+        missing += [f"{port.__name__}.{n}" for n in _all_names(init)
+                    if n not in UNPORTED and not hasattr(port, n)]
+    for src in sorted(jax_root.rglob("*.py")):
+        twin = port_root / src.relative_to(jax_root)
+        jax_defs |= _defs(src, nested=True)
+        if not twin.exists():
+            missing.append(f"{twin.relative_to(ROOT)}")
+            continue
+        missing += [f"{twin.relative_to(ROOT)}: {n}" for n in _defs(src) - _defs(twin)
+                    if n not in UNPORTED]
+    for cls, rel in CLASSES.items():
+        missing += [f"{cls}.{n}" for n in _members(jax_root / rel, cls)
+                    - _members(port_root / rel, cls)]
+    assert not missing, missing
+    for src in port_root.rglob("*.py"):
+        port_defs |= _defs(src, nested=True)
+    assert set(UNPORTED) <= jax_defs and not set(UNPORTED) & port_defs
