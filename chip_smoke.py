@@ -121,6 +121,18 @@ per-polygon absorption, on the card.  Phases, one line each:
    forward ms, busy ms, idle share, kernels a step and Mrays/s; and
    ``Scene.tri_normals``' vertex gradient on the bench scene, two calls
    equal to the bit and within REF_RTOL of the CPU's.
+14. after phase 5: the filtered shoot (``SpatialPartition.shoot(rays,
+   top_index)``, the reference's second ``Shoot`` overload) on the bench's
+   faces as two topologies (the room and the sphere, 81,932 triangles,
+   ``domain=48``) and the bench rays of each of 3 bounces: K1 on each
+   per-topology grid the partition builds on first use and caches on the
+   card, bit-equal to its plain version, against K1 on the combined grid
+   with its test-time filter (the same hits and triangles on every ray)
+   and against B1 (edge rounding; near-axis losses counted); counted (6
+   shoots and a 3-bounce trace against the room: K1 and K2 9 times, K4 3,
+   no build); ``top_index=5`` missing every ray; each grid's build, and
+   K1's device ms on both grids a bounce and topology beside its bound and
+   the cells and slots a ray visits.
 
 On every path that phases 4-9 drive, K4 forward and backward are held
 against their plain versions on each bounce step's full-width inputs (the
@@ -1073,6 +1085,172 @@ def entry_phase(dev, smi, records, normals_scene):
           f"ordered scatters, two calls equal to the bit; normals within "
           f"{float((n1.cpu() - nc).abs().max()):.3e}, gradient within "
           f"{rel_err(g1.cpu(), gc):.3e} of the largest of the CPU's")
+
+
+def per_topology_phase(dev, smi, records, rays):
+    """Phase 14: the filtered shoot, the reference's second ``Shoot``
+    overload, over per-topology grids.  The bench's faces as two topologies
+    (``shoebox(20, 20, 20)``, 12 triangles, and ``icosphere(6, r=6)``,
+    81,920): a room with an object in it, traced against one topology at a
+    time, behind ``SpatialPartition([...], accel="grid", domain=48)``, on
+    the bench's ``rays`` over 3 bounces (``bench_scene.bounce_rays``, one
+    batch a bounce).  For each batch and each ``top_index`` in (0, 1):
+    (a) ``sp.shoot(rays, top_index)``, K1 on the per-topology grid the
+    partition builds on first use and caches; (b) K1 on the combined grid
+    with its test-time filter; (c) B1 with ``top_index``, the referee.  (a)
+    is bit-equal to K1's plain version; (a) and (b) give the same hits and
+    triangles (t within RTOL) on every ray; (a) agrees with (c) but for at
+    most MAX_TIE_SHARE of the rays (edge rounding), the rays the
+    reference's grid march loses (``NEAR_AXIS``) counted apart.  Then a
+    3-bounce trace against the room alone through ``sp.shoot(r, 0)``,
+    counted (K1, K2 and K4 3 times, no build), every ray hitting on every
+    bounce; ``top_index=5`` misses on every ray; the cached grids on the
+    card.  Printed: each grid's build, K1's device ms for (a) and (b) each
+    bounce and topology beside its bound, and the cells and slots a ray
+    visits (``voxel.grid_work``)."""
+    import hare_tpu_torch as th
+    from hare_tpu_torch.accel import brute, common, voxel
+    from hare_tpu_torch.benchmarks import bench_scene, bounds
+    from hare_tpu_torch.mesh import shapes
+    from hare_tpu_torch.trace import bounce
+
+    t_phase = time.perf_counter()
+    tops = [th.Topology.build(shapes.shoebox(20.0, 20.0, 20.0)),
+            th.Topology.build(shapes.icosphere(6, radius=6.0, center=(10.0, 10.0, 10.0)))]
+    sp = th.SpatialPartition(tops, accel="grid", domain=48, device=dev)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t_phase
+    n_tris = sum(t.n_tris for t in tops)
+    check(n_tris == 81932, f"phase 14: {n_tris} triangles, not 81,932")
+    absorption = torch.full((sp.scene.n_polys,), ABSORPTION, device=dev)
+    batches = bench_scene.bounce_rays(sp, rays, absorption)
+    n = rays.origin.shape[0]
+
+    # Each per-topology grid, built by the first filtered shoot and cached
+    # on the card.
+    first_s, grids = {}, {}
+    for ti in (0, 1):
+        t0 = time.perf_counter()
+        sp.shoot(batches[0], ti)
+        torch.cuda.synchronize()
+        first_s[ti] = time.perf_counter() - t0
+        grids[ti] = sp._top_grids.get(ti)
+        check(grids[ti] is not None, f"phase 14: no per-topology grid cached for {ti}")
+        check(all(x.is_cuda for x in (grids[ti].cell_meta, grids[ti].win_geom,
+                                      grids[ti].win_ids)),
+              f"phase 14: the grid of topology {ti} is not on the card")
+        live = grids[ti].win_ids[..., 0] >= 0
+        check(set(torch.unique(grids[ti].win_ids[..., 2][live]).tolist()) == {ti},
+              f"phase 14: the grid of topology {ti} holds another topology's rows")
+
+    # The main path, counted: every filtered shoot, then a 3-bounce trace
+    # against the room alone.  No grid is built again.
+    counters = (voxel.grid_shoot, common.finalize_hits, bounce.bounce_kernel)
+
+    def main_path():
+        out = {(b, ti): sp.shoot(r, ti) for b, r in enumerate(batches, 1) for ti in (0, 1)}
+        with torch.no_grad():
+            res = th.trace_rays(sp.scene, rays, absorption, N_BOUNCES,
+                                lambda scene, r, aux=None: sp.shoot(r, 0))
+        return out, res
+
+    (shot, res), launches = counted(counters, main_path)
+    want = {"grid_shoot": 2 * len(batches) + N_BOUNCES,
+            "finalize_hits": 2 * len(batches) + N_BOUNCES, "bounce_kernel": N_BOUNCES}
+    check(launches == want, f"phase 14: launches {launches}, not {want}")
+    check(set(sp._top_grids) == {0, 1} and all(sp._top_grids[ti] is grids[ti] for ti in (0, 1)),
+          "phase 14: a filtered shoot built a grid again")
+    check(bool(res.hit.all()), "phase 14: a ray missed the room on some bounce of the filtered "
+          "trace")
+    e_sum = float(res.energy.sum())
+    for r in records:
+        if r["name"] in launches and r.get("mode") != "soft":
+            r["phase14_launches"] = launches[r["name"]]
+
+    # Each bounce and topology: (a) against its plain version, (b) and (c).
+    rows, lost_near, lost_other = [], [], []
+    for (b, ti), hr in shot.items():
+        r, g = batches[b - 1], grids[ti]
+        label = f"phase 14 bounce {b} top {ti}"
+        ka = voxel.grid_shoot(r, g)
+        pa, plain_a = timed_once(lambda: voxel.grid_shoot_plain(r, g))
+        same_bits(f"{label} (a) K1", ka, pa)
+        check(torch.equal(ka[1], hr.tri_id) and torch.equal(torch.isfinite(ka[0]), hr.hit),
+              f"{label}: sp.shoot differs from K1 on its grid")
+        kb = voxel.grid_shoot(r, sp.struct, top_index=ti)
+        pb, plain_b = timed_once(lambda: voxel.grid_shoot_plain(r, sp.struct, top_index=ti))
+        same_bits(f"{label} (b) K1", kb, pb)
+        hit_a, hit_b = torch.isfinite(ka[0]), torch.isfinite(kb[0])
+        off = (hit_a != hit_b) | (ka[1] != kb[1]) | (
+            hit_b & ((ka[0] - kb[0]).abs() > RTOL * kb[0].abs()))
+        bad = torch.nonzero(off).squeeze(1).tolist()
+        if bad:
+            print(f"{label}: (a) and (b) differ on rays {bad[:20]}: " + "; ".join(
+                f"ray {i} (a) t {float(ka[0][i])} tri {int(ka[1][i])}, (b) t "
+                f"{float(kb[0][i])} tri {int(kb[1][i])}" for i in bad[:20]))
+        check(not bad, f"{label}: (a) and (b) differ on {len(bad)} rays")
+        kc = brute.brute_shoot(sp.scene, r, top_index=ti)
+        hit_c = torch.isfinite(kc[0])
+        lost = hit_c & ~hit_a
+        near = lost & (r.direction.abs().amin(1) < NEAR_AXIS)
+        lost_near += [(b, ti, i) for i in torch.nonzero(near).squeeze(1).tolist()]
+        lost_other += [(b, ti, i) for i in torch.nonzero(lost & ~near).squeeze(1).tolist()]
+        both = hit_a & hit_c
+        dt = torch.where(both, (ka[0] - kc[0]).abs(), 0.0)
+        beyond = both & (dt > ATOL + RTOL * kc[0].abs())
+        flips = both & (ka[1] != kc[1])
+        extra = hit_a & ~hit_c
+        differ = int((lost & ~near | extra | beyond | flips).sum())
+        check(differ <= MAX_TIE_SHARE * n, f"{label}: (a) differs from B1 on {differ} rays")
+        wa, wb = voxel.grid_work(r, g), voxel.grid_work(r, sp.struct, top_index=ti)
+        bnd_a, bnd_b = bounds.grid_shoot_bound(wa), bounds.grid_shoot_bound(wb)
+        ms_a = launch_ms(lambda: voxel.grid_shoot(r, g), 10, "grid_shoot_kernel")
+        ms_b = launch_ms(lambda: voxel.grid_shoot(r, sp.struct, top_index=ti), 10,
+                         "grid_shoot_kernel")
+        rows.append(dict(
+            bounce=b, top_index=ti, hits=int(hit_a.sum()), device_ms=ms_a, combined_device_ms=ms_b,
+            plain_ms=plain_a, combined_plain_ms=plain_b,
+            bound_ms=bnd_a["bound_ms"], bound_by=bnd_a["bound_by"],
+            combined_bound_ms=bnd_b["bound_ms"],
+            cells_per_ray=float(wa.cells.double().mean()),
+            slots_per_ray=float(wa.slots.double().mean()),
+            combined_cells_per_ray=float(wb.cells.double().mean()),
+            combined_slots_per_ray=float(wb.slots.double().mean()),
+            b1_flips=int(flips.sum()), b1_beyond_tol=int(beyond.sum()),
+            b1_max_abs_dt=float(dt.max()), b1_extra_hits=int(extra.sum()),
+            lost_near_axis=int(near.sum()), lost_other=int((lost & ~near).sum())))
+        print(f"{label} [{smi}]: {int(hit_a.sum())} of {n} rays hit; (a) sp.shoot, K1 on the "
+              f"per-topology grid {tuple(g.dims)} ({g.win_geom.shape[0]} window rows), bit-equal "
+              f"to its plain version ({plain_a:.3f} ms): {ms_a:.5f} ms on the device, a ray visits "
+              f"{rows[-1]['cells_per_ray']:.2f} cells and tests {rows[-1]['slots_per_ray']:.2f} "
+              f"triangle slots, bound {bnd_a['bound_ms']:.5f} ms ({bnd_a['bound_by']}: "
+              f"{bnd_a['bytes'] / 1e6:.2f} MB), {bnd_a['bound_ms'] / ms_a:.1%} of it; (b) K1 on "
+              f"the combined grid with the filter: the same hits and triangles on every ray, "
+              f"{ms_b:.5f} ms (plain {plain_b:.3f}), {rows[-1]['combined_cells_per_ray']:.2f} cells and "
+              f"{rows[-1]['combined_slots_per_ray']:.2f} slots a ray, bound "
+              f"{bnd_b['bound_ms']:.5f} ms, {bnd_b['bound_ms'] / ms_b:.1%} of it; (a) / (b) "
+              f"{ms_a / ms_b:.3f}; (c) B1: tri_id flips {int(flips.sum())}, rays beyond |dt| <= "
+              f"{ATOL} + {RTOL} t {int(beyond.sum())} (max |dt| {float(dt.max()):.3e}), hit by "
+              f"(a) only {int(extra.sum())}, by B1 only {int(lost.sum())} ({int(near.sum())} "
+              f"within {NEAR_AXIS} of an axis)")
+
+    # An out-of-range topology misses on every ray through the combined
+    # grid's filter, and caches no grid.
+    none = sp.shoot(batches[1], 5)
+    check(not bool(none.hit.any()) and 5 in sp._top_grids and sp._top_grids[5] is None,
+          "phase 14: top_index=5 hit a ray or cached a grid")
+    for r in records:
+        if r["name"] == "grid_shoot":
+            r["per_topology"] = dict(rows=rows, first_shoot_s=first_s, host_build_s=host_s)
+    print(f"phase 14 filtered shoot [{smi}] (bench faces as two topologies, {n_tris} triangles, "
+          f"grid domain 48, {n} rays x {len(batches)} bounces): host build {host_s:.2f} s; first "
+          f"filtered shoot (the per-topology grid's host build and upload, and one shoot) "
+          + ", ".join(f"top {ti} {s:.2f} s" for ti, s in first_s.items())
+          + f"; launches {launches} (6 shoots and a 3-bounce trace against the room, no build); "
+          f"the filtered trace hits on every ray and bounce, bounce energies {e_sum:.3f}; "
+          f"top_index=5 misses on every ray; rays B1 hits and (a) loses: near-axis "
+          f"{lost_near[:10]}{'...' if len(lost_near) > 10 else ''} ({len(lost_near)}), other "
+          f"{lost_other[:10]} ({len(lost_other)}); phase 14 ran {time.perf_counter() - t_phase:.1f} s")
 
 
 def cpu_reference(th, sp, rays, absorption, n_bins, scattering=None, n_bounces=N_BOUNCES,
@@ -3078,6 +3256,9 @@ def main():
           f"(idle share {1 - busy / fb_ms:.3f}); " + ", ".join(
               f"{k} {v:.4f} ms" for k, v in parts.items()) +
           f", other kernels {busy - sum(parts.values()):.4f} ms; {n_kernels:.1f} kernels a step")
+
+    # ---- phase 14: the filtered shoot over per-topology grids.
+    per_topology_phase(dev, smi, records, rays)
 
     # ---- phase 6: the Pallas probe kernels.
     records += probe_phase(dev)

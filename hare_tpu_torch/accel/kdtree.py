@@ -26,6 +26,7 @@ from typing import Optional, Sequence, Union
 import numpy as np
 
 from ..geom.intersect import MIN_T
+from ..mesh.scene import Scene
 from ..mesh.topology import Topology
 from .octree import _extract, auto_depth
 from .tree import TreeTables, build_tree_tables, collapse_levels, shoot_tree
@@ -97,7 +98,7 @@ def kd_split(split, ids, depth, lo, hi, centroid, nmin, nmax):
 
 
 def build_kdtree_tables(
-    source: Union[Topology, Sequence[Topology]],
+    source: Union[Topology, Sequence[Topology], Scene],
     max_depth: Optional[int] = None,
     max_tris_per_node: int = 12,
     pad: float = 1e-3,
@@ -167,7 +168,7 @@ def build_kdtree_tables(
 
 
 def build_kdtree(
-    source: Union[Topology, Sequence[Topology]],
+    source: Union[Topology, Sequence[Topology], Scene],
     max_depth: Optional[int] = None,
     max_tris_per_node: int = 12,
     pad: float = 1e-3,

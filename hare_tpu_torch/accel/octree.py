@@ -20,6 +20,7 @@ import numpy as np
 
 from ..geom.intersect import MIN_T
 from ..geom.tribox import tri_box_overlap
+from ..mesh.scene import PAD_POLY, Scene
 from ..mesh.topology import Topology
 from .tree import TreeTables, build_tree_tables, shoot_tree
 
@@ -31,9 +32,18 @@ Octree = TreeTables
 CHILD_PAD = 1.001  # 0.1% child box padding (Octree - alt.cs:118-130)
 
 
-def _extract(source: Union[Topology, Sequence[Topology]]):
-    """(tri (T, 3, 3) f64, tri_poly, tri_top) of a topology or a list of
-    them, with the polygon offsets of ``build_scene``."""
+def _extract(source: Union[Topology, Sequence[Topology], Scene]):
+    """(tri (T, 3, 3) f64, tri_poly, tri_top) of a topology, a list of
+    them (with the polygon offsets of ``build_scene``) or a ``Scene``: its
+    f32 corners widened to f64 on the host, the pad rows dropped, as the
+    JAX ``_extract`` reads ``scene.tri_vertices()`` (the tables then round
+    as JAX's built from the same ``Scene``)."""
+    if isinstance(source, Scene):
+        tri_poly = source.tri_poly.cpu().numpy()
+        keep = tri_poly != PAD_POLY
+        v = source.vertices.detach().cpu().numpy()
+        tri = v[source.tri_v.cpu().numpy()[keep]].astype(np.float64)
+        return tri, tri_poly[keep], source.tri_top.cpu().numpy()[keep]
     if isinstance(source, Topology):
         return (
             source.vertices[source.tri_v],
@@ -61,7 +71,7 @@ def auto_depth(
 
 
 def build_octree_tables(
-    source: Union[Topology, Sequence[Topology]],
+    source: Union[Topology, Sequence[Topology], Scene],
     max_depth: Optional[int] = None,
     max_tris_per_node: int = 16,
     pad: float = 1e-3,
@@ -115,7 +125,7 @@ def build_octree_tables(
 
 
 def build_octree(
-    source: Union[Topology, Sequence[Topology]],
+    source: Union[Topology, Sequence[Topology], Scene],
     max_depth: Optional[int] = None,
     max_tris_per_node: int = 16,
     pad: float = 1e-3,

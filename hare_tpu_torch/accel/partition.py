@@ -93,6 +93,9 @@ class SpatialPartition:
                 ext = float((self.struct.root_max - self.struct.root_min).min())
                 depth = self.struct.max_depth
                 self.char_step = ext / (2 ** (depth if accel == "octree" else min(depth, 16)))
+        if accel == "grid":
+            self._build_params = dict(params, device=device)
+            self._top_grids = {}  # per-topology grids (Voxel_Inv analog)
         self._shoot_fn = None
 
     def _run(self, scene, rays, struct, top_index=None) -> HitRecord:
@@ -101,9 +104,29 @@ class SpatialPartition:
         return self._raw(scene, rays, struct, self.kernel, top_index=top_index)
 
     def shoot(self, rays: Ray, top_index: Optional[int] = None) -> HitRecord:
-        """``Spatial_Partition.Shoot``; ``top_index`` filters candidates to
-        one topology at test time (the same answer as the JAX package's
-        per-topology grid)."""
+        """``Spatial_Partition.Shoot``, both overloads: exclusion rides on
+        ``rays.exclude_poly``; ``top_index`` keeps one topology's hits.
+
+        Grid + ``top_index`` on a multi-topology model walks a PER-TOPOLOGY
+        grid (``build_voxel_grid(only_top=top_index)``, built lazily with
+        the partition's own build parameters on its device, and cached): the
+        reference's 4-D ``Voxel_Inv`` (``Voxel_Grid.cs:83``), so the shoot
+        visits only that topology's occupancy.  Its rows carry global ids
+        and hold no other topology, so no test-time filter is needed.  An
+        empty or out-of-range topology caches None and keeps the combined
+        grid's test-time filter, which gives all-miss.  Every other backend
+        filters at test time.
+        """
+        if top_index is not None and self._raw is shoot_grid and len(self.model) > 1:
+            if top_index not in self._top_grids:
+                try:
+                    self._top_grids[top_index] = build_voxel_grid(
+                        self.model, only_top=top_index, **self._build_params)
+                except ValueError:
+                    self._top_grids[top_index] = None
+            grid = self._top_grids[top_index]
+            if grid is not None:
+                return shoot_grid(self.scene, rays, grid, self.kernel)
         return self._run(self.scene, rays, self.struct, top_index)
 
     @property

@@ -90,7 +90,7 @@ ENTRY_EPS = 1e-4
 
 
 def build_kdtree_ropes_tables(
-    source: Union[Topology, Sequence[Topology]],
+    source: Union[Topology, Sequence[Topology], Scene],
     max_depth: Optional[int] = None,
     max_tris_per_node: int = 12,
     pad: float = 1e-3,
@@ -263,6 +263,7 @@ class KDRopes(NamedTuple):
     max_depth: int
     char_step: float
     max_steps: int  # per-ray step bound n_leaves * (max_depth + 1)
+    n_tris: int
     # root_min and root_max (3 each) as Python floats of their f32 values,
     # so B3 and its plain version enter the tree on identical constants.
     host_params: Tuple[float, ...]
@@ -275,12 +276,12 @@ class KDRopes(NamedTuple):
     @classmethod
     def from_numpy(
         cls, node_rows, win_data, root_min, root_max, max_depth, char_step,
-        device="cuda", **_,
+        n_tris, device="cuda", **_,
     ) -> "KDRopes":
         """From the JAX ``KDRopes`` fields (as NumPy): split the 32-lane
         rows into typed arrays and repack the window rows.  The remaining
-        keyword fields (``max_leaf_wins``, ``n_tris``) size the JAX walk's
-        buffers, which the port does not have."""
+        keyword field (``max_leaf_wins``) sizes the JAX walk's buffers,
+        which the port does not have."""
         rows = np.ascontiguousarray(node_rows, np.float32)
         irows = rows.view(np.int32)
         node = np.stack(
@@ -312,12 +313,13 @@ class KDRopes(NamedTuple):
             max_depth=int(max_depth),
             char_step=float(char_step),
             max_steps=max(1, n_leaves) * (int(max_depth) + 1),
+            n_tris=int(n_tris),
             host_params=tuple(float(x) for x in np.concatenate([rmin, rmax])),
         )
 
 
 def build_kdtree_ropes(
-    source: Union[Topology, Sequence[Topology]],
+    source: Union[Topology, Sequence[Topology], Scene],
     max_depth: Optional[int] = None,
     max_tris_per_node: int = 12,
     pad: float = 1e-3,

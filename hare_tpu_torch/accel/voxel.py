@@ -47,6 +47,7 @@ from .common import (
     repack_windows,
     test_runs,
 )
+from .octree import _extract
 
 __all__ = [
     "VoxelGrid",
@@ -213,32 +214,41 @@ def _chebyshev_distance(occ: np.ndarray, cap: int = DIST_CAP) -> np.ndarray:
 
 
 def build_grid_tables(
-    source: Union[Topology, Sequence[Topology]],
+    source: Union[Topology, Sequence[Topology], Scene],
     domain: Optional[int] = None,
     max_doublings: int = 6,
     avg_polys: float = 10.0,
     pad: float = 1e-3,
     win: Optional[int] = None,
+    only_top: Optional[int] = None,
 ) -> dict:
     """The grid's host tables, bit-equal to the JAX package's ``VoxelGrid``
     fields (same names, as NumPy; ``dims``/``char_step``/``max_cell_wins``/
     ``n_tris`` as Python values).  ``domain`` given -> fixed ``domain^3``
     resolution (``Voxel_Grid.cs:48``); ``domain=None`` -> adaptive doubling
     until the mean triangles per occupied voxel < ``avg_polys`` or
-    ``max_doublings`` (``:128-254``).
+    ``max_doublings`` (``:128-254``).  A ``Scene`` source is read on the
+    host (:func:`~.octree._extract`).
+
+    ``only_top``: the grid over ONE topology's triangles, in that
+    topology's own box, its rows holding the GLOBAL triangle, polygon and
+    topology ids, so hits finalize against the shared multi-topology scene:
+    the reference's 4-D ``Voxel_Inv`` per-topology lists
+    (``Voxel_Grid.cs:83``).  A topology with no triangles raises
+    ``ValueError``.
     """
-    if isinstance(source, Topology):
-        source = [source]
-    parts, pp, tt = [], [], []
-    p_off = 0
-    for ti, t in enumerate(source):
-        parts.append(t.vertices[t.tri_v])
-        pp.append(t.tri_poly + p_off)  # same offsets as build_scene
-        tt.append(np.full(t.n_tris, ti, np.int32))
-        p_off += t.n_polys
-    tri = np.concatenate(parts, axis=0)
-    tri_poly = np.concatenate(pp)
-    tri_top = np.concatenate(tt)
+    tri, tri_poly, tri_top = _extract(source)
+
+    # Per-topology restriction: fill over the selected triangles only, but
+    # keep GLOBAL ids in the packed rows (global_ids remap below).
+    global_ids = None
+    if only_top is not None:
+        sel = tri_top == only_top
+        if not sel.any():
+            raise ValueError(f"topology {only_top} has no triangles")
+        global_ids = np.nonzero(sel)[0].astype(np.int64)
+        tri_all = tri
+        tri = tri[sel]
 
     gmin = tri.reshape(-1, 3).min(axis=0) - pad
     gmax = tri.reshape(-1, 3).max(axis=0) + pad
@@ -274,6 +284,12 @@ def build_grid_tables(
 
     counts = np.diff(cell_start)
     n_cells = int(np.prod(dims))
+
+    if global_ids is not None:
+        # Remap local fill ids to global; pack against the FULL arrays so
+        # the stored triangle/polygon/topology ids match the shared scene.
+        cell_tris = global_ids[cell_tris]
+        tri = tri_all
 
     # ---- pack per-cell lists into the shared 128-lane window-row layout.
     win_data, win_start, n_wins_per_cell = pack_windows(
@@ -363,19 +379,20 @@ class VoxelGrid(NamedTuple):
 
 
 def build_voxel_grid(
-    source: Union[Topology, Sequence[Topology]],
+    source: Union[Topology, Sequence[Topology], Scene],
     domain: Optional[int] = None,
     max_doublings: int = 6,
     avg_polys: float = 10.0,
     pad: float = 1e-3,
     win: Optional[int] = None,
+    only_top: Optional[int] = None,
     device="cuda",
 ) -> VoxelGrid:
     """Build the grid on the host (:func:`build_grid_tables`) and put it on
     ``device``."""
     tables = build_grid_tables(
         source, domain=domain, max_doublings=max_doublings,
-        avg_polys=avg_polys, pad=pad, win=win,
+        avg_polys=avg_polys, pad=pad, win=win, only_top=only_top,
     )
     return VoxelGrid.from_numpy(**tables, device=device)
 

@@ -80,5 +80,5 @@ def tree_from_numpy(t, device="cuda") -> TreeTables:
 def ropes_from_numpy(t, device="cuda") -> KDRopes:
     """The port's ``KDRopes`` (typed node rows) from a JAX ``KDRopes``, or
     any object with its fields: the arrays of :func:`tree_from_numpy` and
-    the statics ``max_depth`` and ``char_step``."""
-    return KDRopes.from_numpy(*_tables(t), t.max_depth, t.char_step, device=device)
+    the statics ``max_depth``, ``char_step`` and ``n_tris``."""
+    return KDRopes.from_numpy(*_tables(t), t.max_depth, t.char_step, t.n_tris, device=device)

@@ -31,15 +31,18 @@ def _pick(idx, X, Y, Z):
     return torch.where(idx == 0, X, torch.where(idx == 1, Y, Z))
 
 
-def kernel_components(kernel, o_cmp, d_cmp, tri_cmp, unmasked=False):
+def kernel_components(kernel, o_cmp, d_cmp, tri_cmp, det_eps=None, unmasked=False):
     """THE ray/triangle test on broadcastable component tensors.
 
     Args:
       kernel: ``"watertight"`` (Woop/Benthin/Wald 2013 with the FMA-robust
-        band ``8 eps (|u|+|v|+|w|)``, det cutoff 0) or ``"mt"`` (two-sided
-        Möller–Trumbore with the reference's det cutoff ``DET_EPS``).
+        band ``8 eps (|u|+|v|+|w|)``) or ``"mt"`` (two-sided
+        Möller–Trumbore).
       o_cmp, d_cmp: (ox, oy, oz), (dx, dy, dz).
       tri_cmp: (v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z).
+      det_eps: determinant cutoff, ``|det| > det_eps``; None = ``DET_EPS``
+        for "mt" (the reference's cutoff), 0.0 for "watertight" (edge-on
+        hits accepted).  The kernels read the defaults only.
       unmasked: t/u/v are the raw ray/plane solution (guarded only against
         det == 0) instead of +inf where the bounds fail; ``valid`` is the
         in-bounds test either way.
@@ -50,6 +53,8 @@ def kernel_components(kernel, o_cmp, d_cmp, tri_cmp, unmasked=False):
     v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = tri_cmp
     inf = float("inf")
     if kernel == "watertight":
+        if det_eps is None:
+            det_eps = 0.0
         adx, ady, adz = torch.abs(dx), torch.abs(dy), torch.abs(dz)
         zero = torch.zeros_like(adx, dtype=torch.int64)
         kz = torch.where(
@@ -88,7 +93,7 @@ def kernel_components(kernel, o_cmp, d_cmp, tri_cmp, unmasked=False):
         same_sign = ((u_s >= -tol) & (v_s >= -tol) & (w_s >= -tol)) | (
             (u_s <= tol) & (v_s <= tol) & (w_s <= tol)
         )
-        valid = same_sign & (torch.abs(det) > 0.0)
+        valid = same_sign & (torch.abs(det) > det_eps)
         ok = (det != 0.0) if unmasked else valid
         inv_det = torch.where(ok, 1.0 / torch.where(ok, det, 1.0), 0.0)
         t = torch.where(ok, sz * (u_s * az + v_s * bz + w_s * cz) * inv_det, inf)
@@ -96,6 +101,8 @@ def kernel_components(kernel, o_cmp, d_cmp, tri_cmp, unmasked=False):
 
     if kernel != "mt":
         raise ValueError(f"unknown kernel {kernel!r}")
+    if det_eps is None:
+        det_eps = DET_EPS
     px = dy * e2z - dz * e2y
     py = dz * e2x - dx * e2z
     pz = dx * e2y - dy * e2x
@@ -116,7 +123,7 @@ def kernel_components(kernel, o_cmp, d_cmp, tri_cmp, unmasked=False):
         (s * u_s >= 0)
         & (s * v_s >= 0)
         & (s * (u_s + v_s) <= s * det)
-        & (torch.abs(det) > DET_EPS)
+        & (torch.abs(det) > det_eps)
     )
     ok = (det != 0.0) if unmasked else valid
     inv_det = torch.where(ok, 1.0 / torch.where(ok, det, 1.0), 0.0)
@@ -128,25 +135,27 @@ def _split(vec):
     return tuple(vec[..., c] for c in range(3))
 
 
-def ray_triangle_mt(origin, direction, v0, v1, v2):
+def ray_triangle_mt(origin, direction, v0, v1, v2, det_eps: float = DET_EPS):
     """Two-sided Möller–Trumbore on (..., 3) vectors — thin wrapper over
     :func:`kernel_components`.  Returns ``(valid, t, u, v)``; t is +inf where
     invalid.  ``valid`` holds neither ``t > MIN_T`` nor the exclusions: those
     are the traversal's acceptance policy."""
     e1, e2 = v1 - v0, v2 - v0
     return kernel_components(
-        "mt", _split(origin), _split(direction), _split(v0) + _split(e1) + _split(e2)
+        "mt", _split(origin), _split(direction), _split(v0) + _split(e1) + _split(e2),
+        det_eps=det_eps,
     )
 
 
-def ray_triangle_watertight(origin, direction, v0, v1, v2):
+def ray_triangle_watertight(origin, direction, v0, v1, v2, det_eps: float = 0.0):
     """Watertight ray/triangle (Woop, Benthin & Wald 2013), two-sided, on
     (..., 3) vectors — thin wrapper over :func:`kernel_components`, with the
-    contract of :func:`ray_triangle_mt`."""
+    contract of :func:`ray_triangle_mt`.  ``det_eps=0`` accepts edge-on hits
+    that classic MT rejects; pass ``DET_EPS`` for parity studies."""
     e1, e2 = v1 - v0, v2 - v0
     return kernel_components(
         "watertight", _split(origin), _split(direction),
-        _split(v0) + _split(e1) + _split(e2),
+        _split(v0) + _split(e1) + _split(e2), det_eps=det_eps,
     )
 
 

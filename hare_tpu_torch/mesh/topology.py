@@ -371,9 +371,19 @@ class Topology:
         return len(self.planes)
 
     # ----------------------------------------------------------- device scene
-    def scene(self, device="cuda", pad_to: int = 128) -> Scene:
-        """Emit the padded device :class:`Scene` on ``device``."""
-        return build_scene([self], pad_to=pad_to, device=device)
+    def scene(
+        self,
+        dtype=np.float32,
+        pad_to: int = 128,
+        top_index: int = 0,
+        n_topologies: int = 1,
+        device="cuda",
+    ) -> Scene:
+        """Emit the padded device :class:`Scene` on ``device``.
+        ``top_index`` and ``n_topologies`` are accepted and ignored, as the
+        JAX ``Topology.scene`` ignores them; ``dtype`` is float32 only
+        (:func:`build_scene`)."""
+        return build_scene([self], dtype=dtype, pad_to=pad_to, device=device)
 
     # -------------------------------------------------- per-polygon queries
     # Host-side analogs of the reference Topology utility surface
@@ -494,7 +504,7 @@ def _ceil_to(n: int, m: int) -> int:
 
 
 def build_scene(
-    topologies: Sequence[Topology], pad_to: int = 128, device="cuda"
+    topologies: Sequence[Topology], dtype=np.float32, pad_to: int = 128, device="cuda"
 ) -> Scene:
     """Pack one or more topologies into a single padded device Scene.
 
@@ -508,7 +518,14 @@ def build_scene(
     the JAX ``tri_geom`` row's int32 lanes 9-15 are NOT carried as floats
     here — the same ids live in ``tri_meta`` (lanes 0-6), so ``tri_geom``
     is the (T, 9) geometry block alone.
+
+    ``dtype`` is the vertices' type, float32 only: every kernel reads f32
+    scenes, and the JAX package, which never enables x64, makes f32 arrays
+    for ``np.float64`` too.  Any other type raises ``ValueError``.
     """
+    if not (dtype is torch.float32
+            or (not isinstance(dtype, torch.dtype) and np.dtype(dtype) == np.float32)):
+        raise ValueError(f"dtype {dtype!r}: the port's scenes are float32 (its kernels read f32)")
     v_parts, tv_parts, tp_parts, tt_parts, pp_parts = [], [], [], [], []
     v_off = p_off = 0
     for ti, top in enumerate(topologies):

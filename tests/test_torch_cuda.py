@@ -314,6 +314,31 @@ def test_grid_shoot_exclusion_and_topology_filter(dev):
                          grid_shoot_plain(rays, sp.struct, top_index=top_index))
 
 
+@pytest.mark.parametrize("kernel", ["watertight", "mt"])
+def test_grid_shoot_per_topology_grid(dev, kernel):
+    """``SpatialPartition.shoot(rays, top_index)`` builds each per-topology
+    grid on the card once and caches it; K1 on it is bit-equal to its plain
+    version and gives the combined grid's filtered answer; an out-of-range
+    topology misses on every ray."""
+    tops = [th.Topology.build(shapes.shoebox()),
+            th.Topology.build(shapes.icosphere(2, radius=0.8, center=(2.0, 2.5, 1.5)))]
+    sp = th.SpatialPartition(tops, domain=8, kernel=kernel, device=dev)
+    rays = rays_of(np.random.default_rng(6), 0.5, 2.5, 4096, dev)
+    for top_index in (0, 1):
+        hits = sp.shoot(rays, top_index)
+        grid = sp._top_grids[top_index]
+        assert grid.cell_meta.is_cuda and grid.win_geom.is_cuda
+        mine = grid_shoot(rays, grid, kernel)
+        assert_bit_equal(mine, grid_shoot_plain(rays, grid, kernel))
+        combined = grid_shoot(rays, sp.struct, kernel, top_index=top_index)
+        assert torch.equal(mine[1], combined[1]) and torch.equal(hits.tri_id, mine[1])
+        torch.testing.assert_close(mine[0], combined[0], rtol=RTOL, atol=0.0)
+        assert bool(hits.hit.all()) if top_index == 0 else 0 < int(hits.hit.sum()) < 4096
+        sp.shoot(rays, top_index)
+        assert sp._top_grids[top_index] is grid
+    assert not bool(sp.shoot(rays, 5).hit.any()) and sp._top_grids[5] is None
+
+
 def trimmed(sc, rows):
     """The scene's first ``rows`` triangle rows, padding and all: n_tris
     need not be a multiple of B1's tile."""

@@ -5,6 +5,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -270,3 +271,117 @@ def test_api_parity():
     for src in port_root.rglob("*.py"):
         port_defs |= _defs(src, nested=True)
     assert set(UNPORTED) <= jax_defs and not set(UNPORTED) & port_defs
+
+
+_TPU_KNOB = ("a TPU traversal knob (candidate buffers, rounds, straggler tiers, push order); "
+             "the port's kernels, one thread or lane group a ray, have none, and "
+             "SpatialPartition raises on it (test_tpu_knobs_raise)")
+_TPU_TABLE = ("a TPU table field: the port keeps the same tables repacked for one thread a "
+              "candidate (win_geom and win_ids, typed node tensors), built from these fields "
+              "by from_numpy")
+# Parameters of the JAX package's public functions and methods, and fields of
+# its classes, that the port's counterpart lacks: ``function.parameter``,
+# ``Class.method.parameter`` or ``Class.field``, each under its reason.
+PARAMS_UNPORTED = {
+    "an explicit torch.Generator (``generator``) takes the place of a jax.random key": {
+        "cosine_lobe.key", "trace_rays.key", "uniform_sphere.key", "triangle_points.key",
+        "polygon_points.key", "scene_surface_points.key"},
+    "a torch.distributed process group (``group``) takes the place of the device mesh "
+    "and its axis": {
+        "sharded_histogram.mesh", "sharded_histogram.axis", "make_train_step.mesh",
+        "make_train_step.axis"},
+    _TPU_KNOB: {
+        "shoot_grid.cap", "shoot_grid.soft", "shoot_grid.tier", "shoot_grid.cap_s",
+        "shoot_tree.cap", "shoot_tree.march", "shoot_tree.ordered",
+        "shoot_kdtree_ropes.cap", "shoot_kdtree_ropes.march",
+        "HareConfig.cap", "HareConfig.march", "HareConfig.soft", "HareConfig.tier",
+        "HareConfig.cap_s"},
+    "passes the TPU knobs on to shoot_tree": {"shoot_octree.**kw", "shoot_kdtree.**kw"},
+    "counts the TPU walk's collect-then-test rounds and candidate rows, which K1 does not "
+    "have; voxel.grid_work counts K1's cells and triangle slots": {"shoot_grid.with_stats"},
+    _TPU_TABLE: {
+        "VoxelGrid.win_data", "TreeTables.win_data", "TreeTables.node_rows",
+        "KDRopes.win_data", "KDRopes.node_rows"},
+    "sizes a TPU candidate buffer, which the port's walks do not have": {
+        "TreeTables.row_width", "TreeTables.max_node_need", "KDRopes.max_leaf_wins"},
+    "the TPU test phase's candidate buffer and carried state; the port's test_windows "
+    "takes the window rows to test and returns the nearest hit": {
+        "test_windows.win_data", "test_windows.buf", "test_windows.active",
+        "test_windows.best_t", "test_windows.best_tri"},
+}
+# Parameters the port has with fewer values than the JAX package.
+VALUES_UNPORTED = {
+    "``dtype`` is float32 only and any other raises ValueError: every kernel reads f32 "
+    "scenes, and the JAX package, which never enables x64, makes f32 arrays for "
+    "``np.float64`` too": {"build_scene.dtype", "Topology.scene.dtype"},
+}
+
+
+def _signatures(path):
+    """``{name: FunctionDef}`` of a module's public functions (``fn``), its
+    classes' public methods (``Class.fn``) and its classes (``Class``)."""
+    out = {}
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.FunctionDef) and not node.name.startswith("_"):
+            out[node.name] = node
+        elif isinstance(node, ast.ClassDef):
+            out[node.name] = node
+            out.update({f"{node.name}.{b.name}": b for b in node.body
+                        if isinstance(b, ast.FunctionDef) and not b.name.startswith("_")})
+    return out
+
+
+def _params(node):
+    """(parameter names in order, ``{name: default source}``) of a function,
+    or of a class: its annotated fields, its constructor's parameters.  A
+    default names its dtype without the module (``jnp.float32`` and
+    ``torch.float32`` are one default)."""
+    if isinstance(node, ast.ClassDef):
+        return [b.target.id for b in node.body if isinstance(b, ast.AnnAssign)], {}
+    a = node.args
+    pos = a.posonlyargs + a.args
+    names = [x.arg for x in pos + a.kwonlyargs]
+    names += [f"*{x.arg}" for x in (a.vararg,) if x] + [f"**{x.arg}" for x in (a.kwarg,) if x]
+    given = list(zip(pos[len(pos) - len(a.defaults):], a.defaults)) + [
+        (x, d) for x, d in zip(a.kwonlyargs, a.kw_defaults) if d is not None]
+    return names, {x.arg: d.attr if isinstance(d, ast.Attribute) else ast.unparse(d)
+                   for x, d in given}
+
+
+def test_parameter_parity():
+    """The port does what the JAX package does parameter by parameter: every
+    parameter of every public JAX function and method, and every field of
+    every JAX class, exists in the port's counterpart (read from the
+    sources, so no JAX is imported), with JAX's default and in JAX's order,
+    but the PARAMS_UNPORTED entries, each under its reason; the allow-list
+    holds nothing the port has.  VALUES_UNPORTED's ``dtype`` raises beyond
+    float32."""
+    jax_root, port_root = ROOT / "hare_tpu", ROOT / "hare_tpu_torch"
+    allowed = {name: why for why, names in PARAMS_UNPORTED.items() for name in names}
+    assert all(len(why) > 20 for why in list(PARAMS_UNPORTED) + list(VALUES_UNPORTED))
+    missing, wrong = set(), []
+    for src in sorted(jax_root.rglob("*.py")):
+        twin = port_root / src.relative_to(jax_root)
+        if not twin.exists():
+            continue  # test_api_parity's
+        jdefs, pdefs = _signatures(src), _signatures(twin)
+        for name, node in jdefs.items():
+            if name not in pdefs:
+                continue  # test_api_parity's
+            (jn, jd), (pn, pd) = _params(node), _params(pdefs[name])
+            missing |= {f"{name}.{p}" for p in jn if p not in pn}
+            shared = [p for p in jn if p in pn]
+            if shared != [p for p in pn if p in jn]:
+                wrong.append(f"{name}: order {shared} against {pn}")
+            wrong += [f"{name}.{p}: default {pd.get(p)} against JAX's {jd[p]}"
+                      for p in shared if p in jd and pd.get(p) != jd[p]]
+    assert not wrong, wrong
+    assert missing == set(allowed), (sorted(missing - set(allowed)),
+                                     sorted(set(allowed) - missing))
+
+    top = th.Topology.build(shapes.shoebox(4, 5, 3))
+    for call in (lambda dtype: th.build_scene([top], dtype=dtype, device=CPU),
+                 lambda dtype: top.scene(dtype=dtype, device=CPU)):
+        assert call(np.float32).vertices.dtype == torch.float32
+        with pytest.raises(ValueError, match="float32"):
+            call(np.float64)
