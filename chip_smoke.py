@@ -375,10 +375,11 @@ def probe_phase(dev):
         return [torch.from_numpy(a).to(dev) for a in arrays]
 
     # P1: the probe's sweep, counted; then each table against the plain sum.
-    pp.column_sum.launches = 0
-    for mb in pp.VMEM_SWEEP_MB:
-        check(pp.probe_vmem(mb, dev) is True, f"probe_vmem({mb}) failed")
-    p1_launches = pp.column_sum.launches
+    sweep, launches = counted((pp.column_sum,), lambda: [pp.probe_vmem(mb, dev)
+                                                         for mb in pp.VMEM_SWEEP_MB])
+    for mb, ok in zip(pp.VMEM_SWEEP_MB, sweep):
+        check(ok is True, f"probe_vmem({mb}) failed")
+    p1_launches = launches["column_sum"]
     check(p1_launches > 0, "probe_vmem launched no column_sum kernel")
     by_mb = {}
     for mb in pp.VMEM_SWEEP_MB:
@@ -429,9 +430,8 @@ def probe_phase(dev):
         ("gather_sum_i32", pp.probe_meta_gather, pp.meta_gather_inputs,
          "benchmarks/pallas_probe.py:96"),
     ):
-        pp.gather_sum.launches = 0
-        call_ms, _ = probe(device=dev)
-        launches = pp.gather_sum.launches
+        (call_ms, _), got = counted((pp.gather_sum,), lambda: probe(device=dev))
+        launches = got["gather_sum"]
         check(launches > 0, f"{probe.__name__} launched no gather_sum kernel")
         tab, idx = on_card(inputs())
         r = gather_phase(f"{'P2' if name.endswith('f32') else 'P3'} {probe.__name__}",
@@ -441,9 +441,9 @@ def probe_phase(dev):
                             replaces=replaces, launches=launches, **r))
 
     # P4: the r4 probe's three calls, counted together.
-    pp.gather_sum.launches = 0
-    call_ms = [r4.probe(*call, device=dev)[0] for call in r4.CALLS]
-    launches = pp.gather_sum.launches
+    call_ms, got = counted((pp.gather_sum,),
+                           lambda: [r4.probe(*call, device=dev)[0] for call in r4.CALLS])
+    launches = got["gather_sum"]
     check(launches > 0, "the r4 probe launched no gather_sum kernel")
     calls = []
     for (A, B, dtype, iters, label), ms in zip(r4.CALLS, call_ms):
@@ -585,14 +585,43 @@ def trace_step(th, sp, rays, absorption, n_bounces, n_bins, scattering=None, see
     return type(res)(*(x.detach() for x in res)), hist.detach(), grads
 
 
+# The counters of each wrapper's launches: launches.<C entry point>, which
+# kernels.build.launch keeps, or, for the histogram backward's two modes,
+# which share hare_histogram_bwd, the mode counted beside its launch.
+LAUNCH_COUNTERS = {
+    "grid_shoot": ("launches.hare_grid_shoot",), "brute_shoot": ("launches.hare_brute_shoot",),
+    "tree_shoot": ("launches.hare_tree_shoot",), "ropes_shoot": ("launches.hare_ropes_shoot",),
+    "finalize_hits": ("launches.hare_finalize_hits",),
+    "finalize_hits_bwd": ("launches.hare_finalize_hits_bwd",),
+    "bounce_kernel": ("launches.hare_bounce_step",),
+    "bounce_bwd_kernel": ("launches.hare_bounce_step_bwd",),
+    "energy_histogram": ("launches.hare_energy_histogram",),
+    "hard_histogram_bwd": ("histogram_bwd.hard",), "soft_histogram_bwd": ("histogram_bwd.soft",),
+    "scatter_add_ordered": ("launches.hare_scatter_add_ordered",),
+    "column_sum": ("launches.hare_column_sum",),
+    "gather_sum": ("launches.hare_gather_sum_f32", "launches.hare_gather_sum_i32",
+                   "launches.hare_gather_sum_i32_f32"),
+}
+
+
 def counted(counters, fn):
-    """``fn()`` with every counter set to 0 just before and read just after:
-    (its result, {wrapper name: launches})."""
-    for c in counters:
-        c.launches = 0
+    """``fn()`` with the program's counters (``utils.tracing``) reset before
+    and read after: (its result, {wrapper name: its launches in the
+    call}).  The histogram backward's hard and soft launches have to add up
+    to the launches of its entry point."""
+    from hare_tpu_torch.utils import tracing
+
+    tracing.reset()
     out = fn()
     torch.cuda.synchronize()
-    return out, {c.__name__: c.launches for c in counters}
+    got = tracing.snapshot().counters
+    tracing.reset()
+    modes = got.get("histogram_bwd.hard", 0) + got.get("histogram_bwd.soft", 0)
+    check(modes == got.get("launches.hare_histogram_bwd", 0),
+          f"histogram backward: {modes} launches by mode, "
+          f"{got.get('launches.hare_histogram_bwd', 0)} of its entry point")
+    return out, {c.__name__: sum(got.get(k, 0) for k in LAUNCH_COUNTERS[c.__name__])
+                 for c in counters}
 
 
 def step_checks(label, res, hist, grads, closed):
@@ -1938,15 +1967,8 @@ def gradients_phase(dev, sp, rays, batches, absorption):
     counters = (voxel.grid_shoot, common.finalize_hits, th.energy_histogram,
                 common.finalize_hits_bwd, scatter.scatter_add_ordered, bounce.soft_histogram_bwd,
                 bounce.hard_histogram_bwd, bounce.bounce_kernel, bounce.bounce_bwd_kernel)
-    names = ("grid_shoot", "finalize_hits", "energy_histogram", "finalize_hits_bwd",
-             "scatter_add_ordered", "soft_histogram_bwd", "hard_histogram_bwd", "bounce_kernel",
-             "bounce_bwd_kernel")
     vstep = repeat_check.vertex_step(th, sp, rays, absorption, N_BOUNCES)
-    for fn in counters:
-        fn.launches = 0
-    hist, grad = vstep()
-    torch.cuda.synchronize()
-    launches = dict(zip(names, (fn.launches for fn in counters)))
+    (hist, grad), launches = counted(counters, vstep)
     check(launches["finalize_hits_bwd"] == N_BOUNCES and launches["scatter_add_ordered"] >= N_BOUNCES
           and launches["energy_histogram"] == 1 and launches["soft_histogram_bwd"] == 1
           and launches["hard_histogram_bwd"] == 0 and launches["grid_shoot"] == N_BOUNCES
@@ -2016,7 +2038,6 @@ def gradients_phase(dev, sp, rays, batches, absorption):
 
     soft_step = repeat_check.vertex_step(th, sp4, c4.rays, c4.absorption, c4.n_bounces, c4.n_bins)
     counters4 = counters + (tree.tree_shoot,)
-    names4 = names + ("tree_shoot",)
     nb4 = c4.n_bounces
     # Launches a step.  The hard loss gives time no cotangent, yet autograd
     # runs A3 (on zero cotangents) and its scatter all the same; the
@@ -2028,11 +2049,7 @@ def gradients_phase(dev, sp, rays, batches, absorption):
                 energy_histogram=1, hard_histogram_bwd=0, bounce_kernel=nb4)
     for label, fn, want_zero in (("(a) hard histogram sum", hard_step, True),
                                  ("(b) soft, first moment", soft_step, False)):
-        for f in counters4:
-            f.launches = 0
-        h, g = fn()
-        torch.cuda.synchronize()
-        launches4 = dict(zip(names4, (f.launches for f in counters4)))
+        (h, g), launches4 = counted(counters4, fn)
         g = torch.zeros_like(sp4.scene.vertices) if g is None else g
         check(bool(torch.isfinite(g).all()), f"config 4 {label}: gradient not finite")
         check(bool((g == 0).all()) if want_zero else float(g.abs().max()) > 0,
@@ -3180,14 +3197,15 @@ def main():
         hist = th.energy_histogram(res, N_BINS, BIN_DT)
         return res, hist
 
-    for fn in counters:
-        fn.launches = 0
+    def counted_step(a):
+        res, hist = step(a)
+        loss = hist.sum()
+        loss.backward()
+        return res, hist, loss
+
     a = absorption.clone().requires_grad_()
-    res, hist = step(a)
-    loss = hist.sum()
-    loss.backward()
-    torch.cuda.synchronize()
-    launches = [fn.launches for fn in counters]
+    (res, hist, loss), by_name = counted(counters, lambda: counted_step(a))
+    launches = [by_name[fn.__name__] for fn in counters]
     check(all(n > 0 for n in launches), f"a kernel was not launched: {launches}")
     check(launches[4] == launches[5] == N_BOUNCES, f"K4 launched {launches[4:]} times, not "
           f"{N_BOUNCES} forward and {N_BOUNCES} backward")

@@ -37,6 +37,7 @@ from .common import (
     finalize_hits,
     hit_key,
     key_to_hit,
+    traversal_span,
 )
 
 __all__ = ["brute_shoot", "brute_shoot_args", "brute_shoot_plain", "shoot_brute"]
@@ -85,12 +86,8 @@ def brute_shoot(
     best_t = torch.empty(n, dtype=torch.float32, device=o.device)
     best_tri = torch.empty(n, dtype=torch.int32, device=o.device)
     args = brute_shoot_args(scene, rays, best_t, best_tri, kernel, min_t, top_index)
-    brute_shoot.launches += 1
     build.launch("hare_brute_shoot", *args)
     return best_t, best_tri
-
-
-brute_shoot.launches = 0
 
 
 def brute_shoot_args(
@@ -158,5 +155,6 @@ def shoot_brute(
     top_index: Optional[int] = None,
 ) -> HitRecord:
     """Nearest-hit query over all triangles: B1 then K2 (``finalize_hits``)."""
-    best_t, best_tri = brute_shoot(scene, rays, kernel, min_t, tri_tile, top_index)
+    with traversal_span("brute", rays):
+        best_t, best_tri = brute_shoot(scene, rays, kernel, min_t, tri_tile, top_index)
     return finalize_hits(scene, rays, best_t, best_tri, kernel)

@@ -27,6 +27,7 @@ from ..geom.intersect import kernel_components
 from ..geom.primitives import NO_POLY, HitRecord, Ray
 from ..kernels import build
 from ..mesh.scene import Scene
+from ..utils.tracing import count, current_id, span
 
 __all__ = [
     "NO_HIT_KEY",
@@ -346,6 +347,14 @@ def ray_counter(device: torch.device) -> torch.Tensor:
     return counter
 
 
+def traversal_span(accel: str, rays: Ray):
+    """The span ``hare.traverse`` around a traversal wrapper's call (its
+    flag read included), counting the rays handed to it under
+    ``rays.shot``."""
+    count("rays.shot", rays.origin.shape[0])
+    return span("hare.traverse", accel=accel)
+
+
 def finalize_hits_plain(
     scene: Scene,
     rays: Ray,
@@ -420,7 +429,6 @@ def _finalize_kernel(
             or scene.tri_meta.shape != (t_rows, 8)):
         raise ValueError("finalize_hits: ray, winner or scene table shapes disagree")
     out = empty_hit_record(n, o.device)
-    finalize_hits.launches += 1
     build.launch(
         "hare_finalize_hits",
         _contig(scene.tri_geom, torch.float32), _contig(scene.tri_meta, torch.int32),
@@ -527,7 +535,6 @@ def finalize_hits_bwd(
     d_o, d_d = torch.empty(n, 3, **f), torch.empty(n, 3, **f)
     keys = torch.empty(3 * n, dtype=torch.int32, device=o.device)
     d_corner = torch.empty(3 * n, 3, **f)
-    finalize_hits_bwd.launches += 1
     build.launch(
         "hare_finalize_hits_bwd", _contig(vertices, torch.float32),
         _contig(tri_meta, torch.int32), _contig(best_tri, torch.int32), _contig(t, torch.float32),
@@ -536,9 +543,6 @@ def finalize_hits_bwd(
         keys, d_corner,
     )
     return d_o, d_d, keys, d_corner
-
-
-finalize_hits_bwd.launches = 0
 
 
 class _FinalizeHits(torch.autograd.Function):
@@ -557,20 +561,21 @@ class _FinalizeHits(torch.autograd.Function):
         ctx.set_materialize_grads(False)
         ctx.mark_non_differentiable(hr.hit, hr.poly_id, hr.tri_id, hr.edge_nbr)
         ctx.save_for_backward(vertices, scene.tri_meta, best_tri, hr.t, hr.hit, o, d)
-        ctx.kernel = kernel
+        ctx.kernel, ctx.trace_id = kernel, current_id()
         return tuple(hr)
 
     @staticmethod
     def backward(ctx, _hit, g_t, g_u, g_v, g_point, _poly, _tri, g_normal, _nbr):
         from .scatter import scatter_add_ordered  # scatter imports this module
 
-        vertices, tri_meta, best_tri, t, hit, o, d = ctx.saved_tensors
-        d_o, d_d, keys, d_corner = finalize_hits_bwd(
-            vertices, tri_meta, best_tri, t, hit, o, d, (g_t, g_u, g_v, g_point, g_normal),
-            ctx.kernel)
-        d_v = None
-        if ctx.needs_input_grad[0]:
-            d_v = scatter_add_ordered(keys, d_corner, vertices.shape[0])
+        with span("hare.backward.finalize", id=ctx.trace_id):
+            vertices, tri_meta, best_tri, t, hit, o, d = ctx.saved_tensors
+            d_o, d_d, keys, d_corner = finalize_hits_bwd(
+                vertices, tri_meta, best_tri, t, hit, o, d, (g_t, g_u, g_v, g_point, g_normal),
+                ctx.kernel)
+            d_v = None
+            if ctx.needs_input_grad[0]:
+                d_v = scatter_add_ordered(keys, d_corner, vertices.shape[0])
         return d_v, d_o, d_d, None, None, None, None, None
 
 
@@ -594,13 +599,11 @@ def finalize_hits(
     """
     check_kernel(kernel)
     o, d, v = rays.origin, rays.direction, scene.vertices
-    if torch.is_grad_enabled() and (v.requires_grad or o.requires_grad or d.requires_grad):
-        return HitRecord(*_FinalizeHits.apply(v, o, d, scene, rays.exclude_poly, best_t,
-                                              best_tri, kernel))
-    return _finalize_forward(scene, rays, best_t, best_tri, kernel)
-
-
-finalize_hits.launches = 0
+    with span("hare.finalize"):
+        if torch.is_grad_enabled() and (v.requires_grad or o.requires_grad or d.requires_grad):
+            return HitRecord(*_FinalizeHits.apply(v, o, d, scene, rays.exclude_poly, best_t,
+                                                  best_tri, kernel))
+        return _finalize_forward(scene, rays, best_t, best_tri, kernel)
 
 
 def _contig(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

@@ -28,6 +28,7 @@ import numpy as np
 from ..geom.intersect import MIN_T
 from ..mesh.scene import Scene
 from ..mesh.topology import Topology
+from ..utils.tracing import span
 from .octree import _extract, auto_depth
 from .tree import TreeTables, build_tree_tables, collapse_levels, shoot_tree
 
@@ -178,8 +179,11 @@ def build_kdtree(
 ) -> KDTree:
     """Build the KD-tree on the host (:func:`build_kdtree_tables`) and put
     it on ``device``."""
-    tables = build_kdtree_tables(source, max_depth, max_tris_per_node, pad, levels, split)
-    return TreeTables.from_numpy(**tables, device=device)
+    with span("hare.setup.structure", accel="kdtree"):
+        with span("hare.setup.structure.tables"):
+            tables = build_kdtree_tables(source, max_depth, max_tris_per_node, pad, levels, split)
+        with span("hare.setup.structure.upload"):
+            return TreeTables.from_numpy(**tables, device=device)
 
 
 def shoot_kdtree(

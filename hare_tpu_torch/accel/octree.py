@@ -22,6 +22,7 @@ from ..geom.intersect import MIN_T
 from ..geom.tribox import tri_box_overlap
 from ..mesh.scene import PAD_POLY, Scene
 from ..mesh.topology import Topology
+from ..utils.tracing import span
 from .tree import TreeTables, build_tree_tables, shoot_tree
 
 __all__ = ["Octree", "auto_depth", "build_octree", "build_octree_tables", "shoot_octree"]
@@ -133,8 +134,11 @@ def build_octree(
 ) -> Octree:
     """Build the octree on the host (:func:`build_octree_tables`) and put it
     on ``device``."""
-    tables = build_octree_tables(source, max_depth, max_tris_per_node, pad)
-    return TreeTables.from_numpy(**tables, device=device)
+    with span("hare.setup.structure", accel="octree"):
+        with span("hare.setup.structure.tables"):
+            tables = build_octree_tables(source, max_depth, max_tris_per_node, pad)
+        with span("hare.setup.structure.upload"):
+            return TreeTables.from_numpy(**tables, device=device)
 
 
 def shoot_octree(

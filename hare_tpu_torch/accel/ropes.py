@@ -50,6 +50,7 @@ from ..geom.primitives import Ray
 from ..kernels import build
 from ..mesh.scene import Scene
 from ..mesh.topology import Topology
+from ..utils.tracing import span, sync
 from .common import (
     NO_HIT_KEY,
     check_device,
@@ -63,6 +64,7 @@ from .common import (
     ray_counter,
     repack_windows,
     test_runs,
+    traversal_span,
 )
 from .kdtree import SPLITS, kd_split
 from .octree import _extract, auto_depth
@@ -329,8 +331,12 @@ def build_kdtree_ropes(
 ) -> KDRopes:
     """Build the rope tree on the host (:func:`build_kdtree_ropes_tables`)
     and put it on ``device``."""
-    tables = build_kdtree_ropes_tables(source, max_depth, max_tris_per_node, pad, win, split)
-    return KDRopes.from_numpy(**tables, device=device)
+    with span("hare.setup.structure", accel="kdtree_ropes"):
+        with span("hare.setup.structure.tables"):
+            tables = build_kdtree_ropes_tables(source, max_depth, max_tris_per_node, pad, win,
+                                               split)
+        with span("hare.setup.structure.upload"):
+            return KDRopes.from_numpy(**tables, device=device)
 
 
 def _step_overflow(tree: KDRopes) -> RuntimeError:
@@ -369,14 +375,12 @@ def ropes_shoot(
     steps = torch.empty(n, dtype=torch.int32, device=dev) if with_stats else None
     err = torch.zeros(1, dtype=torch.int32, device=dev)
     args = ropes_shoot_args(rays, tree, best_t, best_tri, steps, err, kernel, min_t, top_index)
-    ropes_shoot.launches += 1
     build.launch("hare_ropes_shoot", *args, ray_counter(dev))
-    if int(err.item()):
+    with sync("ropes_flag"):
+        overflow = int(err.item())
+    if overflow:
         raise _step_overflow(tree)
     return (best_t, best_tri, steps) if with_stats else (best_t, best_tri)
-
-
-ropes_shoot.launches = 0
 
 
 def ropes_shoot_args(
@@ -509,6 +513,7 @@ def shoot_kdtree_ropes(
     """Nearest-hit query via the rope walk: B3 then K2 (``finalize_hits``).
     ``with_stats=True`` returns ``(HitRecord, steps)``: each ray's node
     steps, the port's own count (not the JAX lockstep iterations)."""
-    out = ropes_shoot(rays, tree, kernel, min_t, top_index, with_stats)
+    with traversal_span("ropes", rays):
+        out = ropes_shoot(rays, tree, kernel, min_t, top_index, with_stats)
     hits = finalize_hits(scene, rays, out[0], out[1], kernel)
     return (hits, out[2]) if with_stats else hits

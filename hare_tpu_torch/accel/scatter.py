@@ -28,6 +28,7 @@ from typing import Dict, Tuple
 import torch
 
 from ..kernels import build
+from ..utils.tracing import spanned
 from .common import check_device
 
 __all__ = ["CHUNK", "gather_rows", "scatter_add_ordered", "scatter_add_plain"]
@@ -107,6 +108,7 @@ def _scratch(device: torch.device, words: int) -> torch.Tensor:
     return buf
 
 
+@spanned("hare.backward.scatter")
 def scatter_add_ordered(keys: torch.Tensor, values: torch.Tensor, n_keys: int) -> torch.Tensor:
     """``out[k] = sum of values[i] over keys[i] == k`` in the fixed order
     above: ``(n_keys,)`` or ``(n_keys, 3)`` f32 from ``keys`` (M,) int32 and
@@ -129,13 +131,9 @@ def scatter_add_ordered(keys: torch.Tensor, values: torch.Tensor, n_keys: int) -
     buf = _scratch(values.device, scratch_words(m, cols, n_keys))
     out = torch.empty((n_keys,) + tuple(values.shape[1:]), dtype=torch.float32,
                       device=values.device)
-    scatter_add_ordered.launches += 1
     build.launch("hare_scatter_add_ordered", keys.contiguous(), values.contiguous(), m, cols,
                  n_keys, CHUNK, buf, buf.numel(), out)
     return out
-
-
-scatter_add_ordered.launches = 0
 
 
 class _GatherRows(torch.autograd.Function):

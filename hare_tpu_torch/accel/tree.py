@@ -48,6 +48,7 @@ from ..geom.intersect import MIN_T
 from ..geom.primitives import Ray
 from ..kernels import build
 from ..mesh.scene import Scene
+from ..utils.tracing import sync
 from .common import (
     NO_HIT_KEY,
     check_device,
@@ -61,6 +62,7 @@ from .common import (
     ray_counter,
     repack_windows,
     test_runs,
+    traversal_span,
 )
 
 __all__ = [
@@ -304,14 +306,12 @@ def tree_shoot(
     pops = torch.empty(n, dtype=torch.int32, device=dev) if with_stats else None
     err = torch.zeros(1, dtype=torch.int32, device=dev)
     args = tree_shoot_args(rays, tree, best_t, best_tri, pops, err, kernel, min_t, top_index)
-    tree_shoot.launches += 1
     build.launch("hare_tree_shoot", *args, ray_counter(dev))
-    if int(err.item()):
+    with sync("tree_flag"):
+        overflow = int(err.item())
+    if overflow:
         raise _stack_overflow(tree)
     return (best_t, best_tri, pops) if with_stats else (best_t, best_tri)
-
-
-tree_shoot.launches = 0
 
 
 def tree_shoot_args(
@@ -443,6 +443,7 @@ def shoot_tree(
     """Nearest-hit query via the tree: B2 then K2 (``finalize_hits``).
     ``with_stats=True`` returns ``(HitRecord, pops)``: each ray's node pops,
     the port's own count (not the JAX lockstep iterations)."""
-    out = tree_shoot(rays, tree, kernel, min_t, top_index, with_stats)
+    with traversal_span("tree", rays):
+        out = tree_shoot(rays, tree, kernel, min_t, top_index, with_stats)
     hits = finalize_hits(scene, rays, out[0], out[1], kernel)
     return (hits, out[2]) if with_stats else hits

@@ -34,6 +34,7 @@ from ..geom.tribox import tri_box_overlap
 from ..kernels import build
 from ..mesh.scene import Scene
 from ..mesh.topology import Topology
+from ..utils.tracing import span
 from .common import (
     NO_HIT_KEY,
     check_device,
@@ -46,6 +47,7 @@ from .common import (
     ray_counter,
     repack_windows,
     test_runs,
+    traversal_span,
 )
 from .octree import _extract
 
@@ -390,11 +392,14 @@ def build_voxel_grid(
 ) -> VoxelGrid:
     """Build the grid on the host (:func:`build_grid_tables`) and put it on
     ``device``."""
-    tables = build_grid_tables(
-        source, domain=domain, max_doublings=max_doublings,
-        avg_polys=avg_polys, pad=pad, win=win, only_top=only_top,
-    )
-    return VoxelGrid.from_numpy(**tables, device=device)
+    with span("hare.setup.structure", accel="grid"):
+        with span("hare.setup.structure.tables"):
+            tables = build_grid_tables(
+                source, domain=domain, max_doublings=max_doublings,
+                avg_polys=avg_polys, pad=pad, win=win, only_top=only_top,
+            )
+        with span("hare.setup.structure.upload"):
+            return VoxelGrid.from_numpy(**tables, device=device)
 
 
 def grid_shoot(
@@ -421,12 +426,8 @@ def grid_shoot(
     best_t = torch.empty(n, dtype=torch.float32, device=o.device)
     best_tri = torch.empty(n, dtype=torch.int32, device=o.device)
     args = grid_shoot_args(rays, grid, best_t, best_tri, kernel, min_t, top_index)
-    grid_shoot.launches += 1
     build.launch("hare_grid_shoot", *args, ray_counter(o.device))
     return best_t, best_tri
-
-
-grid_shoot.launches = 0
 
 
 def grid_shoot_args(
@@ -609,5 +610,6 @@ def shoot_grid(
     top_index: Optional[int] = None,
 ) -> HitRecord:
     """Nearest-hit query through the grid: K1 then K2 (``finalize_hits``)."""
-    best_t, best_tri = grid_shoot(rays, grid, kernel, min_t, top_index)
+    with traversal_span("grid", rays):
+        best_t, best_tri = grid_shoot(rays, grid, kernel, min_t, top_index)
     return finalize_hits(scene, rays, best_t, best_tri, kernel)

@@ -101,12 +101,8 @@ def column_sum(x: torch.Tensor) -> torch.Tensor:
     bands = max(1, min(COLUMN_BANDS, rows // 64))
     partial = torch.empty(bands, cols, dtype=torch.float32, device=x.device)
     out = torch.empty(1, cols, dtype=torch.float32, device=x.device)
-    column_sum.launches += 1
     build.launch("hare_column_sum", x, rows, cols, bands, partial, out)
     return out
-
-
-column_sum.launches = 0
 
 
 def column_sum_plain(x: torch.Tensor) -> torch.Tensor:
@@ -153,12 +149,8 @@ def gather_sum(
     # The row sums' accumulators: float32, or int32 holding uint32 that wrap.
     sums = torch.empty(tab.shape[0], dtype=out_dtype, device=tab.device)
     out = torch.empty(idx.shape[0], dtype=out_dtype, device=tab.device)
-    gather_sum.launches += 1
     build.launch(entry, tab, tab.shape[0], tab.shape[1], idx, idx.shape[0], iters, sums, out)
     return out
-
-
-gather_sum.launches = 0
 
 
 def gather_sum_plain(

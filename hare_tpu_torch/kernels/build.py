@@ -18,6 +18,12 @@ every kernel rounds each operation as its plain version does.
 The build runs at first use (a few seconds), and again whenever the hash of
 the sources and flags changes.  Nothing here runs at import time, so the
 package imports on machines with no CUDA toolkit.
+
+Every launch goes through :func:`launch`, which counts it under
+``launches.<C entry point>`` (``utils.tracing``); ``hare_scatter_plan``,
+which runs on the host alone, counts under ``calls.hare_scatter_plan``.  A
+build counts under ``kernels.builds`` in the span ``hare.kernels.build``,
+the library's load in ``hare.kernels.load``.
 """
 
 from __future__ import annotations
@@ -32,6 +38,8 @@ import threading
 from pathlib import Path
 
 import torch
+
+from ..utils.tracing import count, counters, span
 
 __all__ = ["NVCC_FLAGS", "library", "launch"]
 
@@ -65,6 +73,11 @@ _SIGNATURES = {
     "hare_gather_sum_i32": [_P, _LL, _I, _P, _I, _I, _P, _P, _P],
     "hare_gather_sum_i32_f32": [_P, _LL, _I, _P, _I, _I, _P, _P, _P],
 }
+# Entry points that launch nothing: they compute on the host.
+_HOST_ONLY = ("hare_scatter_plan",)
+# The counter each entry point's calls count under.
+_COUNTER = {name: ("calls." if name in _HOST_ONLY else "launches.") + name
+            for name in _SIGNATURES}
 
 _lock = threading.Lock()
 _lib = None
@@ -93,28 +106,30 @@ def _build() -> Path:
     out = BUILD_DIR / f"libhare_kernels_{h.hexdigest()[:16]}.so"
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
-        objs, procs = [], []
-        for src in sorted(CSRC.glob("*.cu")):
-            obj = os.path.join(tmpdir, src.stem + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
-            objs.append(obj)
-            procs.append((cmd, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
-        # Wait for every compile before raising, so none outlives the build.
-        done = [(cmd, proc.communicate()[1], proc.returncode) for cmd, proc in procs]
-        for cmd, err, rc in done:
-            if rc != 0:
-                raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{err}")
-        tmp = os.path.join(tmpdir, "lib.so")
-        cmd = [nvcc, "-shared", "-o", tmp, *objs]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}")
-        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    with span("hare.kernels.build"):
+        count("kernels.builds")
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+            objs, procs = [], []
+            for src in sorted(CSRC.glob("*.cu")):
+                obj = os.path.join(tmpdir, src.stem + ".o")
+                cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                objs.append(obj)
+                procs.append((cmd, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+            # Wait for every compile before raising, so none outlives the build.
+            done = [(cmd, proc.communicate()[1], proc.returncode) for cmd, proc in procs]
+            for cmd, err, rc in done:
+                if rc != 0:
+                    raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{err}")
+            tmp = os.path.join(tmpdir, "lib.so")
+            cmd = [nvcc, "-shared", "-o", tmp, *objs]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}")
+            os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     return out
 
 
@@ -128,22 +143,26 @@ def library() -> ctypes.CDLL:
         if _lib is None:
             if not torch.cuda.is_available():
                 raise RuntimeError("the CUDA kernels need a CUDA device")
-            lib = ctypes.CDLL(str(_build()))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            lib.hare_error_string.argtypes = [ctypes.c_int]
-            lib.hare_error_string.restype = ctypes.c_char_p
+            path = _build()
+            with span("hare.kernels.load"):
+                lib = ctypes.CDLL(str(path))
+                for name, argtypes in _SIGNATURES.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                lib.hare_error_string.argtypes = [ctypes.c_int]
+                lib.hare_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
 
 
 def launch(name: str, *args) -> None:
-    """Call C entry point ``name`` on the current CUDA stream; raise if the
-    launch reports an error.  Tensor arguments pass as their data pointers.
+    """Call C entry point ``name`` on the current CUDA stream, counted under
+    ``launches.<name>``; raise if the launch reports an error.  Tensor
+    arguments pass as their data pointers.
     """
     lib = library()
+    counters[_COUNTER[name]] += 1
     conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     # The current device's current stream as a raw handle: what
     # torch.cuda.current_stream().cuda_stream gives, without building the

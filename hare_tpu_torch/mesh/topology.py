@@ -25,6 +25,7 @@ from typing import List, NamedTuple, Sequence
 import numpy as np
 import torch
 
+from ..utils.tracing import span, spanned
 from .scene import PAD_POLY, Scene
 
 __all__ = ["EdgeAux", "GroupedRows", "Topology", "build_scene", "merge_topologies"]
@@ -125,6 +126,7 @@ class Topology:
 
     # ------------------------------------------------------------------ build
     @classmethod
+    @spanned("hare.setup.topology")
     def build(
         cls, faces: Sequence[np.ndarray], precision: int = 15
     ) -> "Topology":
@@ -154,80 +156,82 @@ class Topology:
         ) if chunks else np.zeros(0, np.int64)
 
         # --- Weld: round then unique over all corners (AddGetIndex analog).
-        flat = _round_prec(
-            np.concatenate([c.reshape(-1, 3) for c in chunks], axis=0)
-            if chunks else np.zeros((0, 3)),
-            precision,
-        )
-        vertices, inverse = np.unique(flat, axis=0, return_inverse=True)
-        # np.unique sorts; keep first-appearance order like the reference's
-        # incremental indexing so vertex ids are stable under face order.
-        first_pos = np.full(len(vertices), len(flat), np.int64)
-        np.minimum.at(first_pos, inverse, np.arange(len(flat)))
-        order = np.argsort(first_pos, kind="stable")
-        rank = np.empty_like(order)
-        rank[order] = np.arange(len(order))
-        vertices = vertices[order]
-        inverse = rank[inverse].astype(np.int32)
+        with span("hare.setup.topology.weld"):
+            flat = _round_prec(
+                np.concatenate([c.reshape(-1, 3) for c in chunks], axis=0)
+                if chunks else np.zeros((0, 3)),
+                precision,
+            )
+            vertices, inverse = np.unique(flat, axis=0, return_inverse=True)
+            # np.unique sorts; keep first-appearance order like the reference's
+            # incremental indexing so vertex ids are stable under face order.
+            first_pos = np.full(len(vertices), len(flat), np.int64)
+            np.minimum.at(first_pos, inverse, np.arange(len(flat)))
+            order = np.argsort(first_pos, kind="stable")
+            rank = np.empty_like(order)
+            rank[order] = np.arange(len(order))
+            vertices = vertices[order]
+            inverse = rank[inverse].astype(np.int32)
 
-        offsets = np.concatenate([[0], np.cumsum(counts)])
-        poly_verts = GroupedRows(inverse, offsets)
+            offsets = np.concatenate([[0], np.cumsum(counts)])
+            poly_verts = GroupedRows(inverse, offsets)
 
         # --- Per-polygon centroid / normal / area (Polygon ctor analog),
         # vectorized over a (P, 4) padded index table: tris repeat corner 0
         # in slot 3 (never read where it matters).
-        P = len(counts)
-        is_quad = counts == 4
-        i0 = offsets[:-1]
-        pv = np.empty((P, 4), np.int32)
-        pv[:, 0] = inverse[i0]
-        pv[:, 1] = inverse[i0 + 1]
-        pv[:, 2] = inverse[i0 + 2]
-        pv[:, 3] = np.where(is_quad, inverse[np.minimum(i0 + 3, len(inverse) - 1)], pv[:, 0])
-        p0, p1, p2, p3 = (vertices[pv[:, k]] for k in range(4))
+        with span("hare.setup.topology.polys"):
+            P = len(counts)
+            is_quad = counts == 4
+            i0 = offsets[:-1]
+            pv = np.empty((P, 4), np.int32)
+            pv[:, 0] = inverse[i0]
+            pv[:, 1] = inverse[i0 + 1]
+            pv[:, 2] = inverse[i0 + 2]
+            pv[:, 3] = np.where(is_quad, inverse[np.minimum(i0 + 3, len(inverse) - 1)], pv[:, 0])
+            p0, p1, p2, p3 = (vertices[pv[:, k]] for k in range(4))
 
-        poly_centroid = (p0 + p1 + p2 + np.where(is_quad[:, None], p3, 0.0)) / counts[:, None]
-        # First non-zero fan normal (Hare_Geometry_Polygons.cs:159-163):
-        # fan (1,2); quads fall back to fan (1,3) if it vanishes.
-        n1 = np.cross(p1 - p0, p2 - p0)
-        n2 = np.cross(p1 - p0, p3 - p0)
-        use2 = (np.einsum("ij,ij->i", n1, n1) == 0.0) & is_quad
-        n = np.where(use2[:, None], n2, n1)
-        ln = np.linalg.norm(n, axis=1, keepdims=True)
-        poly_normal = np.where(ln > 0, n / np.where(ln > 0, ln, 1.0), 0.0)
-        area1 = 0.5 * np.linalg.norm(np.cross(p1 - p0, p2 - p0), axis=1)
-        area2 = 0.5 * np.linalg.norm(np.cross(p3 - p2, p0 - p2), axis=1)
-        poly_area = area1 + np.where(is_quad, area2, 0.0)
+            poly_centroid = (p0 + p1 + p2 + np.where(is_quad[:, None], p3, 0.0)) / counts[:, None]
+            # First non-zero fan normal (Hare_Geometry_Polygons.cs:159-163):
+            # fan (1,2); quads fall back to fan (1,3) if it vanishes.
+            n1 = np.cross(p1 - p0, p2 - p0)
+            n2 = np.cross(p1 - p0, p3 - p0)
+            use2 = (np.einsum("ij,ij->i", n1, n1) == 0.0) & is_quad
+            n = np.where(use2[:, None], n2, n1)
+            ln = np.linalg.norm(n, axis=1, keepdims=True)
+            poly_normal = np.where(ln > 0, n / np.where(ln > 0, ln, 1.0), 0.0)
+            area1 = 0.5 * np.linalg.norm(np.cross(p1 - p0, p2 - p0), axis=1)
+            area2 = 0.5 * np.linalg.norm(np.cross(p3 - p2, p0 - p2), axis=1)
+            poly_area = area1 + np.where(is_quad, area2, 0.0)
 
-        # --- Convexity / degeneracy flags (Polygon ctor analog:
-        # Convexity() at Hare_Geometry_Polygons.cs:285-371 — but computed in
-        # the polygon's own plane rather than the reference's unconditional
-        # XY projection, which misclassifies vertical polygons; degenerate =
-        # vanishing normal, :188-191).  Triangles are always convex.
-        poly_degenerate = (ln[:, 0] == 0.0)
-        e01 = p1 - p0
-        e12 = p2 - p1
-        e23 = p3 - p2
-        e30 = p0 - p3
-        signs = np.stack(
-            [
-                np.einsum("ij,ij->i", np.cross(a_, b_), poly_normal)
-                for a_, b_ in ((e01, e12), (e12, e23), (e23, e30), (e30, e01))
-            ],
-            axis=1,
-        )
-        quad_convex = (signs >= -1e-12).all(axis=1) | (signs <= 1e-12).all(axis=1)
-        poly_convex = np.where(is_quad, quad_convex, True) & ~poly_degenerate
+            # --- Convexity / degeneracy flags (Polygon ctor analog:
+            # Convexity() at Hare_Geometry_Polygons.cs:285-371 — but computed in
+            # the polygon's own plane rather than the reference's unconditional
+            # XY projection, which misclassifies vertical polygons; degenerate =
+            # vanishing normal, :188-191).  Triangles are always convex.
+            poly_degenerate = (ln[:, 0] == 0.0)
+            e01 = p1 - p0
+            e12 = p2 - p1
+            e23 = p3 - p2
+            e30 = p0 - p3
+            signs = np.stack(
+                [
+                    np.einsum("ij,ij->i", np.cross(a_, b_), poly_normal)
+                    for a_, b_ in ((e01, e12), (e12, e23), (e23, e30), (e30, e01))
+                ],
+                axis=1,
+            )
+            quad_convex = (signs >= -1e-12).all(axis=1) | (signs <= 1e-12).all(axis=1)
+            poly_convex = np.where(is_quad, quad_convex, True) & ~poly_degenerate
 
-        # --- Triangulation: quads -> (0,1,2) + (2,3,0)
-        # (Hare_Geometry_Polygons.cs:731-782), in face order.
-        tri_per_poly = 1 + is_quad.astype(np.int64)
-        tri_poly = np.repeat(np.arange(P), tri_per_poly).astype(np.int32)
-        T = len(tri_poly)
-        t_start = np.concatenate([[0], np.cumsum(tri_per_poly)])[:-1]
-        tri_v = np.empty((T, 3), np.int32)
-        tri_v[t_start] = pv[:, :3]
-        tri_v[t_start[is_quad] + 1] = pv[is_quad][:, [2, 3, 0]]
+            # --- Triangulation: quads -> (0,1,2) + (2,3,0)
+            # (Hare_Geometry_Polygons.cs:731-782), in face order.
+            tri_per_poly = 1 + is_quad.astype(np.int64)
+            tri_poly = np.repeat(np.arange(P), tri_per_poly).astype(np.int32)
+            T = len(tri_poly)
+            t_start = np.concatenate([[0], np.cumsum(tri_per_poly)])[:-1]
+            tri_v = np.empty((T, 3), np.int32)
+            tri_v[t_start] = pv[:, :3]
+            tri_v[t_start[is_quad] + 1] = pv[is_quad][:, [2, 3, 0]]
 
         def _group(keys, values, n_groups):
             """Group values by small-int keys, preserving order (CSR-backed)."""
@@ -237,80 +241,82 @@ class Topology:
             return GroupedRows(values[order], start_g)
 
         # --- Plane grouping by sign-normalized rounded (a,b,c,d).
-        a_d = -np.einsum("ij,ij->i", poly_normal, p0)
-        abcd = np.concatenate([poly_normal, a_d[:, None]], axis=1)
-        flip = abcd[:, 3] < 0
-        abcd[flip] *= -1.0
-        key = np.round(abcd, 3)
-        planes, plane_inv = np.unique(key, axis=0, return_inverse=True)
-        # stable first-appearance ordering again
-        first = np.full(len(planes), P, np.int64)
-        np.minimum.at(first, plane_inv, np.arange(P))
-        order = np.argsort(first, kind="stable")
-        rank = np.empty_like(order)
-        rank[order] = np.arange(len(order))
-        planes = planes[order]
-        poly_plane = rank[plane_inv].astype(np.int32)
-        plane_members = _group(poly_plane, np.arange(P, dtype=np.int32), len(planes))
+        with span("hare.setup.topology.planes"):
+            a_d = -np.einsum("ij,ij->i", poly_normal, p0)
+            abcd = np.concatenate([poly_normal, a_d[:, None]], axis=1)
+            flip = abcd[:, 3] < 0
+            abcd[flip] *= -1.0
+            key = np.round(abcd, 3)
+            planes, plane_inv = np.unique(key, axis=0, return_inverse=True)
+            # stable first-appearance ordering again
+            first = np.full(len(planes), P, np.int64)
+            np.minimum.at(first, plane_inv, np.arange(P))
+            order = np.argsort(first, kind="stable")
+            rank = np.empty_like(order)
+            rank[order] = np.arange(len(order))
+            planes = planes[order]
+            poly_plane = rank[plane_inv].astype(np.int32)
+            plane_members = _group(poly_plane, np.arange(P, dtype=np.int32), len(planes))
 
         # --- Edges: canonical pairs per face side, unique; skip short edges
         # (Hare_Geometry_Topology.cs:282).  (P, 4, 2) padded side table; side
         # 2 closes the triangle (2,0) or continues the quad (2,3); side 3
         # exists only for quads.
-        sides = np.empty((P, 4, 2), np.int32)
-        sides[:, 0] = pv[:, [0, 1]]
-        sides[:, 1] = pv[:, [1, 2]]
-        sides[:, 2, 0] = pv[:, 2]
-        sides[:, 2, 1] = np.where(is_quad, pv[:, 3], pv[:, 0])
-        sides[:, 3] = pv[:, [3, 0]]
-        side_valid = np.ones((P, 4), bool)
-        side_valid[:, 3] = is_quad
-        inst_poly = np.repeat(np.arange(P, dtype=np.int32), 4)[side_valid.ravel()]
-        inst = sides.reshape(-1, 2)[side_valid.ravel()]
-        seg = vertices[inst[:, 0]] - vertices[inst[:, 1]]
-        keep = np.linalg.norm(seg, axis=1) >= MIN_EDGE_LEN
-        inst, inst_poly = inst[keep], inst_poly[keep]
-        canon = np.sort(inst, axis=1)
-        if len(canon):
-            edges, e_inv = np.unique(canon, axis=0, return_inverse=True)
-            firste = np.full(len(edges), len(canon), np.int64)
-            np.minimum.at(firste, e_inv, np.arange(len(canon)))
-            order = np.argsort(firste, kind="stable")
-            rank = np.empty_like(order)
-            rank[order] = np.arange(len(order))
-            edges = edges[order]
-            e_inv = rank[e_inv].astype(np.int32)
-        else:
-            edges = np.zeros((0, 2), np.int32)
-            e_inv = np.zeros((0,), np.int32)
-        E = len(edges)
+        with span("hare.setup.topology.edges"):
+            sides = np.empty((P, 4, 2), np.int32)
+            sides[:, 0] = pv[:, [0, 1]]
+            sides[:, 1] = pv[:, [1, 2]]
+            sides[:, 2, 0] = pv[:, 2]
+            sides[:, 2, 1] = np.where(is_quad, pv[:, 3], pv[:, 0])
+            sides[:, 3] = pv[:, [3, 0]]
+            side_valid = np.ones((P, 4), bool)
+            side_valid[:, 3] = is_quad
+            inst_poly = np.repeat(np.arange(P, dtype=np.int32), 4)[side_valid.ravel()]
+            inst = sides.reshape(-1, 2)[side_valid.ravel()]
+            seg = vertices[inst[:, 0]] - vertices[inst[:, 1]]
+            keep = np.linalg.norm(seg, axis=1) >= MIN_EDGE_LEN
+            inst, inst_poly = inst[keep], inst_poly[keep]
+            canon = np.sort(inst, axis=1)
+            if len(canon):
+                edges, e_inv = np.unique(canon, axis=0, return_inverse=True)
+                firste = np.full(len(edges), len(canon), np.int64)
+                np.minimum.at(firste, e_inv, np.arange(len(canon)))
+                order = np.argsort(firste, kind="stable")
+                rank = np.empty_like(order)
+                rank[order] = np.arange(len(order))
+                edges = edges[order]
+                e_inv = rank[e_inv].astype(np.int32)
+            else:
+                edges = np.zeros((0, 2), np.int32)
+                e_inv = np.zeros((0,), np.int32)
+            E = len(edges)
 
-        # Edge.Append_Poly_Relationship quantities, vectorized per instance
-        # (Hare_Geometry_Primitives.cs:288-299).
-        a = vertices[edges[e_inv, 0]] if len(e_inv) else np.zeros((0, 3))
-        b = vertices[edges[e_inv, 1]] if len(e_inv) else np.zeros((0, 3))
-        c = poly_centroid[inst_poly]
-        ta = 0.5 * np.linalg.norm(np.cross(b - a, c - a), axis=1)
-        ab = b - a
-        tproj = np.einsum("ij,ij->i", c - a, ab) / np.einsum("ij,ij->i", ab, ab)
-        tan = c - (a + tproj[:, None] * ab)
-        tl = np.linalg.norm(tan, axis=1)
-        tanu = np.where(tl[:, None] > 0, tan / np.where(tl[:, None] > 0, tl[:, None], 1), tan)
+            # Edge.Append_Poly_Relationship quantities, vectorized per instance
+            # (Hare_Geometry_Primitives.cs:288-299).
+            a = vertices[edges[e_inv, 0]] if len(e_inv) else np.zeros((0, 3))
+            b = vertices[edges[e_inv, 1]] if len(e_inv) else np.zeros((0, 3))
+            c = poly_centroid[inst_poly]
+            ta = 0.5 * np.linalg.norm(np.cross(b - a, c - a), axis=1)
+            ab = b - a
+            tproj = np.einsum("ij,ij->i", c - a, ab) / np.einsum("ij,ij->i", ab, ab)
+            tan = c - (a + tproj[:, None] * ab)
+            tl = np.linalg.norm(tan, axis=1)
+            tanu = np.where(tl[:, None] > 0, tan / np.where(tl[:, None] > 0, tl[:, None], 1), tan)
 
-        edge_polys = _group(e_inv, inst_poly, E)
-        edge_ta = _group(e_inv, ta, E)
-        edge_tl = _group(e_inv, tl, E)
-        edge_tan = _group(e_inv, tanu, E)
-        poly_edges = _group(inst_poly, e_inv, P)
+            edge_polys = _group(e_inv, inst_poly, E)
+            edge_ta = _group(e_inv, ta, E)
+            edge_tl = _group(e_inv, tl, E)
+            edge_tan = _group(e_inv, tanu, E)
+            poly_edges = _group(inst_poly, e_inv, P)
 
-        # --- Vertex adjacency + normals (Finish_Topology analog): one unit
-        # polygon normal added per vertex occurrence, then normalized.
-        corner_poly = np.repeat(np.arange(P, dtype=np.int32), counts)
-        vertex_polys = _group(inverse, corner_poly, len(vertices))
-        vertex_normals = np.zeros_like(vertices)
-        np.add.at(vertex_normals, inverse, poly_normal[corner_poly])
-        ln = np.linalg.norm(vertex_normals, axis=1, keepdims=True)
-        vertex_normals = np.where(ln > 0, vertex_normals / np.where(ln > 0, ln, 1), 0.0)
+            # --- Vertex adjacency + normals (Finish_Topology analog): one unit
+            # polygon normal added per vertex occurrence, then normalized.
+            corner_poly = np.repeat(np.arange(P, dtype=np.int32), counts)
+            vertex_polys = _group(inverse, corner_poly, len(vertices))
+            vertex_normals = np.zeros_like(vertices)
+            np.add.at(vertex_normals, inverse, poly_normal[corner_poly])
+            ln = np.linalg.norm(vertex_normals, axis=1, keepdims=True)
+            vertex_normals = np.where(ln > 0, vertex_normals / np.where(ln > 0, ln, 1), 0.0)
 
         pad = 1e-12  # Hare_Geometry_Topology.cs:165-166
         return cls(
@@ -503,6 +509,7 @@ def _ceil_to(n: int, m: int) -> int:
     return max(m, ((n + m - 1) // m) * m)
 
 
+@spanned("hare.setup.scene")
 def build_scene(
     topologies: Sequence[Topology], dtype=np.float32, pad_to: int = 128, device="cuda"
 ) -> Scene:

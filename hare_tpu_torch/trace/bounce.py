@@ -45,6 +45,7 @@ from ..geom.primitives import NO_POLY, HitRecord, Ray
 from ..kernels import build
 from ..mesh.scene import Scene
 from ..utils.checks import check_finite
+from ..utils.tracing import count, current_id, span, spanned
 
 __all__ = [
     "SOUND_SPEED",
@@ -287,7 +288,6 @@ def bounce_kernel(
                alive=torch.empty(row, dtype=torch.bool, device=dev))
     oe, time, poly, t = (torch.empty(row, **f), torch.empty(row, **f),
                          torch.empty(row, dtype=torch.int32, device=dev), torch.empty(row, **f))
-    bounce_kernel.launches += 1
     build.launch(
         "hare_bounce_step", _f32(state.energy, row), _f32(state.dist, row),
         _f32(state.origin, vec), _f32(state.direction, vec), _as(state.alive, torch.bool, row),
@@ -301,9 +301,6 @@ def bounce_kernel(
         poly, t,
     )
     return BounceState(**out), (out["alive"], oe, time, poly, hr.point, t)
-
-
-bounce_kernel.launches = 0
 
 
 def bounce_bwd_kernel(
@@ -336,7 +333,6 @@ def bounce_bwd_kernel(
     out = [torch.empty(sh, **f) if w else None
            for w, sh in zip(wanted, (row, row, vec, vec, row, vec, vec, row, row))]
     d_energy, d_dist, d_origin, d_direction, d_t, d_point, d_normal, d_a, d_s = out
-    bounce_bwd_kernel.launches += 1
     build.launch(
         "hare_bounce_step_bwd", _opt(state.energy, row), _opt(state.direction, vec),
         _opt(hr.normal, vec), _as(state.alive, torch.bool, row), _as(hr.hit, torch.bool, row),
@@ -345,9 +341,6 @@ def bounce_bwd_kernel(
         d_point, d_t, d_a, d_s,
     )
     return tuple(out)
-
-
-bounce_bwd_kernel.launches = 0
 
 
 def bounce_bwd_plain(state, hr, absorption, scattering, draws, cotangents, wanted,
@@ -426,7 +419,7 @@ class _BounceStep(torch.autograd.Function):
                 fixed.append(y)
         ctx.mark_non_differentiable(*fixed)
         diffuse, r1, r2 = (None, None, None) if draws is None else draws
-        ctx.cpu, ctx.sound_speed = cpu, sound_speed
+        ctx.cpu, ctx.sound_speed, ctx.trace_id = cpu, sound_speed, current_id()
         if cpu:  # the plain backward runs bounce_step again
             ctx.save_for_backward(energy, dist, origin, direction, t, point, normal, absorption,
                                   scattering, alive, exclude, hit, u, v, poly_id, tri_id,
@@ -446,19 +439,20 @@ class _BounceStep(torch.autograd.Function):
         cot = (g_origin, g_direction, g_energy, g_dist, g_out_energy, g_time, g_t)
         if not any(_reached(cot, ctx.needs_input_grad[:len(GRADS)], True)):
             return (None,) * (len(GRADS) + 1)  # no cotangent reaches a gradient
-        if ctx.cpu:
-            (energy, dist, origin, direction, t, point, normal, absorption, scattering, alive,
-             exclude, hit, u, v, poly_id, tri_id, edge_nbr, diffuse, r1, r2) = ctx.saved_tensors
-            state = BounceState(origin, direction, exclude, energy, dist, alive)
-            hr = HitRecord(hit, t, u, v, point, poly_id, tri_id, normal, edge_nbr)
-        else:
-            (energy, direction, normal, absorption, scattering, alive, hit, poly_id, diffuse, r1,
-             r2) = ctx.saved_tensors
-            state = BounceState(None, direction, None, energy, None, alive)
-            hr = HitRecord(hit, None, None, None, None, poly_id, None, normal)
-        draws = None if diffuse is None else (diffuse, r1, r2)
-        grads = bounce_step_bwd(state, hr, absorption, scattering, draws, cot,
-                                ctx.needs_input_grad[:len(GRADS)], ctx.sound_speed)
+        with span("hare.backward.bounce_step", id=ctx.trace_id):
+            if ctx.cpu:
+                (energy, dist, origin, direction, t, point, normal, absorption, scattering, alive,
+                 exclude, hit, u, v, poly_id, tri_id, edge_nbr, diffuse, r1, r2) = ctx.saved_tensors
+                state = BounceState(origin, direction, exclude, energy, dist, alive)
+                hr = HitRecord(hit, t, u, v, point, poly_id, tri_id, normal, edge_nbr)
+            else:
+                (energy, direction, normal, absorption, scattering, alive, hit, poly_id, diffuse,
+                 r1, r2) = ctx.saved_tensors
+                state = BounceState(None, direction, None, energy, None, alive)
+                hr = HitRecord(hit, None, None, None, None, poly_id, None, normal)
+            draws = None if diffuse is None else (diffuse, r1, r2)
+            grads = bounce_step_bwd(state, hr, absorption, scattering, draws, cot,
+                                    ctx.needs_input_grad[:len(GRADS)], ctx.sound_speed)
         return (*grads, None)
 
 
@@ -511,6 +505,7 @@ def fused_bounce_step(
             (live, out_energy, time, poly, hr.point, t))
 
 
+@spanned("hare.trace_rays")
 def trace_rays(
     scene: Scene,
     rays: Ray,
@@ -578,22 +573,27 @@ def trace_rays(
     elif draws is None:
         draws = scatter_draws(generator, n_bounces, n, o.dtype, o.device)
 
-    def bounce(state, draws_b):
-        r = Ray(state.origin, state.direction, state.exclude)
-        hr = shoot_fn(scene, r) if aux is None else shoot_fn(scene, r, aux)
-        return fused_bounce_step(state, hr, absorption, scattering, draws_b, sound_speed,
-                                 scene.tri_meta)
+    def bounce(state, draws_b, b, rid):
+        # rid: the request's id, which a recompute under remat, on
+        # autograd's thread, carries too.
+        with span("hare.bounce", b=b, id=rid):
+            r = Ray(state.origin, state.direction, state.exclude)
+            with span("hare.shoot"):
+                hr = shoot_fn(scene, r) if aux is None else shoot_fn(scene, r, aux)
+            with span("hare.bounce_step"):
+                return fused_bounce_step(state, hr, absorption, scattering, draws_b,
+                                         sound_speed, scene.tri_meta)
 
-    outs = []
+    outs, rid = [], current_id()
     for b in range(n_bounces):
         draws_b = None if draws is None else tuple(x[b] for x in draws)
         if remat and torch.is_grad_enabled():
             # The draws are inputs, never drawn inside: the recompute sees
             # the forward's numbers without restoring any generator.
-            state, out = checkpoint(bounce, state, draws_b, use_reentrant=False,
+            state, out = checkpoint(bounce, state, draws_b, b, rid, use_reentrant=False,
                                     preserve_rng_state=False)
         else:
-            state, out = bounce(state, draws_b)
+            state, out = bounce(state, draws_b, b, rid)
         outs.append(out)
     res = TraceResult(*(torch.stack(x) for x in zip(*outs)))
     check_finite("trace_rays", res.energy, res.time)
@@ -681,7 +681,6 @@ def histogram_kernel(
     partials = torch.empty(max(tiles * HIST_MAX_BLOCKS * HIST_TILE, 1), dtype=torch.float32,
                            device=energy.device)
     hist = torch.empty(n_bins, dtype=torch.float32, device=energy.device)
-    energy_histogram.launches += 1
     build.launch(
         "hare_energy_histogram", energy.contiguous(), time.contiguous(),
         hit.contiguous(), n, n_bins, bin_dt, int(soft), partials, partials.numel(), hist,
@@ -722,6 +721,7 @@ def _histogram_bwd_kernel(energy, time, hit, grad_hist, n_bins, bin_dt, soft):
         raise ValueError("grad_hist must be (n_bins,) float32")
     d_energy = torch.empty(time.shape, dtype=torch.float32, device=time.device)
     d_time = torch.empty_like(d_energy) if soft else None
+    count("histogram_bwd.soft" if soft else "histogram_bwd.hard")
     build.launch(
         "hare_histogram_bwd", None if energy is None else energy.contiguous(),
         time.contiguous(), hit.contiguous(), grad_hist, grad_hist.stride(0), time.numel(), n_bins,
@@ -738,11 +738,7 @@ def hard_histogram_bwd(
     :func:`hard_histogram_bwd_plain`."""
     if check_device(time, hit, grad_hist) == "cpu":
         return hard_histogram_bwd_plain(time, hit, grad_hist, n_bins, bin_dt)
-    hard_histogram_bwd.launches += 1
     return _histogram_bwd_kernel(None, time, hit, grad_hist, n_bins, bin_dt, False)[0]
-
-
-hard_histogram_bwd.launches = 0
 
 
 def soft_histogram_bwd(
@@ -754,11 +750,7 @@ def soft_histogram_bwd(
     CPU tensors take :func:`soft_histogram_bwd_plain`."""
     if check_device(energy, time, hit, grad_hist) == "cpu":
         return soft_histogram_bwd_plain(energy, time, hit, grad_hist, n_bins, bin_dt)
-    soft_histogram_bwd.launches += 1
     return _histogram_bwd_kernel(energy, time, hit, grad_hist, n_bins, bin_dt, True)
-
-
-soft_histogram_bwd.launches = 0
 
 
 class _HardHistogram(torch.autograd.Function):
@@ -769,7 +761,7 @@ class _HardHistogram(torch.autograd.Function):
     @staticmethod
     def forward(ctx, energy, time, hit, n_bins, bin_dt):
         ctx.save_for_backward(time, hit)
-        ctx.n_bins, ctx.bin_dt = n_bins, bin_dt
+        ctx.n_bins, ctx.bin_dt, ctx.trace_id = n_bins, bin_dt, current_id()
         if check_device(energy, time, hit) == "cpu":
             return histogram_plain(energy, time, hit, n_bins, bin_dt)
         return histogram_kernel(energy, time, hit, n_bins, bin_dt)
@@ -778,8 +770,9 @@ class _HardHistogram(torch.autograd.Function):
     def backward(ctx, grad_hist):
         if not ctx.needs_input_grad[0]:  # a loss w.r.t. the vertices: time's alone
             return None, None, None, None, None
-        time, hit = ctx.saved_tensors
-        d_energy = hard_histogram_bwd(time, hit, grad_hist, ctx.n_bins, ctx.bin_dt)
+        with span("hare.backward.histogram", id=ctx.trace_id, soft=False):
+            time, hit = ctx.saved_tensors
+            d_energy = hard_histogram_bwd(time, hit, grad_hist, ctx.n_bins, ctx.bin_dt)
         return d_energy, None, None, None, None
 
 
@@ -790,16 +783,17 @@ class _SoftHistogram(torch.autograd.Function):
     @staticmethod
     def forward(ctx, energy, time, hit, n_bins, bin_dt):
         ctx.save_for_backward(energy, time, hit)
-        ctx.n_bins, ctx.bin_dt = n_bins, bin_dt
+        ctx.n_bins, ctx.bin_dt, ctx.trace_id = n_bins, bin_dt, current_id()
         if check_device(energy, time, hit) == "cpu":
             return soft_histogram_plain(energy, time, hit, n_bins, bin_dt)
         return histogram_kernel(energy, time, hit, n_bins, bin_dt, soft=True)
 
     @staticmethod
     def backward(ctx, grad_hist):
-        energy, time, hit = ctx.saved_tensors
-        d_energy, d_time = soft_histogram_bwd(energy, time, hit, grad_hist, ctx.n_bins,
-                                              ctx.bin_dt)
+        with span("hare.backward.histogram", id=ctx.trace_id, soft=True):
+            energy, time, hit = ctx.saved_tensors
+            d_energy, d_time = soft_histogram_bwd(energy, time, hit, grad_hist, ctx.n_bins,
+                                                  ctx.bin_dt)
         return d_energy, d_time, None, None, None
 
 
@@ -819,9 +813,7 @@ def energy_histogram(
     ``FloatingPointError``.
     """
     fn = _SoftHistogram if soft else _HardHistogram
-    hist = fn.apply(result.energy, result.time, result.hit, n_bins, bin_dt)
-    check_finite("energy_histogram", hist)
+    with span("hare.histogram", soft=soft):
+        hist = fn.apply(result.energy, result.time, result.hit, n_bins, bin_dt)
+        check_finite("energy_histogram", hist)
     return hist
-
-
-energy_histogram.launches = 0

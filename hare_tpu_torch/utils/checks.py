@@ -17,6 +17,8 @@ from typing import Any, Callable, List, Tuple
 import numpy as np
 import torch
 
+from .tracing import sync
+
 __all__ = ["check_finite", "debug_checks_enabled", "determinism_check", "enable_debug_checks"]
 
 _DEBUG = {"nans": False, "infs": False}
@@ -37,17 +39,21 @@ def debug_checks_enabled() -> bool:
 def check_finite(stage: str, *tensors: torch.Tensor) -> None:
     """With :func:`enable_debug_checks` on, raise ``FloatingPointError``
     naming ``stage`` where a float tensor holds a NaN (or, with ``infs``,
-    an Inf).  Reads each tensor to the host, so a synchronisation; does
-    nothing, and reads nothing, when the checks are off."""
+    an Inf).  Reads each tensor to the host, so a synchronisation (the
+    span ``hare.sync``, site ``check_finite``); does nothing, and reads
+    nothing, when the checks are off."""
     if not debug_checks_enabled():
         return
     for t in tensors:
         if t is None or not t.is_floating_point():
             continue
         t = t.detach()
-        if _DEBUG["nans"] and bool(torch.isnan(t).any()):
+        with sync("check_finite"):
+            nan = _DEBUG["nans"] and bool(torch.isnan(t).any())
+            inf = _DEBUG["infs"] and bool(torch.isinf(t).any())
+        if nan:
             raise FloatingPointError(f"{stage}: NaN in an output")
-        if _DEBUG["infs"] and bool(torch.isinf(t).any()):
+        if inf:
             raise FloatingPointError(f"{stage}: Inf in an output")
 
 

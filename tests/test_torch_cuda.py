@@ -46,8 +46,19 @@ from hare_tpu_torch.trace.bounce import (  # noqa: E402
     soft_histogram_bwd_plain,
     soft_histogram_plain,
 )
+from hare_tpu_torch.utils import tracing  # noqa: E402
 
 pytestmark = pytest.mark.cuda
+
+
+def launches(*entries):
+    """The launches of these C entry points counted so far
+    (``kernels.build.launch``: ``launches.<entry point>``)."""
+    counters = tracing.snapshot().counters
+    return sum(counters.get(f"launches.{e}", 0) for e in entries)
+
+
+GATHER_ENTRIES = ("hare_gather_sum_f32", "hare_gather_sum_i32", "hare_gather_sum_i32_f32")
 
 # Every traversal kernel rounds each operation as its plain version does
 # (kernels/build.py builds with -fmad=false): the two agree to the bit
@@ -1289,16 +1300,14 @@ def test_remat_on_card_is_bitwise(dev):
     """Per-bounce remat with scattering on the card: every output and both
     gradients equal to the plain trace's to the bit, K1 and K2 launched
     twice a bounce."""
-    from hare_tpu_torch.accel.common import finalize_hits as k2
-
     faces = shapes.shoebox(4, 5, 3) + shapes.icosphere(2, radius=0.7, center=(2.0, 3.5, 1.2))
     top = th.Topology.build(faces)
     sp = th.SpatialPartition(top, device=dev)
     rays = rays_of(np.random.default_rng(9), 0.3, 2.7, 4096, dev)
     plain = scattering_step(sp, rays, top.n_polys, 6)
-    grid_shoot.launches = k2.launches = 0
+    k1, k2 = launches("hare_grid_shoot"), launches("hare_finalize_hits")
     remat = scattering_step(sp, rays, top.n_polys, 6, remat=True)
-    assert grid_shoot.launches == k2.launches == 12
+    assert launches("hare_grid_shoot") - k1 == launches("hare_finalize_hits") - k2 == 12
     for x, y in zip(plain, remat):
         assert torch.equal(x, y)
         if x.is_floating_point():
@@ -1326,9 +1335,9 @@ def test_scene_surface_points_on_card(dev):
 def test_column_sum_matches_plain(dev, rows, cols):
     """P1, one band and many bands of rows (each thread several rows)."""
     x = torch.from_numpy(np.random.default_rng(8).normal(size=(rows, cols)).astype(np.float32)).to(dev)
-    before = probes.column_sum.launches
+    before = launches("hare_column_sum")
     out = probes.column_sum(x)
-    assert probes.column_sum.launches == before + 1
+    assert launches("hare_column_sum") == before + 1
     assert probes.sums_agree(out, probes.column_sum_plain(x), probes.column_sum_plain(x.abs()))
     ones = torch.ones(rows, cols, device=dev)
     assert torch.equal(probes.column_sum(ones), probes.column_sum_plain(ones))
@@ -1382,9 +1391,9 @@ def test_gather_sum_matches_plain(dev, case):
         tab = rng.normal(size=(n, width)).astype(np.float32)
     tab = torch.from_numpy(tab).to(dev)
     idx = torch.from_numpy(rng.integers(-n, n, size=n_idx).astype(np.int32)).to(dev)
-    before = probes.gather_sum.launches
+    before = launches(*GATHER_ENTRIES)
     out = probes.gather_sum(tab, idx, iters, out_dtype)
-    assert probes.gather_sum.launches == before + 1
+    assert launches(*GATHER_ENTRIES) == before + 1
     plain = probes.gather_sum_plain(tab, idx, iters, out_dtype)
     assert out.dtype == plain.dtype == out_dtype
     if out_dtype == torch.int32:  # int32 sums that wrap: exact
@@ -1510,16 +1519,52 @@ def test_bounce_kernel_launches_and_remat(dev):
     rays = rays_of(np.random.default_rng(13), 0.3, 2.7, 4096, dev)
     out = []
     for remat in (False, True):
-        bounce.bounce_kernel.launches = bounce.bounce_bwd_kernel.launches = 0
+        fwd, bwd = launches("hare_bounce_step"), launches("hare_bounce_step_bwd")
         aa, ss_ = a.clone().requires_grad_(), s.clone().requires_grad_()
         res = th.trace_rays(sp.scene, rays, aa, 5, sp.shoot_fn, aux=sp.aux, scattering=ss_,
                             generator=torch.Generator().manual_seed(1), remat=remat)
         th.energy_histogram(res, 64).sum().backward()
         torch.cuda.synchronize()
-        assert bounce.bounce_kernel.launches == (10 if remat else 5)
-        assert bounce.bounce_bwd_kernel.launches == 5
+        assert launches("hare_bounce_step") - fwd == (10 if remat else 5)
+        assert launches("hare_bounce_step_bwd") - bwd == 5
         out.append([res.energy.detach(), res.time.detach(), aa.grad, ss_.grad])
     assert all(same_bits(x, y) for x, y in zip(*out))
+
+
+@pytest.mark.parametrize("accel, site, walk", [("octree", "tree_flag", "hare_tree_shoot"),
+                                                ("kdtree_ropes", "ropes_flag", "hare_ropes_shoot")])
+def test_step_counters_on_card(dev, accel, site, walk):
+    """A fwd+bwd trace of k bounces through a tree walk reads the walk's
+    flag k times (syncs.<site>, each a hare.sync span holding its read),
+    and counts each entry point's launches as the wrappers' own counters
+    did: the walk, K2, K4 and its backward and the absorption scatter once
+    a bounce, K3 and its backward once, in its hard mode, nothing else."""
+    k, n = 3, 4096
+    faces = shapes.shoebox(4, 5, 3) + shapes.icosphere(2, radius=0.7, center=(2.0, 3.5, 1.2))
+    top = th.Topology.build(faces)
+    sp = th.SpatialPartition(top, accel=accel, device=dev)
+    rays = rays_of(np.random.default_rng(5), 0.3, 2.7, n, dev)
+    a = torch.full((top.n_polys,), 0.3, device=dev, requires_grad=True)
+    th.energy_histogram(th.trace_rays(sp.scene, rays, a, k, sp.shoot_fn, aux=sp.aux), 64).sum()
+    torch.cuda.synchronize()
+    tracing.reset()
+    tracing.enable()
+    try:
+        res = th.trace_rays(sp.scene, rays, a, k, sp.shoot_fn, aux=sp.aux)
+        th.energy_histogram(res, 64).sum().backward()
+        torch.cuda.synchronize()
+        snap = tracing.snapshot()
+    finally:
+        tracing.disable()
+        tracing.reset()
+    want = {walk: k, "hare_finalize_hits": k, "hare_bounce_step": k, "hare_bounce_step_bwd": k,
+            "hare_scatter_add_ordered": k, "hare_energy_histogram": 1, "hare_histogram_bwd": 1}
+    assert snap.counters == {f"syncs.{site}": k, "rays.shot": k * n, "histogram_bwd.hard": 1,
+                             **{f"launches.{e}": c for e, c in want.items()}}
+    syncs = [s for s in snap.spans if s.name == "hare.sync"]
+    assert [s.attrs["site"] for s in syncs] == [site] * k
+    traverse = {s.seq: s for s in snap.spans if s.name == "hare.traverse"}
+    assert len(traverse) == k and all(s.parent in traverse for s in syncs)
 
 
 def test_nccl_world_one_train_step_is_unsharded(dev):

@@ -28,6 +28,7 @@ from jax.experimental import pallas as real_pl  # noqa: E402
 
 from hare_tpu_torch.benchmarks import pallas_probe as tp  # noqa: E402
 from hare_tpu_torch.benchmarks import r4_dyngather_probe as tr4  # noqa: E402
+from hare_tpu_torch.utils import tracing  # noqa: E402
 from test_torch_cuda import GATHER_EDGES  # noqa: E402  (the gather kernel's edge shapes)
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -202,14 +203,14 @@ def test_gather_sum_plain_matches_numpy(case):
 def test_wrappers_take_plain_versions_on_cpu():
     """On CPU tensors the wrappers return their plain versions' results and
     count no launch."""
-    before = (tp.column_sum.launches, tp.gather_sum.launches)
+    before = tracing.snapshot().counters
     x = torch.from_numpy(np.random.default_rng(3).normal(size=(100, 8)).astype(np.float32))
     assert torch.equal(tp.column_sum(x), tp.column_sum_plain(x))
     table, idx = (torch.from_numpy(a) for a in tp.meta_gather_inputs(50, 40))
     assert torch.equal(tp.gather_sum(table, idx, 60), tp.gather_sum_plain(table, idx, 60))
     assert torch.equal(tp.gather_sum(table, idx, 3, torch.float32),
                        tp.gather_sum_plain(table, idx, 3, torch.float32))
-    assert (tp.column_sum.launches, tp.gather_sum.launches) == before
+    assert tracing.snapshot().counters == before
 
 
 def test_gather_sum_plain_by_hand():
