@@ -103,7 +103,11 @@ per-polygon absorption, on the card.  Phases, one line each:
    the host build and K1's march per ray (``voxel.grid_work``); forward
    and fwd+bwd w.r.t. absorption, counted, gated (every ray hits, the
    histogram total equals the bounce energies, the gradient finite and
-   non-positive, two steps bitwise equal) and timed; K1, K2, K4 and its
+   non-positive, two steps bitwise equal) and timed; K1's ray order: the
+   counters ``rays.ordered`` and ``rays.shot`` of a config-5 step (every
+   ray ordered), a bench step and a bench-sized shot (none), and K1's time
+   with and without the order on each bounce, bit-equal, the order's keys
+   bit-equal to their plain version; K1, K2, K4 and its
    backward, K3 and its backward, the scatter (5,242,892 keys: its 64-bit
    pairs) against their plain versions on the config's own inputs and the
    CPU sub-batch; each kernel's device time beside its bound, the scatter
@@ -2675,9 +2679,13 @@ def config5_phase(dev, smi, records):
     """Phase 12: eval config 5 at full size (``big_scene("5M")``, 5,242,892
     triangles, a 256^3 grid, 2^20 rays, 2 bounces, 1024 bins), built once:
     (a) the host build and K1's march; (b) forward and (c) fwd+bwd w.r.t.
-    absorption, counted, gated and timed; (d) each kernel against its plain
+    absorption, counted, gated and timed; (c) also K1's ray order: the
+    shots it orders (``rays.ordered`` of ``rays.shot``) in a config-5 step,
+    a bench step and a bench-sized shot on config 5's grid, and K1 with and
+    without it on each bounce, bit-equal, timed, the order's keys against
+    their plain version; (d) each kernel against its plain
     version on the config's own full-width inputs, and the CPU sub-batch;
-    (e) each kernel's device ms beside its bound, the scatter beside
+    (e) each kernel's device ms beside its bound (K1's with its order), the scatter beside
     ``index_add_``; (f) the sustained run over ``SUSTAINED_BATCHES``
     batches of ``configs.config5_batches``.  Adds the config's launches and
     times to the records."""
@@ -2685,7 +2693,7 @@ def config5_phase(dev, smi, records):
 
     import hare_tpu_torch as th
     from hare_tpu_torch.accel import brute, common, scatter, voxel
-    from hare_tpu_torch.benchmarks import bench_scene, bounds, configs
+    from hare_tpu_torch.benchmarks import bench_scene, bounds, configs, kernel_sweep
     from hare_tpu_torch.trace import bounce
 
     t_phase = time.perf_counter()
@@ -2751,7 +2759,7 @@ def config5_phase(dev, smi, records):
               f"hist total {total:.3f} = bounce energies {e_sum:.3f}{grad_note}; {ms:.3f} ms, "
               f"{n * nb / ms / 1e3:.4f} Mrays/s {label.split()[1]} ({n * nb} ray queries a step); "
               f"device busy {busy:.4f} ms, idle share {1 - busy / ms:.3f}, {kernels:.1f} kernels a "
-              f"step (K1 {kernel_ms(per_name, 'grid_shoot_kernel'):.4f}, K2 "
+              f"step (K1 {kernel_ms(per_name, 'grid_shoot'):.4f}, K2 "
               f"{kernel_ms(per_name, 'finalize_kernel'):.4f}, K4 "
               f"{kernel_ms(per_name, K4_FWD_TAG):.4f}, K4's backward "
               f"{kernel_ms(per_name, K4_BWD_TAG):.4f}, K3 "
@@ -2760,6 +2768,49 @@ def config5_phase(dev, smi, records):
               f"{kernel_ms(per_name, 'scatter_ordered'):.4f} ms); peak {peak:.1f} MiB above the "
               f"step's start")
     res, hist, grads, launches = steps["12c fwd+bwd"]
+
+    # ---- 12c: K1's ray order, engaged by shape (voxel.order_engages).
+    from hare_tpu_torch.utils import tracing
+
+    def ordered_share(fn):
+        tracing.reset()
+        fn()
+        torch.cuda.synchronize()
+        got = tracing.snapshot().counters
+        tracing.reset()
+        return got.get("rays.ordered", 0), got.get("rays.shot", 0)
+
+    _, bench_sp, bench_rays, bench_a = bench_scene.bench_setup(dev)
+    small = th.Ray(*(x[:bench_scene.N_RAYS] for x in rays))
+    shares = {"config 5 fwd+bwd step": (ordered_share(step(True)), n * nb),
+              "bench fwd+bwd step": (ordered_share(lambda: trace_step(
+                  th, bench_sp, bench_rays, bench_a, bench_scene.N_BOUNCES, n_bins)), 0),
+              f"a {small.origin.shape[0]}-ray shot on config 5's grid": (
+                  ordered_share(lambda: voxel.shoot_grid(scene, small, grid)), 0)}
+    for label, ((ordered, shot), want) in shares.items():
+        check(shot > 0 and ordered == want, f"12c {label}: rays.ordered {ordered} of {shot}")
+    resident, _ = voxel.card_capacity(dev)
+    order_ms = []
+    for b, r in enumerate(batches, 1):
+        with_order = voxel._grid_shoot_card(r, grid, ordered=True)
+        kernel_sweep.check_order(f"12c bounce {b}", r, grid, with_order[2])
+        same_bits(f"12c bounce {b} K1 with the order against without",
+                  with_order[:2], voxel._grid_shoot_card(r, grid, ordered=False)[:2])
+        order_ms.append((
+            launch_ms(lambda: voxel._grid_shoot_card(r, grid, ordered=False), 5, "grid_shoot"),
+            launch_ms(lambda: voxel._grid_shoot_card(r, grid, ordered=True), 5, "grid_shoot"),
+            launch_ms(lambda: voxel._grid_shoot_card(r, grid, ordered=True), 5,
+                      "grid_shoot_order")))
+    print(f"phase 12c K1's ray order [{smi}] (K1 runs {resident} rays at once): rays.ordered / "
+          f"rays.shot "
+          + ", ".join(f"{label} {o} / {sh} = {o / sh:.3f}" for label, ((o, sh), _) in
+                      shares.items())
+          + "; " + "; ".join(
+              f"bounce {b}: K1 in index order {w0:.5f} ms, ordered {w1:.5f} ms ({w1 / w0 - 1:+.1%}, "
+              f"the order's three kernels {wo:.5f} ms of it), every ray's hit bit-equal, the "
+              f"order's keys bit-equal to their plain version, a permutation, non-decreasing"
+              for b, (w0, w1, wo) in enumerate(order_ms, 1)))
+    del bench_sp, bench_rays, bench_a, small, with_order
 
     # ---- 12d: each kernel against its plain version on the config's inputs.
     _, k2_err, scat_err, k4 = path_kernel_checks("config 5", sp, rays, a, nb)
@@ -2784,8 +2835,9 @@ def config5_phase(dev, smi, records):
     timed = {}
     for b, (r, w) in enumerate(zip(batches, works), 1):
         bnd = bounds.grid_shoot_bound(w)
-        timed[f"K1 bounce {b}"] = (launch_ms(lambda: voxel.grid_shoot(r, grid), 5,
-                                             "grid_shoot_kernel"), bnd)
+        # K1 with its order's three kernels, which engage at this shape.
+        timed[f"K1 bounce {b}"] = (launch_ms(lambda: voxel.grid_shoot(r, grid), 5, "grid_shoot"),
+                                   bnd)
     r1 = batches[0]
     best_t, best_tri = voxel.grid_shoot(r1, grid)
     timed["K2 bounce 1"] = (launch_ms(lambda: common.finalize_hits(scene, r1, best_t, best_tri), 5,

@@ -20,7 +20,7 @@ on equal t the lowest triangle index.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -37,23 +37,11 @@ from .common import (
     finalize_hits,
     hit_key,
     key_to_hit,
+    stream_buffer,
     traversal_span,
 )
 
 __all__ = ["brute_shoot", "brute_shoot_args", "brute_shoot_plain", "shoot_brute"]
-
-# The kernel's per-ray hit keys, where it merges triangle slabs: one int64
-# buffer per (device index, raw stream), filled with NO_HIT_KEY when made
-# or grown and left holding it by every launch, so a shoot needs no fill.
-_KEYS: Dict[Tuple[int, int], torch.Tensor] = {}
-
-
-def _keys(device: torch.device, n: int) -> torch.Tensor:
-    key = (device.index, torch._C._cuda_getCurrentRawStream(device.index))
-    buf = _KEYS.get(key)
-    if buf is None or buf.numel() < n:
-        buf = _KEYS[key] = torch.full((n,), NO_HIT_KEY, dtype=torch.int64, device=device)
-    return buf
 
 
 def brute_shoot(
@@ -104,10 +92,14 @@ def brute_shoot_args(
     the cached hit keys of ``best_t``'s device and the current stream
     included; the stream follows."""
     o, d, ex = rays.origin, rays.direction, rays.exclude_poly
+    # The per-ray hit keys, where the kernel merges triangle slabs: filled
+    # with NO_HIT_KEY when made or grown and left holding it by every
+    # launch, so a shoot needs no fill.
+    keys = stream_buffer("brute.keys", best_t.device, o.shape[0], torch.int64, NO_HIT_KEY)
     return (o.contiguous(), d.contiguous(), ex.contiguous(), o.shape[0],
             scene.tri_geom.contiguous(), scene.tri_meta.contiguous(), scene.tri_geom.shape[0],
             float(min_t), -1 if top_index is None else int(top_index),
-            int(kernel == "mt"), _keys(best_t.device, o.shape[0]), best_t, best_tri)
+            int(kernel == "mt"), keys, best_t, best_tri)
 
 
 def brute_shoot_plain(

@@ -62,8 +62,9 @@ KERNELS = ("watertight", "mt")
 _tally: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = None
 # The (table, rows) pairs :func:`tally_rows` collects into, or None.
 _rows: Optional[List[Tuple[str, torch.Tensor]]] = None
-# The persistent launches' ray counters, by (device index, raw stream).
-_RAY_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
+# The kernels' cached device buffers (:func:`stream_buffer`), by (name,
+# device index, raw stream).
+_STREAM_BUFFERS: Dict[Tuple[str, int, int], torch.Tensor] = {}
 
 
 def pack_windows(
@@ -331,20 +332,32 @@ def tally_rows() -> Iterator[List[Tuple[str, torch.Tensor]]]:
         _rows = outer
 
 
-def ray_counter(device: torch.device) -> torch.Tensor:
-    """The ray counter of the persistent launches (K1, B2 and B3,
-    ``kernels/csrc/persistent.cuh``) on ``device`` for the current stream:
-    two zeroed ints, made once per (device, stream) and left at zero by
-    every launch.  Launches on one stream run in turn, so the three kernels
-    share it."""
+def stream_buffer(name: str, device: torch.device, n: int, dtype: torch.dtype,
+                  fill=None) -> torch.Tensor:
+    """The buffer ``name`` of at least ``n`` elements of ``dtype`` on
+    ``device`` for the current stream: made once per (name, device, stream)
+    and made anew when ``n`` outgrows it, filled with ``fill`` when made
+    (left unset for None).  Launches on one stream run in turn, and the
+    caching allocator hands a freed buffer only to later work of its
+    stream."""
     # The raw stream handle, without the Stream object that
     # torch.cuda.current_stream builds: that costs several microseconds of
     # host time a call, on a path the host already bounds.
-    key = (device.index, torch._C._cuda_getCurrentRawStream(device.index))
-    counter = _RAY_COUNTERS.get(key)
-    if counter is None:
-        counter = _RAY_COUNTERS[key] = torch.zeros(2, dtype=torch.int32, device=device)
-    return counter
+    key = (name, device.index, torch._C._cuda_getCurrentRawStream(device.index))
+    buf = _STREAM_BUFFERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _STREAM_BUFFERS[key] = (
+            torch.empty(n, dtype=dtype, device=device) if fill is None
+            else torch.full((n,), fill, dtype=dtype, device=device))
+    return buf
+
+
+def ray_counter(device: torch.device) -> torch.Tensor:
+    """The ray counter of the persistent launches (K1, B2 and B3,
+    ``kernels/csrc/persistent.cuh``) on ``device`` for the current stream:
+    two zeroed ints, left at zero by every launch.  Launches on one stream
+    run in turn, so the three kernels share it."""
+    return stream_buffer("ray_counter", device, 2, torch.int32, 0)
 
 
 def traversal_span(accel: str, rays: Ray):

@@ -23,13 +23,13 @@ wall hit by 147k rays cost milliseconds.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Tuple
 
 import torch
 
 from ..kernels import build
 from ..utils.tracing import spanned
-from .common import check_device
+from .common import check_device, stream_buffer
 
 __all__ = ["CHUNK", "gather_rows", "scatter_add_ordered", "scatter_add_plain"]
 
@@ -40,11 +40,6 @@ SCATTER_COLS = (1, 3)
 CHUNK = 1024
 # The fewest keys a block of the kernel's pass 2 takes.
 MIN_RANGE = 32
-
-# The kernel's scratch, one int32 buffer per (device index, raw stream),
-# grown on demand.  Every word the kernel reads it wrote in the same call,
-# so it is never reset.
-_SCRATCH: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def scatter_add_plain(keys: torch.Tensor, values: torch.Tensor, n_keys: int) -> torch.Tensor:
@@ -98,16 +93,6 @@ def pair_count(keys: torch.Tensor, n_keys: int, key_range: int) -> int:
     return int(torch.unique(ids).numel())
 
 
-def _scratch(device: torch.device, words: int) -> torch.Tensor:
-    key = (device.index, torch._C._cuda_getCurrentRawStream(device.index))
-    buf = _SCRATCH.get(key)
-    if buf is None or buf.numel() < words:
-        # Launches on one stream run in turn, and the caching allocator
-        # hands a freed buffer only to later work of its stream.
-        buf = _SCRATCH[key] = torch.empty(words, dtype=torch.int32, device=device)
-    return buf
-
-
 @spanned("hare.backward.scatter")
 def scatter_add_ordered(keys: torch.Tensor, values: torch.Tensor, n_keys: int) -> torch.Tensor:
     """``out[k] = sum of values[i] over keys[i] == k`` in the fixed order
@@ -128,7 +113,9 @@ def scatter_add_ordered(keys: torch.Tensor, values: torch.Tensor, n_keys: int) -
     if keys.shape != (m,) or values.shape[0] != m or values.dim() > 2 or cols not in SCATTER_COLS:
         raise ValueError(f"keys (M,) and values (M,) or (M, 3); got {tuple(keys.shape)}, "
                          f"{tuple(values.shape)}")
-    buf = _scratch(values.device, scratch_words(m, cols, n_keys))
+    # Every word of its scratch the kernel reads it wrote in the same call,
+    # so the scratch is never reset.
+    buf = stream_buffer("scatter", values.device, scratch_words(m, cols, n_keys), torch.int32)
     out = torch.empty((n_keys,) + tuple(values.shape[1:]), dtype=torch.float32,
                       device=values.device)
     build.launch("hare_scatter_add_ordered", keys.contiguous(), values.contiguous(), m, cols,

@@ -23,7 +23,7 @@ buffers, resume rounds or straggler tiers.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional, Sequence, Tuple, Union
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -34,7 +34,7 @@ from ..geom.tribox import tri_box_overlap
 from ..kernels import build
 from ..mesh.scene import Scene
 from ..mesh.topology import Topology
-from ..utils.tracing import span
+from ..utils.tracing import count, span
 from .common import (
     NO_HIT_KEY,
     check_device,
@@ -46,6 +46,7 @@ from .common import (
     pack_windows,
     ray_counter,
     repack_windows,
+    stream_buffer,
     test_runs,
     traversal_span,
 )
@@ -57,8 +58,11 @@ __all__ = [
     "build_voxel_grid",
     "grid_shoot",
     "grid_shoot_args",
+    "grid_order_keys_plain",
+    "grid_order_plain",
     "grid_shoot_plain",
     "grid_work",
+    "order_engages",
     "shoot_grid",
 ]
 
@@ -70,6 +74,26 @@ ENTRY_EPS = 1e-4
 # Distance-field cap (cells); larger empty regions are crossed in several
 # hops.  The cell_meta packing gives the field its full 8 bits.
 DIST_CAP = 255
+
+# K1's ray order (``kernels/csrc/grid_shoot.cu``, the ``grid_shoot_order_*``
+# kernels): the shot's rays enter the march sorted by a key, so that the
+# rays in flight together share cells and window rows in the caches.  A
+# ray's key is the Morton code of its origin quantised to 2^b cells an axis
+# over the grid's box, above the Morton code of its direction's octahedral
+# map quantised to 2^c cells an axis (:func:`grid_order_keys_plain`).  (b,
+# c) are the kernels' ``kOriginBits`` and ``kDirBits``, chosen by
+# ``benchmarks/kernel_sweep.py --order`` (the numbers beside them there).
+ORDER_BITS = (2, 7)
+# The order engages where a shot holds at least this many times the rays
+# the card runs at once (:func:`order_engages`).  K1 with the order against
+# without on an H100 80GB HBM3 (8,448 rays at once), bounce by bounce:
+# config 5 at 2^15 rays (3.9 times) +15.8% / -7.1%, 2^16 (7.8) -1.6% /
+# +0.3%, 2^17 (15.5) -11.1% / -10.5%, 2^18 -21.8% / -18.7%; the bench
+# scene's 48^3 grid, whose tables fit in L2, at 2^15 +35.9% / -2.6% /
+# +10.9%, 2^16 +19.7% / +0.3% / +1.5%, 2^17 +5.4% / -8.7% / -7.0% (-5.2%
+# over the three), 2^18 -1.3% / -13.1% / -11.2%, 2^20 -5.2% / -15.8% /
+# -14.4% (PERF.md §6).
+ORDER_MIN_WAVES = 12
 
 
 def _fill(
@@ -412,8 +436,11 @@ def grid_shoot(
     """K1: nearest accepted hit ``(best_t (N,) f32 — inf on miss,
     best_tri (N,) i32 — -1 on miss)``.
 
-    CUDA tensors launch ``kernels/csrc/grid_shoot.cu``; CPU tensors take
-    :func:`grid_shoot_plain`.
+    CUDA tensors launch ``kernels/csrc/grid_shoot.cu``, the rays in the
+    order of their keys where :func:`order_engages` (counted under
+    ``rays.ordered``); CPU tensors take :func:`grid_shoot_plain`.  The order
+    changes only which ray a group of lanes takes next: every ray's result
+    is the same bits either way.
     """
     check_kernel(kernel)
     check_rays(rays)
@@ -422,12 +449,43 @@ def grid_shoot(
     kind = check_device(o, d, ex, grid.cell_meta, grid.win_geom)
     if kind == "cpu":
         return grid_shoot_plain(rays, grid, kernel, min_t, top_index)
-    n = o.shape[0]
-    best_t = torch.empty(n, dtype=torch.float32, device=o.device)
-    best_tri = torch.empty(n, dtype=torch.int32, device=o.device)
-    args = grid_shoot_args(rays, grid, best_t, best_tri, kernel, min_t, top_index)
-    build.launch("hare_grid_shoot", *args, ray_counter(o.device))
-    return best_t, best_tri
+    return _grid_shoot_card(rays, grid, kernel, min_t, top_index)[:2]
+
+
+class GridOrder(NamedTuple):
+    """The order K1 took a shot's rays in: views of its scratch, valid until
+    the next ordered shot on the stream."""
+
+    keys: torch.Tensor  # (N,) i32 each ray's key
+    order: torch.Tensor  # (N,) i32 the rays by key
+
+
+def _grid_shoot_card(
+    rays: Ray,
+    grid: VoxelGrid,
+    kernel: str = "watertight",
+    min_t: float = MIN_T,
+    top_index: Optional[int] = None,
+    ordered: Optional[bool] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, Optional[GridOrder]]:
+    """K1 on CUDA tensors: ``(best_t, best_tri, the order or None)``.
+    ``ordered`` None leaves the order to :func:`order_engages`; True or
+    False forces it (tests and ``benchmarks/kernel_sweep.py``)."""
+    o = rays.origin
+    n, dev = o.shape[0], o.device
+    resident, fixed = card_capacity(dev, kernel)
+    if ordered is None:
+        ordered = order_engages(n, resident)
+    # The order's counts and tile sums are zero between orders.
+    scratch = stream_buffer("grid_order", dev, fixed + 3 * n, torch.int32, 0) if ordered else None
+    best_t = torch.empty(n, dtype=torch.float32, device=dev)
+    best_tri = torch.empty(n, dtype=torch.int32, device=dev)
+    args = grid_shoot_args(rays, grid, best_t, best_tri, kernel, min_t, top_index, scratch)
+    build.launch("hare_grid_shoot", *args, ray_counter(dev))
+    if scratch is None:
+        return best_t, best_tri, None
+    count("rays.ordered", n)
+    return best_t, best_tri, GridOrder(scratch[fixed:fixed + n], scratch[fixed + 2 * n:fixed + 3 * n])
 
 
 def grid_shoot_args(
@@ -438,12 +496,12 @@ def grid_shoot_args(
     kernel: str = "watertight",
     min_t: float = MIN_T,
     top_index: Optional[int] = None,
+    order: Optional[torch.Tensor] = None,
 ) -> tuple:
     """The arguments of the C entry point ``hare_grid_shoot`` up to the
-    outputs ``best_t`` and ``best_tri`` (tensors as tensors, for
-    :func:`~..kernels.build.launch`); the ray counter
-    (:func:`~.common.ray_counter`)
-    and the stream follow."""
+    order's scratch ``order`` (None: the rays in index order; tensors as
+    tensors, for :func:`~..kernels.build.launch`); the ray counter
+    (:func:`~.common.ray_counter`) and the stream follow."""
     o, d, ex = rays.origin, rays.direction, rays.exclude_poly
     fparams = (ctypes.c_float * 14)(
         *grid.host_params, ENTRY_EPS * grid.char_step, min_t
@@ -454,7 +512,90 @@ def grid_shoot_args(
     )
     return (o.contiguous(), d.contiguous(), ex.contiguous(), o.shape[0],
             grid.cell_meta, grid.win_geom, grid.win_ids, fparams, iparams,
-            best_t, best_tri)
+            best_t, best_tri, order)
+
+
+def _quantise(u: torch.Tensor, cells: int) -> torch.Tensor:
+    """``floor(u)`` clamped to ``[0, cells)``, NaN to 0: the kernels'
+    ``quantise``."""
+    inner = torch.where(u < cells, torch.floor(u), float(cells - 1))
+    return torch.where(u >= 0, inner, 0.0).to(torch.int64)
+
+
+def _morton(qs: Sequence[torch.Tensor], bits: int) -> torch.Tensor:
+    """Bit k of ``qs[j]`` to bit ``k * m + (m - 1 - j)`` of the code (m =
+    ``len(qs)``): the first axis highest."""
+    m = len(qs)
+    code = torch.zeros_like(qs[0])
+    for k in range(bits):
+        for j, q in enumerate(qs):
+            code |= ((q >> k) & 1) << (k * m + m - 1 - j)
+    return code
+
+
+def grid_order_keys_plain(rays: Ray, grid: VoxelGrid,
+                          bits: Tuple[int, int] = ORDER_BITS) -> torch.Tensor:
+    """Plain version of the order's keys, ``(N,)`` int32, each operation
+    rounded in f32 as the kernel rounds it: the Morton code of the origin's
+    cell, 2^b an axis over the grid's box (``floor((o - grid_min) * 2^b /
+    (grid_max - grid_min))``, clamped), shifted
+    above the Morton code of the direction's octahedral map quantised to 2^c
+    an axis.  The map: ``p = d / (|dx| + |dy| + |dz|)`` (0 for a zero
+    direction), folded for ``dz < 0`` to ``((1 - |py|) sgn px, (1 - |px|) sgn
+    py)`` with sgn 0 = 1, then ``(p + 1) * 2^c / 2``."""
+    b, c = bits
+    o, d = rays.origin, rays.direction
+    hp = np.asarray(grid.host_params, np.float32)
+    scale = np.float32(1 << b) / (hp[3:6] - hp[0:3])
+    lo, scale = (torch.from_numpy(x).to(o.device) for x in (hp[0:3], scale))
+    q = _quantise((o - lo) * scale, 1 << b)
+    a = d.abs()
+    s = (a[:, 0] + a[:, 1]) + a[:, 2]
+    px = torch.where(s > 0, d[:, 0] / s, 0.0)
+    py = torch.where(s > 0, d[:, 1] / s, 0.0)
+    fx = (1 - py.abs()) * torch.where(px >= 0, 1.0, -1.0)
+    fy = (1 - px.abs()) * torch.where(py >= 0, 1.0, -1.0)
+    below = d[:, 2] < 0
+    px, py = torch.where(below, fx, px), torch.where(below, fy, py)
+    half = (1 << c) / 2.0
+    qd = [_quantise((p + 1) * half, 1 << c) for p in (px, py)]
+    key = (_morton([q[:, 0], q[:, 1], q[:, 2]], b) << (2 * c)) | _morton(qd, c)
+    return key.to(torch.int32)
+
+
+def grid_order_plain(rays: Ray, grid: VoxelGrid,
+                     bits: Tuple[int, int] = ORDER_BITS) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the order: ``(keys, order)``, the keys of
+    :func:`grid_order_keys_plain` and their stable argsort (int32).  The
+    kernels' order holds the rays of one key in another order; its keys,
+    ``keys[order]``, are the same."""
+    keys = grid_order_keys_plain(rays, grid, bits)
+    return keys, torch.sort(keys, stable=True).indices.to(torch.int32)
+
+
+# (device index, MT) -> hare_grid_shoot_capacity's two numbers.
+_CAPACITY: Dict[Tuple[int, bool], Tuple[int, int]] = {}
+
+
+def card_capacity(device: torch.device, kernel: str = "watertight") -> Tuple[int, int]:
+    """K1's rays resident at once on ``device`` and the order scratch's
+    words before its per-ray part (``hare_grid_shoot_capacity``, asked once
+    per device and kernel)."""
+    key = (device.index, kernel == "mt")
+    got = _CAPACITY.get(key)
+    if got is None:
+        out = torch.zeros(2, dtype=torch.int32)
+        build.launch("hare_grid_shoot_capacity", int(kernel == "mt"), out)
+        got = _CAPACITY[key] = tuple(int(x) for x in out)
+    return got
+
+
+def order_engages(n: int, resident_rays: int) -> bool:
+    """Whether K1 orders a shot of ``n`` rays on a card that runs
+    ``resident_rays`` rays at once: only where the shot is many waves of
+    rays (``ORDER_MIN_WAVES``).  Smaller shots would pay the order's
+    launches for little reuse."""
+    return n >= ORDER_MIN_WAVES * resident_rays
 
 
 class GridWork(NamedTuple):

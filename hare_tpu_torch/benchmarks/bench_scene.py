@@ -17,8 +17,8 @@ N_RAYS, N_BOUNCES, ABSORPTION = 1 << 15, 3, 0.3
 WINDOWS = 5
 
 
-def bench_setup(dev):
-    """``bench.py``'s scene, grid and rays on ``dev``: ``(topology,
+def bench_setup(dev, n: int = N_RAYS):
+    """``bench.py``'s scene, grid and ``n`` rays on ``dev``: ``(topology,
     SpatialPartition, rays, absorption)``."""
     import hare_tpu_torch as th
     from hare_tpu_torch.mesh import shapes
@@ -28,7 +28,7 @@ def bench_setup(dev):
     )
     top = th.Topology.build(faces)
     sp = th.SpatialPartition(top, accel="grid", domain=48, device=dev)
-    d = th.uniform_sphere(N_RAYS, torch.Generator().manual_seed(0), device=dev)
+    d = th.uniform_sphere(n, torch.Generator().manual_seed(0), device=dev)
     o = torch.tensor([10.0, 10.0, 10.0], device=dev) + 6.5 * d
     absorption = torch.full((top.n_polys,), ABSORPTION, device=dev)
     return top, sp, th.Ray.make(o, d), absorption

@@ -2,6 +2,12 @@
 
     python -m hare_tpu_torch.benchmarks.kernel_sweep [--kernels k1,b1,b2,b3,a3,k3,k2,hb,gs]
         [--parent DIR] [--reps N]
+    python -m hare_tpu_torch.benchmarks.kernel_sweep --order 2:7,1:8,... [--reps N]
+
+With ``--order``, the sweep times K1's ray order instead (:func:`order_study`):
+K1 on config 5's and the bench scene's bounces in drawn order, pre-sorted by
+the order's key for each ``b:c``, and built with that key ordering them
+itself.
 
 Each candidate is a kernel's built source (``kernels/csrc/grid_shoot.cu``
 K1, ``brute_shoot.cu`` B1, ``tree_shoot.cu`` B2, ``ropes_shoot.cu`` B3,
@@ -88,9 +94,11 @@ import torch
 from ..kernels import build
 from .bench_scene import (N_BOUNCES, N_RAYS, bench_setup, bounce_rays, device_ms,
                           profile_kernels)
+from .pallas_probe import seconds_per_call
 
-__all__ = ["CANDIDATES", "FMA_FLAGS", "GLUE", "HIST_REL_TOL", "SPECS", "YARDSTICK", "gs_cases",
-           "gs_given", "hb_given", "k2_given", "k3_given", "variant_source"]
+__all__ = ["CANDIDATES", "FMA_FLAGS", "GLUE", "HIST_REL_TOL", "SPECS", "YARDSTICK", "check_order",
+           "gs_cases", "gs_given", "hb_given", "k2_given", "k3_given", "order_variant",
+           "variant_source"]
 
 BIN_DT = 1e-3  # the bench's and eval configs' bin width (s)
 
@@ -133,7 +141,7 @@ class Spec(NamedTuple):
 SPECS = {
     "k1": Spec("grid_shoot.cu", "hare_grid_shoot", "grid_shoot_kernel",
                ("o", "d", "ex", "n", "cell_meta", "win_geom", "win_ids", "fparams", "iparams",
-                "best_t", "best_tri")),
+                "best_t", "best_tri", "order")),
     "b1": Spec("brute_shoot.cu", "hare_brute_shoot", "brute_shoot_kernel",
                ("o", "d", "ex", "n", "tri_geom", "tri_meta", "n_tris", "min_t", "top_index",
                 "mt", "keys", "best_t", "best_tri")),
@@ -1132,7 +1140,172 @@ def _caller(fn, params, given):
         if rc != 0:
             raise RuntimeError(f"CUDA error {rc}")
 
+    # conv holds raw pointers: the tensors behind them live as long as the call.
+    call.given = given
     return call
+
+
+# The order study's shot sizes below 2^20: prefixes of the drawn rays,
+# each a uniform sample of them.
+ORDER_SIZES = (1 << 15, 1 << 16, 1 << 17, 1 << 18, 1 << 19)
+# K1 and the order's kernels, by the names the profiler records.
+ORDER_KERNELS = ("grid_shoot_kernel", "grid_shoot_order_keys", "grid_shoot_order_scan",
+                 "grid_shoot_order_place")
+
+
+def _card() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
+
+
+def order_variant(bits) -> Variant:
+    """K1's built source with the order's key of ``bits`` = (b, c): its
+    ``kOriginBits`` and ``kDirBits``."""
+    from ..accel import voxel
+
+    names = ("kOriginBits", "kDirBits")
+    reps = tuple((f"constexpr int {k} = {old};", f"constexpr int {k} = {new};")
+                 for k, old, new in zip(names, voxel.ORDER_BITS, bits))
+    built = " (built)" if tuple(bits) == voxel.ORDER_BITS else ""
+    return Variant(f"{bits[0]}:{bits[1]}{built}",
+                   variant_source((build.CSRC / SPECS["k1"].source).read_text(), reps),
+                   build.CSRC, build.NVCC_FLAGS)
+
+
+def _ordering(lib, grid, rays):
+    """A call of a built K1 variant that orders ``rays`` itself, its outputs
+    and its order: ``(call -> (best_t, best_tri), GridOrder)``.  The
+    scratch is made once: the order leaves its counts at zero."""
+    from ..accel import voxel
+
+    fns, params, _ = lib
+    cap = torch.zeros(2, dtype=torch.int32)
+    if fns["hare_grid_shoot_capacity"](0, cap.data_ptr(), None) != 0:
+        raise RuntimeError("hare_grid_shoot_capacity failed")
+    fixed, n, dev = int(cap[1]), rays.origin.shape[0], rays.origin.device
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    i = torch.empty(n, dtype=torch.int32, device=dev)
+    scratch = torch.zeros(fixed + 3 * n, dtype=torch.int32, device=dev)
+    given = dict(zip(SPECS["k1"].args, voxel.grid_shoot_args(rays, grid, t, i, order=scratch)))
+    given.update(counter=torch.zeros(2, dtype=torch.int32, device=dev),
+                 stream=torch.cuda.current_stream().cuda_stream)
+    call = _caller(fns[SPECS["k1"].entry], params, given)
+
+    def run():
+        call()
+        return t, i
+
+    return run, voxel.GridOrder(scratch[fixed:fixed + n], scratch[fixed + 2 * n:fixed + 3 * n])
+
+
+def _sorted_rays(rays, grid, bits):
+    """The rays sorted by the order's key (its plain version and a stable
+    ``torch.sort``: the sweep's ceiling, with no cost of ordering) and the
+    permutation."""
+    from ..accel import voxel
+
+    _, perm = voxel.grid_order_plain(rays, grid, bits)
+    perm = perm.long()
+    return type(rays)(*(x[perm] for x in rays)), perm
+
+
+def check_order(name, rays, grid, got, bits=None) -> None:
+    """K1's order ``got`` (a ``voxel.GridOrder``) of ``rays`` against its
+    plain version with ``bits`` (None: the built ones): the same keys to
+    the bit, a permutation, the keys non-decreasing along it."""
+    from ..accel import voxel
+
+    bits = voxel.ORDER_BITS if bits is None else bits
+    keys, order = got
+    n = keys.numel()
+    plain = voxel.grid_order_keys_plain(rays, grid, bits)
+    seen = torch.zeros(n, dtype=torch.int32, device=keys.device)
+    seen.index_add_(0, order.long(), torch.ones_like(order))
+    along = keys[order.long()]
+    if not (torch.equal(keys, plain) and bool((seen == 1).all())
+            and bool((along[1:] >= along[:-1]).all())):
+        raise AssertionError(f"{name}: the kernels' order {bits} differs from its plain version")
+
+
+def order_study(dev, bits_list, reps: int) -> dict:
+    """K1 on each bounce's rays in drawn order against the same rays sorted
+    by the order's key ("sorted": the ceiling, no cost of ordering) and
+    against K1 built with that key ordering them itself ("order": its three
+    kernels included; :func:`order_variant`), for each ``(b, c)`` of
+    ``bits_list``; on config 5 (2 bounces of 2^20 rays, 256^3 tables beyond
+    L2) and on the bench scene at 2^20 rays (3 bounces; its tables fit in
+    L2), then on the first ``ORDER_SIZES`` rays of each with the first
+    bits.  Every shoot is checked bit-equal to the drawn one ray by ray,
+    and each variant's order against its plain version.  Times are ms a
+    call by CUDA events, A B ... B A (over ``reps`` calls each; a profiler
+    drops its records after many windows in one process), and each order
+    kernel's device ms from one profiled window a case and bits."""
+    from ..accel import voxel
+    from . import configs
+
+    resident, _ = voxel.card_capacity(dev)
+    rec = {"card": _card(), "resident_rays": resident, "cases": {}}
+    print(f"sweep order [{rec['card']}]: K1 runs {resident} rays at once")
+    libs = {}
+
+    def timed(name, grid, r, bits_here):
+        def drawn(rays):
+            return voxel._grid_shoot_card(rays, grid, ordered=False)[:2]
+
+        base = drawn(r)
+        runs = {"drawn": lambda: drawn(r)}
+        for bits in bits_here:
+            label = order_variant(bits).label
+            rs, perm = _sorted_rays(r, grid, bits)
+            own, got = _ordering(libs[label], grid, r)
+            for out, at in ((drawn(rs), perm), (own(), None)):
+                for x, y in zip(out, base):
+                    y = y if at is None else y[at]
+                    if not torch.equal(x.view(torch.int32), y.view(torch.int32)):
+                        raise AssertionError(f"{name}: {label} hits otherwise")
+            check_order(name, r, grid, got, bits)
+            runs[f"{label} sorted"] = lambda rs=rs: drawn(rs)
+            runs[f"{label} order"] = own
+        order = list(runs)
+        times = {k: [] for k in order}
+        for k in order + order[::-1]:
+            times[k].append(seconds_per_call(runs[k], dev, reps) * 1e3)
+        out = {k: sum(v) / len(v) for k, v in times.items()}
+        parts = {}
+        for k in order:
+            if k.endswith(" order"):
+                try:
+                    got = profile_kernels(runs[k], reps)
+                except RuntimeError:  # the profiler recorded nothing
+                    continue
+                parts[k] = {tag: sum(t / n for name, (t, n) in got.items() if tag in name) / 1e3
+                            for tag in ORDER_KERNELS}
+        print(f"sweep order {name} ({r.origin.shape[0]} rays): " + "; ".join(
+            f"{k} {ms:.4f} ms ({', '.join(f'{x:.4f}' for x in times[k])}; "
+            f"{ms / out['drawn'] - 1:+.1%})" for k, ms in out.items())
+            + "; device ms by kernel: " + "; ".join(
+                f"{k} " + ", ".join(f"{n} {ms:.4f}" for n, ms in v.items())
+                for k, v in parts.items()))
+        rec["cases"][name] = dict(ms=out, each=times, kernels_ms=parts, n=r.origin.shape[0])
+
+    def study(label, grid, batches):
+        for b, r in enumerate(batches, 1):
+            timed(f"{label} bounce {b}", grid, r, bits_list)
+        for b, r in enumerate(batches, 1):
+            for m in ORDER_SIZES:
+                timed(f"{label} bounce {b} first {m}", grid, type(r)(*(x[:m] for x in r)),
+                      bits_list[:1])
+
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        libs.update(_build(SPECS["k1"].entry, [order_variant(b) for b in bits_list], Path(tmp),
+                           "order", others=("hare_grid_shoot_capacity",)))
+        cfg = configs.config5_setup(dev)
+        study("config 5", cfg.partition.struct,
+              bounce_rays(cfg.partition, cfg.rays, cfg.absorption, cfg.n_bounces))
+        del cfg
+        _, sp, rays, a = bench_setup(dev, 1 << 20)
+        study("bench 2^20", sp.struct, bounce_rays(sp, rays, a))
+    return rec
 
 
 def main(argv=None) -> dict:
@@ -1142,9 +1315,18 @@ def main(argv=None) -> dict:
     ap.add_argument("--parent", type=Path, default=None,
                     help="another checkout whose kernels are candidates too")
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--order", default="",
+                    help="b:c,... : time K1 ordering its rays by keys of these bits, and on "
+                         "rays sorted by them, instead of the candidates")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("the sweep times the card: torch.cuda.is_available() is False")
+    if args.order:
+        bits = [tuple(int(x) for x in b.split(":")) for b in args.order.split(",")]
+        build.library()
+        rec = order_study(torch.device("cuda"), bits, args.reps)
+        print(json.dumps({"kernel_sweep_order": rec}))
+        return rec
     kernels = [k for k in args.kernels.split(",") if k]
     unknown = set(kernels) - set(SPECS)
     if unknown:

@@ -20,8 +20,9 @@ the sources and flags changes.  Nothing here runs at import time, so the
 package imports on machines with no CUDA toolkit.
 
 Every launch goes through :func:`launch`, which counts it under
-``launches.<C entry point>`` (``utils.tracing``); ``hare_scatter_plan``,
-which runs on the host alone, counts under ``calls.hare_scatter_plan``.  A
+``launches.<C entry point>`` (``utils.tracing``); ``hare_scatter_plan`` and
+``hare_grid_shoot_capacity``, which run on the host alone, count under
+``calls.<C entry point>``.  A
 build counts under ``kernels.builds`` in the span ``hare.kernels.build``,
 the library's load in ``hare.kernels.load``.
 """
@@ -56,7 +57,8 @@ _LL = ctypes.c_longlong
 _F = ctypes.c_float
 # Every C entry point: argument types in order; each returns a cudaError_t.
 _SIGNATURES = {
-    "hare_grid_shoot": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "hare_grid_shoot": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "hare_grid_shoot_capacity": [_I, _P, _P],
     "hare_brute_shoot": [_P, _P, _P, _I, _P, _P, _I, _F, _I, _I, _P, _P, _P, _P],
     "hare_tree_shoot": [_P, _P, _P, _I, _P, _P, _P, _P, _F, _P, _P, _P, _P, _P, _P, _P],
     "hare_ropes_shoot": [_P, _P, _P, _I] + [_P] * 7 + [_P, _P, _P, _P, _P, _P, _P, _P],
@@ -74,7 +76,7 @@ _SIGNATURES = {
     "hare_gather_sum_i32_f32": [_P, _LL, _I, _P, _I, _I, _P, _P, _P],
 }
 # Entry points that launch nothing: they compute on the host.
-_HOST_ONLY = ("hare_scatter_plan",)
+_HOST_ONLY = ("hare_scatter_plan", "hare_grid_shoot_capacity")
 # The counter each entry point's calls count under.
 _COUNTER = {name: ("calls." if name in _HOST_ONLY else "launches.") + name
             for name in _SIGNATURES}

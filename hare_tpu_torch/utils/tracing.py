@@ -21,7 +21,8 @@
 - :func:`count` adds to a named counter, whether recording is on or off:
   ``launches.<C entry point>`` (``kernels.build.launch``), ``syncs.<site>``
   (each blocking read of a step, by :func:`sync`), ``rays.shot`` (rays
-  handed to a traversal), ``kernels.builds``, and ``histogram_bwd.hard`` /
+  handed to a traversal), ``rays.ordered`` (those K1 took in its ray order),
+  ``kernels.builds``, and ``histogram_bwd.hard`` /
   ``.soft`` (the mode of each ``hare_histogram_bwd`` launch).  :data:`counters` is the live
   table; a path that counts every launch adds to it in place, which costs
   what a function attribute's increment does, where a call costs more.

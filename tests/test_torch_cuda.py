@@ -30,6 +30,7 @@ from hare_tpu_torch.accel.scatter import (  # noqa: E402
     scratch_words,
 )
 from hare_tpu_torch.accel.tree import tree_shoot, tree_shoot_plain  # noqa: E402
+from hare_tpu_torch.accel import voxel  # noqa: E402
 from hare_tpu_torch.accel.voxel import build_voxel_grid, grid_shoot, grid_shoot_plain  # noqa: E402
 from hare_tpu_torch.benchmarks import a3_check  # noqa: E402
 from hare_tpu_torch.benchmarks import pallas_probe as probes  # noqa: E402
@@ -644,6 +645,73 @@ def test_persistent_counter_shared_in_turn(dev):
             assert_bit_equal(k, p)
             assert torch.equal(ray_counter(grid.cell_meta.device).cpu(),
                                torch.zeros(2, dtype=torch.int32))
+
+
+def assert_order_is_plain(rays, grid, got):
+    """The kernels' order: keys equal to the plain version's to the bit, a
+    permutation of the rays, its keys non-decreasing."""
+    keys, order = got
+    plain_keys, plain_order = voxel.grid_order_plain(rays, grid)
+    assert torch.equal(keys, plain_keys)
+    assert torch.equal(torch.sort(order.long()).values, torch.arange(keys.numel(), device=keys.device))
+    assert torch.equal(keys[order.long()], plain_keys[plain_order.long()])
+
+
+@pytest.fixture(scope="module")
+def bench_2p20(dev):
+    """The bench scene's grid (48^3, its tables inside L2) and the rays of
+    the two bounces of 2^20 rays."""
+    from hare_tpu_torch.benchmarks.bench_scene import bench_setup
+
+    _, sp, rays, a = bench_setup(dev, 1 << 20)
+    return sp.struct, bounce_rays(sp, rays, a, 2)
+
+
+@pytest.mark.parametrize("bounce", [1, 2])
+def test_grid_order_bit_equal(dev, bench_2p20, bounce):
+    """K1 taking 2^20 rays in the order of their keys gives every ray the
+    bits it gets in index order and from its plain version; the kernels'
+    keys equal the plain version's and their order sorts them."""
+    grid, batches = bench_2p20
+    r = batches[bounce - 1]
+    t, tri, got = voxel._grid_shoot_card(r, grid, ordered=True)
+    assert_order_is_plain(r, grid, got)
+    t0, tri0, none = voxel._grid_shoot_card(r, grid, ordered=False)
+    assert none is None
+    assert_bit_equal((t, tri), (t0, tri0))
+    assert_bit_equal((t, tri), grid_shoot_plain(r, grid))
+
+
+@pytest.mark.parametrize("n", [0, 1, 2, 3000])
+def test_grid_order_small_and_one_key(dev, bench_2p20, n):
+    """No ray, one, and shots whose rays all share one key (one origin and
+    one direction): the order is a permutation, the hits as in index order;
+    then a full shot after them finds its counts at zero."""
+    grid, batches = bench_2p20
+    r = batches[0]
+    same = th.Ray(*(x[:1].expand(n, *x.shape[1:]).contiguous() for x in r))
+    for rays in (th.Ray(*(x[:n] for x in r)), same):
+        t, tri, got = voxel._grid_shoot_card(rays, grid, ordered=True)
+        assert_order_is_plain(rays, grid, got)
+        assert_bit_equal((t, tri), voxel._grid_shoot_card(rays, grid, ordered=False)[:2])
+    t, tri, got = voxel._grid_shoot_card(r, grid, ordered=True)
+    assert_order_is_plain(r, grid, got)
+    assert_bit_equal((t, tri), voxel._grid_shoot_card(r, grid, ordered=False)[:2])
+
+
+def test_grid_order_engages_by_shape(dev, bench_2p20):
+    """On the card, grid_shoot orders the bench grid's 2^20 rays (many
+    waves of the rays K1 runs at once) and leaves the bench's 32,768 in
+    index order, one launch of hare_grid_shoot a shot either way."""
+    grid, batches = bench_2p20
+    resident, fixed = voxel.card_capacity(dev)
+    assert 0 < resident * voxel.ORDER_MIN_WAVES <= 1 << 20 and fixed > 0
+    tracing.reset()
+    k1 = launches("hare_grid_shoot")
+    for rays in (batches[0], th.Ray(*(x[:32768] for x in batches[0]))):
+        grid_shoot(rays, grid)
+    assert launches("hare_grid_shoot") - k1 == 2
+    assert tracing.snapshot().counters.get("rays.ordered", 0) == 1 << 20
 
 
 @pytest.mark.parametrize("which", ["kdtree", "ropes", "hall_octree"])

@@ -329,7 +329,30 @@ def test_k1_sweep_reads_the_entry_point():
              'int n, const int* cell_meta, const float* win_geom, const int* win_ids, '
              'const float* fparams, const int* iparams, float* best_t, int* best_tri, '
              'void* stream) {')
-    assert [n for n, _ in kernel_sweep._c_params(older, spec.entry)] == list(spec.args) + ["stream"]
+    assert [n for n, _ in kernel_sweep._c_params(older, spec.entry)] == (
+        [a for a in spec.args if a != "order"] + ["stream"])
+
+
+def test_sweep_call_keeps_its_tensors():
+    """A sweep call passes raw pointers: the tensors behind them live as
+    long as the call, so a later call never writes into freed memory."""
+    import gc
+    import weakref
+
+    got = []
+    t = torch.zeros(3)
+    alive = weakref.ref(t)
+    call = kernel_sweep._caller(lambda *a: got.append(a) or 0, [("x", None), ("k", None)],
+                                {"x": t, "k": 5})
+    ptr = t.data_ptr()
+    del t
+    gc.collect()
+    assert alive() is not None
+    call()
+    assert got == [(ptr, 5)]
+    del call
+    gc.collect()
+    assert alive() is None
 
 
 # The B2 and B3 entry points of the one-thread-per-ray design, which had no
