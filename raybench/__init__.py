@@ -5,7 +5,8 @@
 JSON line.  Every cell is data: a configuration file
 (``configs/<name>.json``: the scene as a list of shapes, the structure and
 its build parameters, the source, the absorption), a traffic mix
-(``traffic/<name>.json``: rays a step, bounces, bins, the ray pool), the
+(``traffic/<name>.json``: rays a step, bounces, bins, the ray pool, and
+the step's bins, loss and leaf: ``cells.step_of``), the
 limits of the output check (``limits/<cell>.json``), and one reader a
 metric (``metrics/<metric>.py``).  The yardstick lives here too: the
 scene and ray generators (``shapes/``, ``rays.py``), the plain reference

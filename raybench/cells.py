@@ -4,6 +4,10 @@ limits of its check (``limits/<cell>.json``) and the reader of each of its
 metrics (``metrics/<metric>.py``).  Adding a cell, a configuration, a
 traffic mix or a metric adds files; nothing here names one.
 
+A traffic mix may say what the step is differentiated in and through what
+(``histogram``, ``loss``, ``wrt``, ``remat``); :func:`step_of` reads them,
+each absent key at the step every cell took before these keys.
+
 A metric split by the cells' family, ``<metric>.<family>`` (one bound for
 cells the device paces, another for cells the host paces), is the same
 quantity: where it has no reader of its own, ``<metric>``'s reads it."""
@@ -18,10 +22,43 @@ from typing import Callable, Dict, List, NamedTuple
 HERE = Path(__file__).resolve().parent
 
 
+class Step(NamedTuple):
+    """What a step computes after the trace: soft or hard bins, the first
+    moment or the sum as the loss, the gradient w.r.t. the vertices or the
+    absorption, and per-bounce remat."""
+
+    soft: bool
+    first_moment: bool
+    wrt_vertices: bool
+    remat: bool
+
+
+_CHOICES = {"histogram": {"hard": False, "soft": True},
+            # The first three traffic files spell the sum out.
+            "loss": {"sum": False, "sum of the hard histogram": False, "first_moment": True},
+            "wrt": {"absorption": False, "vertices": True},
+            "remat": {False: False, True: True}}
+_DEFAULTS = {"histogram": "hard", "loss": "sum", "wrt": "absorption", "remat": False}
+
+
+def step_of(traffic: Dict) -> Step:
+    """The traffic mix's step; raises on a value it does not know."""
+    got = {}
+    for key, table in _CHOICES.items():
+        value = traffic.get(key, _DEFAULTS[key])
+        if value not in table:
+            raise ValueError(f"traffic key {key!r}: {value!r} is not one of {list(table)}")
+        got[key] = table[value]
+    return Step(got["histogram"], got["loss"], got["wrt"], got["remat"])
+
+
 class Metric(NamedTuple):
     name: str
     unit: str
     read: Callable  # read(ctx) -> float or None
+    # The reader's DEVICE_WINDOW: an end-to-end metric that reads the
+    # device's operations over the whole measured window.
+    device_window: bool = False
 
 
 class Cell(NamedTuple):
@@ -39,7 +76,7 @@ def _json(path: Path) -> Dict:
         return json.load(f)
 
 
-def _reader(name: str, base: Path) -> Callable:
+def _reader(name: str, base: Path):
     path = base / "metrics" / f"{name}.py"
     if not path.exists() and "." in name:
         path = base / "metrics" / f"{name.rsplit('.', 1)[0]}.py"
@@ -48,12 +85,17 @@ def _reader(name: str, base: Path) -> Callable:
         raise FileNotFoundError(f"no reader for metric {name!r} under {base / 'metrics'}")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
 
 
 def _metrics(entries: List[Dict], cell: str, base: Path) -> List[Metric]:
-    return [Metric(m["name"], m["unit"], _reader(m["name"], base)) for m in entries
-            if cell in m.get("workloads", [cell])]
+    got = []
+    for m in entries:
+        if cell in m.get("workloads", [cell]):
+            mod = _reader(m["name"], base)
+            got.append(Metric(m["name"], m["unit"], mod.read,
+                              bool(getattr(mod, "DEVICE_WINDOW", False))))
+    return got
 
 
 def resolve(name: str, root: Path = HERE.parent, base: Path = HERE) -> Cell:

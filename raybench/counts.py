@@ -8,8 +8,8 @@ structure (grid cells, tree nodes, window slots): they are what the
 inputs need, so one count serves whatever grid or tree implements a layer.
 
 Frozen from the port's ``benchmarks/bounds.py`` (its byte and operation
-constants for the ray, the nearest hit, the triangle test and K4), with the
-traversal's count reckoned anew from shapes.
+constants for the ray, the nearest hit, the triangle test, K4 and A3), with
+the traversal's count reckoned anew from shapes.
 """
 
 from __future__ import annotations
@@ -40,6 +40,15 @@ BOUNCE_IN_BYTES = (4 + 4 + 12 + 12 + 1) + (1 + 4 + 4 + 4 + 12 + 12 + 4 + 12)
 BOUNCE_OUT_BYTES = (12 + 12 + 8 + 4 + 4 + 1) + (4 + 4 + 4 + 4)
 BOUNCE_OPS = 28
 
+# A3, the hit record's backward, per ray (bounds.py's FINALIZE_BWD_RAY_BYTES
+# and its miss ray's FINALIZE_BWD_OPS): the winner, the forward t, hit,
+# origin, direction and the cotangents in; d(origin), d(direction), three
+# vertex ids and three corner cotangents out; e1, e2 and the normal's two
+# crosses.  A hit ray's further operations and the triangles' vertex ids
+# and vertices read are left out: the bound is a floor.
+FINALIZE_BWD_RAY_BYTES = (4 + 4 + 1 + 24 + 12 + 24) + (24 + 12 + 36)
+FINALIZE_BWD_MISS_OPS = 6 + 18
+
 
 def bound_ms(ops: float, nbytes: float) -> float:
     """The larger of ``ops / PEAK_FP32`` and ``nbytes / PEAK_BYTES``, in ms."""
@@ -60,3 +69,9 @@ def bounce_bound_ms(rays: int, bounces: int) -> float:
     shots = rays * bounces
     return bound_ms(shots * BOUNCE_OPS, shots * (BOUNCE_IN_BYTES + BOUNCE_OUT_BYTES))
 
+
+def finalize_bwd_bound_ms(rays: int, bounces: int) -> float:
+    """A step's A3 launches: each bounce, every ray's record and cotangents
+    in and its corner cotangents out, and a miss ray's operations."""
+    shots = rays * bounces
+    return bound_ms(shots * FINALIZE_BWD_MISS_OPS, shots * FINALIZE_BWD_RAY_BYTES)

@@ -108,6 +108,23 @@ def collect(prof) -> DevTrace:
                     linked / len(kernels) if kernels else 0.0)
 
 
+def collect_device(prof, steps: int) -> DevTrace:
+    """Read a finished ``torch.profiler.profile`` of the device's activity
+    alone over ``steps`` whole steps: every kernel, copy and memset it
+    holds, the window from the first one's start to the last one's end."""
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels, copies = [], []
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() != cuda or name in SPANS:
+            continue
+        op = Op(name, e.start_ns(), e.end_ns(), "")
+        (copies if name.startswith(("Memcpy", "Memset")) else kernels).append(op)
+    ops = kernels + copies
+    window = (min(o.start for o in ops), max(o.end for o in ops)) if ops else (0, 0)
+    return DevTrace(kernels, copies, 0, steps, window, 0.0)
+
+
 def busy_ns(tr: DevTrace) -> int:
     """Nanoseconds of the window in which some kernel or copy ran."""
     total, cur_s, cur_e = 0, None, None

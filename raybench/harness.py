@@ -4,6 +4,7 @@ check and the metrics, as ``run.py`` prints them."""
 from __future__ import annotations
 
 import os
+import resource
 import sys
 import time
 from pathlib import Path
@@ -15,7 +16,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from . import counts, devtrace, judge, rays, reference, shapes
-from .cells import Cell
+from .cells import Cell, step_of
 from .devtrace import STEP
 from .program import System
 
@@ -56,6 +57,25 @@ def _sync(device) -> None:
         torch.cuda.synchronize()
 
 
+def host_use() -> Dict[str, float]:
+    """This process's CPU seconds (all threads, and the calling thread), the
+    seconds its threads waited for a CPU, its involuntary context switches
+    and the machine's stolen seconds (Linux ``/proc``).  Read before and
+    after a window, they tell a host that ran the steps slower from one
+    that left them waiting."""
+    wait = 0.0
+    for task in Path("/proc/self/task").iterdir():
+        try:
+            wait += int((task / "schedstat").read_text().split()[1]) / 1e9
+        except (OSError, IndexError, ValueError):
+            pass
+    with open("/proc/stat") as f:
+        steal = int(f.readline().split()[8]) / os.sysconf("SC_CLK_TCK")
+    return {"process_cpu_s": time.process_time(), "thread_cpu_s": time.thread_time(),
+            "wait_s": wait, "switches": resource.getrusage(resource.RUSAGE_SELF).ru_nivcsw,
+            "steal_s": steal}
+
+
 def window(s: SimpleNamespace, seconds: float, device):
     """Closed-loop steps for ``seconds``: each step the next batch of the
     pool, ending in a synchronise.  Returns the last step's outputs and
@@ -94,6 +114,22 @@ def traced_window(s: SimpleNamespace, seconds: float, device):
     return got, devtrace.collect(prof)
 
 
+def device_window(s: SimpleNamespace, seconds: float, device, report=sys.stderr):
+    """:func:`window` with the profiler recording the device's activity
+    alone, for end-to-end metrics of the device's time over every step;
+    returns its results and the device's operations, or None off a card."""
+    if torch.device(device).type != "cuda":
+        return window(s, seconds, device), None
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = window(s, seconds, device)
+    t0 = time.perf_counter()
+    ops = devtrace.collect_device(prof, len(got[2]))
+    print(f"device window: {len(ops.kernels)} kernels, {len(ops.copies)} copies, busy "
+          f"{devtrace.busy_ns(ops) / 1e6 / ops.steps:.5f} ms a step, read in "
+          f"{time.perf_counter() - t0:.1f} s", file=report)
+    return got, ops
+
+
 def check(cell: Cell, s: SimpleNamespace, out: judge.StepOutputs, k: int, seed: int, device,
           report=sys.stderr) -> Dict:
     """The numbers compared for the step ``out`` on batch ``k``, once the
@@ -108,10 +144,16 @@ def check(cell: Cell, s: SimpleNamespace, out: judge.StepOutputs, k: int, seed: 
     t0 = time.perf_counter()
     sc = reference.build(faces, device)
     sample = rays.sample(seed, traffic["rays_per_step"], cfg["check_rays"])
-    got = judge.numbers(sc, origin, dirs, absorption, out, sample, cfg, traffic)
+    got = judge.numbers(sc, origin, dirs, absorption, out, sample, cfg, traffic,
+                        _mesh(faces, traffic, device))
     print(f"check: {len(sample)} rays re-traced, the whole batch's lanes worked out, in "
           f"{time.perf_counter() - t0:.3f} s", file=report)
     return got
+
+
+def _mesh(faces, traffic: Dict, device):
+    """The welded faces, where the traffic's step is w.r.t. the vertices."""
+    return reference.weld(faces, device) if step_of(traffic).wrt_vertices else None
 
 
 def run(cell: Cell, seed: int, seconds: float, trace: bool, device, t_start: float,
@@ -125,11 +167,15 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device, t_start: flo
     setup_s = time.time() - t_start
     # A run whose set-up built the kernel library pays the build in setup_s.
     built = bool(_libraries() - libraries)
-    tr = None
+    tr = dev_ops = None
+    use0 = host_use()
     if trace:
         (out, k, step_ms, window_s), tr = traced_window(s, seconds, device)
+    elif any(m.device_window for m in cell.end_to_end):
+        (out, k, step_ms, window_s), dev_ops = device_window(s, seconds, device, report)
     else:
         out, k, step_ms, window_s = window(s, seconds, device)
+    use = {n: v - use0[n] for n, v in host_use().items()}
     peak = torch.cuda.max_memory_allocated() if cuda else 0
     q = np.percentile(step_ms, [5, 50, 95, 100])
     half = len(step_ms) // 2
@@ -138,12 +184,16 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device, t_start: flo
           f"{q[1]:.4f} p95 {q[2]:.4f} max {q[3]:.4f}; mean ms first half "
           f"{np.mean(step_ms[:half] or [0]):.4f} second half {np.mean(step_ms[half:]):.4f}",
           file=report)
+    print(f"host over the window and its reading: process cpu {use['process_cpu_s']:.3f} s, main thread cpu "
+          f"{use['thread_cpu_s']:.3f} s, threads waiting for a cpu {use['wait_s']:.3f} s, "
+          f"involuntary switches {use['switches']}, machine steal {use['steal_s']:.2f} s",
+          file=report)
     got = check(cell, s, out, k, seed, device, report)
     ok = judge.verdict(got, cell.limits)
     ctx = SimpleNamespace(steps=len(step_ms), step_ms=step_ms, window_s=window_s,
                           setup_s=setup_s, rays=cell.traffic["rays_per_step"],
-                          bounces=cell.traffic["bounces"], trace=tr, counts=counts,
-                          devtrace=devtrace)
+                          bounces=cell.traffic["bounces"], trace=tr, device=dev_ops,
+                          counts=counts, devtrace=devtrace)
     metrics = {}
     for m in (cell.per_layer if trace else cell.end_to_end):
         v = m.read(ctx)
@@ -186,11 +236,14 @@ def control_run(cell: Cell, seeds, device, report=sys.stderr) -> list:
     """The readings the limits are set from, in one process: set-up once,
     then for each seed its pool, a warm step and one more, and the numbers
     of that step; and on the same step the control, the reference in
-    bfloat16 put in the program's place."""
+    bfloat16 put in the program's place.  W.r.t. the vertices, ``detail``
+    holds what the check left out (``judge.comparable``) and the two
+    numbers with nothing left out."""
     cfg, traffic = cell.config, cell.traffic
     s = set_up(cell, seeds[0], device)
     sc = reference.build(s.faces, device)
     sc_low = reference.build(s.faces, device, dtype=torch.bfloat16)
+    mesh = _mesh(s.faces, traffic, device)
     absorption = s.system.absorption.detach()
     n = traffic["rays_per_step"]
     rows = []
@@ -202,11 +255,13 @@ def control_run(cell: Cell, seeds, device, report=sys.stderr) -> list:
         _sync(device)
         sample = rays.sample(seed, n, cfg["check_rays"])
         t0 = time.perf_counter()
-        prog = judge.numbers(sc, s.origin, s.dirs[0], absorption, out, sample, cfg, traffic)
+        detail = {}
+        prog = judge.numbers(sc, s.origin, s.dirs[0], absorption, out, sample, cfg, traffic,
+                             mesh, detail)
         print(f"check of seed {seed}: {time.perf_counter() - t0:.3f} s", file=report)
         ctl = judge.control_numbers(sc, sc_low, s.origin, s.dirs[0], absorption, out, sample,
-                                    cfg, traffic)
-        row = {"seed": seed, "program": prog, "control": ctl}
+                                    cfg, traffic, mesh)
+        row = {"seed": seed, "program": prog, "control": ctl, "detail": detail}
         print(row, file=report, flush=True)
         rows.append(row)
     return rows

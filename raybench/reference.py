@@ -21,17 +21,38 @@ loss as the histogram's sum):
 - Each hit's energy falls into the bin ``clip(floor(time / bin_dt), 0,
   bins - 1)`` of its arrival time ``path / sound_speed``; the loss is the
   histogram's sum, and its gradient is taken w.r.t. the absorption.
+- Soft bins (``bounce.py:280-293``'s tent rule): with ``pos = time / bin_dt
+  - 0.5``, ``i0 = clip(floor(pos), -1, bins - 1)`` and ``frac = clip(pos -
+  i0, 0, 1)`` (whose gradient is 1/2 at either bound), ``energy (1 -
+  frac)`` falls into bin ``max(i0, 0)`` and ``energy frac`` into ``min(i0 +
+  1, bins - 1)``.  The first moment is ``sum_i i h_i``.
+- W.r.t. the vertices: the faces' corners are welded as the topology
+  documents it, rounded to ``WELD_PRECISION`` decimals and then one vertex
+  for each distinct point, held in the scene's stated type (float32).  From
+  the program's hits, every lane is replayed in float64 with those vertices
+  as leaf tensors: the hit triangle is the one of
+  the hit polygon whose least barycentric coordinate at the program's hit
+  point is largest; ``t`` is the ray's crossing of that triangle's plane at
+  the vertices' positions, then the point, the unit normal, the specular
+  reflection, the path and the arrival time, the bins and the loss.  The
+  gradient is taken w.r.t. each lane's hit corners, ray by ray, and summed
+  at each vertex; beside it each vertex's scale, the sum of the largest
+  corner term of each (ray, triangle) that touches it, which the check
+  holds the vertex's gap to.
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
 MIN_T = 1e-10
 EDGE_EPS = 1e-4
+# The topology's weld: corners rounded to this many decimals are one vertex
+# where they are equal (``Topology.build``'s documented default).
+WELD_PRECISION = 15
 # Elements of one (rays x triangles) block of the brute-force test.
 BLOCK = 1 << 25
 
@@ -276,13 +297,201 @@ def histogram(energy: torch.Tensor, time: torch.Tensor, hit: torch.Tensor, bins:
     return h.index_add(0, b[hit], energy[hit])
 
 
+def soft_histogram(energy: torch.Tensor, time: torch.Tensor, hit: torch.Tensor, bins: int,
+                   bin_dt: float) -> torch.Tensor:
+    """The soft (tent) histogram of the hit lanes, in ``energy``'s precision;
+    differentiable in ``energy`` and ``time``."""
+    pos = time / bin_dt - 0.5
+    i0 = torch.clamp(torch.floor(pos.detach()), -1, bins - 1)
+    zero, one = pos.new_zeros(()), pos.new_ones(())
+    # min(max(.)) and not clamp: their gradient is 1/2 at a bound, clip's.
+    frac = torch.minimum(torch.maximum(pos - i0, zero), one)
+    # Clamped again as integers: bins - 1 need not be exact in a low precision.
+    i0 = i0.long().clamp(-1, bins - 1)
+    lo, hi = torch.clamp(i0, min=0), torch.clamp(i0 + 1, max=bins - 1)
+    e_hi = energy * frac
+    e_lo = energy - e_hi
+    h = torch.zeros(bins, dtype=energy.dtype, device=energy.device)
+    return h.index_add(0, lo[hit], e_lo[hit]).index_add(0, hi[hit], e_hi[hit])
+
+
+def loss_of(h: torch.Tensor, first_moment: bool) -> torch.Tensor:
+    """The histogram's sum, or its first moment ``sum_i i h_i``."""
+    if not first_moment:
+        return h.sum()
+    return (h * torch.arange(h.shape[0], dtype=h.dtype, device=h.device)).sum()
+
+
 def loss_and_grad(hit, poly, t, absorption: torch.Tensor, sound_speed: float, bins: int,
-                  bin_dt: float):
-    """``(energy, time, histogram, d(sum of histogram)/d(absorption))`` of
-    the lanes given by their hits, in ``absorption``'s precision."""
+                  bin_dt: float, soft: bool = False, first_moment: bool = False):
+    """``(energy, time, histogram, d(loss)/d(absorption))`` of the lanes
+    given by their hits, in ``absorption``'s precision; the loss is the
+    histogram's sum unless ``first_moment``, the bins hard unless
+    ``soft``."""
     a = absorption.detach().clone().requires_grad_()
     with torch.enable_grad():
         energy, time = lanes(hit, poly, t, a, sound_speed)
-        h = histogram(energy, time, hit, bins, bin_dt)
-        (g,) = torch.autograd.grad(h.sum(), a)
+        if soft:
+            h = soft_histogram(energy, time, hit, bins, bin_dt)
+        else:
+            h = histogram(energy, time, hit, bins, bin_dt)
+        (g,) = torch.autograd.grad(loss_of(h, first_moment), a)
     return energy.detach(), time.detach(), h.detach(), g
+
+
+class Mesh(NamedTuple):
+    """The faces welded: the vertices (float64) and each triangle's corners
+    as vertex ids, with the triangles of each polygon."""
+
+    vertices: torch.Tensor  # (V, 3) f64
+    tri_vid: torch.Tensor  # (T, 3) i64
+    first_tri: torch.Tensor  # (P,) i64: a polygon's first triangle
+    two: torch.Tensor  # (P,) bool: a quad, whose second triangle follows
+
+
+def weld(chunks: Sequence[np.ndarray], device, precision: int = WELD_PRECISION) -> Mesh:
+    """The faces' mesh on ``device``: every corner rounded to ``precision``
+    decimals, one vertex for each distinct point."""
+    tris_np, poly_np = triangles(chunks)
+    corners = torch.round(torch.from_numpy(tris_np).to(device).reshape(-1, 3),
+                          decimals=precision)
+    ids = _vertex_ids(corners)
+    n_v = int(ids.max()) + 1 if ids.numel() else 0
+    vertices = torch.zeros(n_v, 3, dtype=torch.float64, device=device)
+    vertices[ids] = corners + 0.0
+    poly = torch.from_numpy(poly_np).to(device)
+    n_t = poly.shape[0]
+    n_p = int(poly.max()) + 1 if n_t else 0
+    first = torch.full((n_p,), n_t, dtype=torch.int64, device=device)
+    first.scatter_reduce_(0, poly, torch.arange(n_t, device=device), reduce="amin")
+    count = torch.zeros(n_p, dtype=torch.int64, device=device).index_add_(
+        0, poly, torch.ones_like(poly))
+    return Mesh(vertices, ids.reshape(n_t, 3), first, count > 1)
+
+
+def match_vertices(ref: torch.Tensor, prog: torch.Tensor):
+    """``perm`` with ``prog[perm[i]]`` the program's vertex at the reference
+    vertex ``ref[i]``'s position, both as float32 (the program's vertices'
+    type); None where the two sets are not one-to-one."""
+    n = ref.shape[0]
+    if prog.shape[0] != n:
+        return None
+    ids = _vertex_ids(torch.cat([ref.float(), prog.to(ref.device).float()]).double())
+    ids_r, ids_p = ids[:n], ids[n:]
+    if (torch.unique(ids_r).numel() != n or torch.unique(ids_p).numel() != n
+            or not torch.equal(torch.sort(ids_r).values, torch.sort(ids_p).values)):
+        return None
+    at = torch.empty(int(ids.max()) + 1, dtype=torch.int64, device=ids.device)
+    at[ids_p] = torch.arange(n, device=ids.device)
+    return at[ids_r]
+
+
+def _least_barycentric(c: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """The least barycentric coordinate of the points ``p`` (N, 3) in the
+    plane of the triangles ``c`` (N, 3, 3)."""
+    e1, e2, w = c[:, 1] - c[:, 0], c[:, 2] - c[:, 0], p - c[:, 0]
+    d11, d12, d22 = _dot(e1, e1), _dot(e1, e2), _dot(e2, e2)
+    dw1, dw2 = _dot(w, e1), _dot(w, e2)
+    den = d11 * d22 - d12 * d12
+    den = torch.where(den != 0, den, 1.0)
+    b1 = (d22 * dw1 - d12 * dw2) / den
+    b2 = (d11 * dw2 - d12 * dw1) / den
+    return torch.minimum(torch.minimum(b1, b2), 1.0 - b1 - b2)
+
+
+def hit_triangles(mesh: Mesh, vertices: torch.Tensor, poly: torch.Tensor,
+                  point: torch.Tensor) -> torch.Tensor:
+    """Each lane's triangle of its polygon ``poly`` (clamped at 0) that
+    holds its ``point``: of a quad's two, the one whose least barycentric
+    coordinate is larger (the first where equal)."""
+    p = torch.clamp(poly.long(), min=0)
+    a = mesh.first_tri[p]
+    b = torch.where(mesh.two[p], a + 1, a)
+    v = vertices.detach()
+    pt = point.to(v.dtype)
+    wa = _least_barycentric(v[mesh.tri_vid[a]], pt)
+    wb = _least_barycentric(v[mesh.tri_vid[b]], pt)
+    return torch.where(wb > wa, b, a)
+
+
+class Replay(NamedTuple):
+    """The replay of every lane, ``(B, N)`` each: the arrival time
+    (differentiable in the vertices), the hit triangle, and ``|cos|`` of the
+    angle at which the ray meets it (1 where the lane did not hit); and the
+    hit triangle's corners ``(B, N, 3, 3)``, gathered from the vertices, which
+    the lane's terms flow through; once the gradient is taken, ``term``
+    ``(B, N)``, the norm of the largest of the ray's terms at those
+    corners."""
+
+    time: torch.Tensor
+    tri: torch.Tensor
+    cos: torch.Tensor
+    corners: torch.Tensor
+    term: Optional[torch.Tensor] = None
+
+
+def replay(mesh: Mesh, vertices: torch.Tensor, origin: torch.Tensor, direction: torch.Tensor,
+           hit: torch.Tensor, poly: torch.Tensor, point: torch.Tensor,
+           sound_speed: float) -> Replay:
+    """Every lane replayed from the program's hits (whether each bounce hit,
+    the polygon, the point) at ``vertices``, in their precision."""
+    dt = vertices.dtype
+    o = origin.to(dt)
+    d = direction.to(dt)
+    d = d / torch.linalg.vector_norm(d, dim=1, keepdim=True)
+    dist = torch.zeros(o.shape[0], dtype=dt, device=o.device)
+    tri = torch.stack([hit_triangles(mesh, vertices, poly[b], point[b])
+                       for b in range(hit.shape[0])])
+    corners = vertices[mesh.tri_vid[tri]]
+    times, coss = [], []
+    for b in range(hit.shape[0]):
+        h = hit[b]
+        c = corners[b]
+        n = _cross(c[:, 1] - c[:, 0], c[:, 2] - c[:, 0])
+        den = _dot(n, d)
+        # Lanes that did not hit keep finite terms, so no NaN reaches the
+        # gradient through the branch not taken.
+        ok = h & (den != 0)
+        t = torch.where(ok, _dot(n, c[:, 0] - o) / torch.where(ok, den, 1.0), 0.0)
+        dist = dist + t
+        times.append(dist / sound_speed)
+        ln = torch.linalg.vector_norm(n, dim=1, keepdim=True)
+        nh = n / torch.where(ln > 0, ln, 1.0)
+        coss.append(torch.where(h, _dot(d, nh).detach().abs(), 1.0))
+        o = torch.where(h[:, None], o + t[:, None] * d, o)
+        d = torch.where(h[:, None], d - 2.0 * _dot(d, nh)[:, None] * nh, d)
+    return Replay(torch.stack(times), tri, torch.stack(coss), corners)
+
+
+def vertex_loss_and_grad(mesh: Mesh, origin, direction, hit, poly, t, point,
+                         absorption: torch.Tensor, sound_speed: float, bins: int, bin_dt: float,
+                         soft: bool = True, first_moment: bool = True, dtype=torch.float64,
+                         scene_dtype=torch.float32):
+    """``(energy, time, histogram, d(loss)/d(vertices), scale, replay)`` of
+    the lanes given by the program's hits, replayed in ``dtype`` at the
+    mesh's vertices as the scene's type ``scene_dtype`` holds them: the
+    gradient ``(V, 3)`` in the mesh's vertex order, the sum of the terms
+    each ray brings to the corners of each triangle it hit; and each
+    vertex's ``scale`` ``(V,)``, the sum over those (ray, triangle) pairs
+    that touch it of the pair's largest corner term (its norm), which the
+    replay carries as ``term``."""
+    v = mesh.vertices.to(scene_dtype).to(dtype).detach().requires_grad_()
+    with torch.enable_grad():
+        energy, _ = lanes(hit, poly, t, absorption.detach().to(dtype), sound_speed)
+        rp = replay(mesh, v, origin, direction, hit, poly, point, sound_speed)
+        if soft:
+            h = soft_histogram(energy, rp.time, hit, bins, bin_dt)
+        else:
+            h = histogram(energy, rp.time, hit, bins, bin_dt)
+        loss = loss_of(h, first_moment)
+        (terms,) = (torch.autograd.grad(loss, rp.corners, allow_unused=True)
+                    if loss.requires_grad else (None,))
+    if terms is None:
+        terms = torch.zeros_like(rp.corners)
+    ids = mesh.tri_vid[rp.tri].reshape(-1)
+    g = torch.zeros_like(v).index_add_(0, ids, terms.reshape(-1, 3))
+    largest = torch.linalg.vector_norm(terms, dim=-1).amax(dim=-1, keepdim=True)
+    scale = torch.zeros(v.shape[0], dtype=dtype, device=v.device).index_add_(
+        0, ids, largest.expand(-1, -1, 3).reshape(-1))
+    rp = rp._replace(time=rp.time.detach(), corners=rp.corners.detach(), term=largest[..., 0])
+    return energy.detach(), rp.time, h.detach(), g, scale, rp

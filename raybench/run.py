@@ -4,7 +4,9 @@
     python3 raybench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 From the root of a checkout.  ``--trace 0`` measures the cell's end-to-end
-metrics over ``--seconds`` of closed-loop steps; ``--trace 1`` profiles
+metrics over ``--seconds`` of closed-loop steps (under the profiler's device
+activity alone where one of them reads the device's time, as
+``metrics/step_device_ms.py`` does); ``--trace 1`` profiles
 the steps and reads its per-layer metrics.  Either way the window's last
 step is checked against the plain reference once the window has closed,
 and the last line of standard output is one JSON object.  Without as many

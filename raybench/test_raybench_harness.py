@@ -10,6 +10,7 @@ import sys
 import textwrap
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import pytest
 import torch
@@ -173,3 +174,46 @@ def test_planted_faults_fail(monkeypatch, fault):
     assert r["correct"] is False
     if fault == "energy":  # the sampled rays' own trace sees it too, not only their lanes
         assert r["checks"]["energy_gap"]["value"] > r["checks"]["energy_gap"]["limit"]
+
+
+class _Event:
+    def __init__(self, name, start, end, cuda=True):
+        self._v = (name, start, end, cuda)
+
+    def name(self):
+        return self._v[0]
+
+    def start_ns(self):
+        return self._v[1]
+
+    def end_ns(self):
+        return self._v[2]
+
+    def device_type(self):
+        return torch.autograd.DeviceType.CUDA if self._v[3] else torch.autograd.DeviceType.CPU
+
+
+def test_step_device_ms_reads_the_devices_union_a_step():
+    """The device's activity alone, read from a profile: overlapping kernels
+    count once, copies count, host events and the harness's spans do not;
+    per step of the window.  The cells that report it profile their
+    untraced window; none reads it without a card."""
+    from raybench import devtrace
+
+    events = [_Event("k1", 1_000_000, 2_000_000), _Event("k2", 1_500_000, 3_000_000),
+              _Event("Memset (Device)", 6_000_000, 6_500_000),
+              _Event(devtrace.STEP, 0, 9_000_000), _Event("cudaLaunchKernel", 0, 9_000_000, False)]
+    prof = SimpleNamespace(profiler=SimpleNamespace(
+        kineto_results=SimpleNamespace(events=lambda: events)))
+    tr = devtrace.collect_device(prof, 2)
+    assert [o.name for o in tr.kernels] == ["k1", "k2"] and len(tr.copies) == 1
+    assert tr.window == (1_000_000, 6_500_000) and tr.steps == 2
+    reader = cells._reader("step_device_ms", ROOT / "raybench")
+    assert reader.read(SimpleNamespace(device=tr, devtrace=devtrace)) == pytest.approx(1.25)
+    assert reader.read(SimpleNamespace(device=None, devtrace=devtrace)) is None
+    for name in ("c3_octree_32k_fwdbwd", "c4_kd650k_vertices_fwdbwd"):
+        cell = cells.resolve(name, ROOT)
+        assert [m.name for m in cell.end_to_end if m.device_window] == ["step_device_ms"]
+    cell = _tiny("c3_octree_32k_fwdbwd", bounces=2)
+    r = harness.run(cell, 2**31 + 7, 0.1, False, "cpu", time.time(), report=open(os.devnull, "w"))
+    assert r["correct"] is True and "step_device_ms" not in r["metrics"]

@@ -25,7 +25,10 @@ def _digest(chunks) -> str:
     return h.hexdigest()
 
 
-@pytest.mark.parametrize("config", ["eval3_hall_octree", "eval5_shell5m_grid256"])
+CONFIGS = ["eval3_hall_octree", "eval4_shell650k_kdtree", "eval5_shell5m_grid256"]
+
+
+@pytest.mark.parametrize("config", CONFIGS)
 def test_scene_digest(config):
     cfg = json.loads((ROOT / "raybench" / "configs" / f"{config}.json").read_text())
     chunks = shapes.scene(cfg["scene"])
@@ -65,3 +68,13 @@ def test_frozen_shapes_equal_the_ports(shape, args, port):
     from hare_tpu_torch.mesh import shapes as port_shapes
 
     assert np.array_equal(shapes.faces(shape, args), np.stack(port(port_shapes)))
+
+
+def test_scene_equals_the_ports_configuration():
+    """Eval config 4's ``big_scene("650k")``, as the port's
+    ``benchmarks/configs.py`` builds it."""
+    from hare_tpu_torch.benchmarks.configs import big_scene
+
+    cfg = json.loads((ROOT / "raybench" / "configs" / "eval4_shell650k_kdtree.json").read_text())
+    ours = np.concatenate(shapes.scene(cfg["scene"]))
+    assert np.array_equal(ours, np.concatenate(big_scene("650k")))

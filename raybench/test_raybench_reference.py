@@ -75,8 +75,8 @@ def test_reference_in_bfloat16_departs():
 def test_counts_are_floors_of_the_ports_work():
     """The shape counts never exceed the port's own count of the work a
     step did (its plain walk's slots and node rows; K4's bytes with the
-    tables), so a share against them cannot pass 100% where the port's
-    count would not."""
+    tables; A3's with the triangles and vertices it reads), so a share
+    against them cannot pass 100% where the port's count would not."""
     import hare_tpu_torch as th
     from hare_tpu_torch.accel.common import tally_rows, tally_runs
     from hare_tpu_torch.benchmarks import bounds
@@ -93,6 +93,10 @@ def test_counts_are_floors_of_the_ports_work():
     assert counts.traverse_bound_ms(n, 1) <= walk["bound_ms"]
     k4 = bounds.bounce_step_bound(hr.poly_id)
     assert counts.bounce_bound_ms(n, 1) <= k4["bound_ms"]
+    a3 = bounds.finalize_hits_bwd_bound(hr.tri_id, hr.hit, sp.scene.tri_meta)
+    assert counts.finalize_bwd_bound_ms(n, 1) <= a3["bound_ms"]
+    assert counts.FINALIZE_BWD_RAY_BYTES == bounds.FINALIZE_BWD_RAY_BYTES
+    assert counts.FINALIZE_BWD_MISS_OPS == bounds.FINALIZE_BWD_OPS[False]
     assert counts.TRI_TEST_OPS == bounds.TRI_TEST_OPS["watertight"]
     assert counts.BOUNCE_IN_BYTES == bounds.BOUNCE_IN_BYTES
     assert counts.BOUNCE_OUT_BYTES == bounds.BOUNCE_OUT_BYTES
